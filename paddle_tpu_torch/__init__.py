@@ -1,0 +1,24 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of `paddle_tpu`, for an
+NVIDIA H100.
+
+The JAX package `paddle_tpu` beside it is the reference; this package
+imports neither `jax` nor `paddle_tpu` and keeps its own copy of every
+host-side piece it needs.  The layout mirrors the reference so a reader
+finds counterparts by path:
+
+  framework/   flags and the device rule
+  ops/         the op layer: plain PyTorch versions beside hand-written
+               Hopper kernels (csrc/*.cu, bound through ctypes)
+  models/      Llama decode surface, weight carry-over by name
+  inference/   paged KV allocator, greedy generate, ContinuousBatcher
+
+Device rule: entry points (model constructors, ContinuousBatcher,
+generate) run on `cuda` unless the caller passes `device="cpu"`; with no
+CUDA device and no explicit CPU request they raise.
+
+Importing this package builds nothing and touches no GPU: kernels are
+compiled on first launch (ops/_build.py).
+"""
+from __future__ import annotations
+
+__all__ = ["framework", "ops", "models", "inference"]

@@ -1,0 +1,336 @@
+"""Llama — the decode surface, in PyTorch.
+
+Counterpart of `paddle_tpu/models/llama.py`: `LlamaConfig` (:60),
+`llama_tiny_config` (:112), `llama_7b_config` (:132), and the cached
+decode paths of `LlamaAttention` (:248-310), `LlamaMLP` (:350),
+`LlamaDecoderLayer` (:475-515), `LlamaModel` (:554-634) and
+`LlamaForCausalLM` (:673-692).  Training (`forward`, the loss) comes in
+a later slice.
+
+Parameters keep the reference's names and its [in, out] layout
+(`x @ w`) — `llama.embed_tokens`, `llama.layers.N.self_attn.q_proj`,
+…, `lm_head` — so weights carry over by name with no transposes
+(models/convert.py).  Random init draws from a seeded
+`torch.Generator` at std 1/sqrt(fan-in) as the reference's
+`_init_weight` (:139) does (the two packages' random streams differ;
+parity tests load the same numpy weights into both).
+
+The KV state (dense ring buffers or the paged pool) is updated IN
+PLACE: the reference's pure functions return new buffers that the
+compiled program donates back; here `forward_cached(_paged)` writes
+into the caller's tensors and returns the same objects.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from .. import ops
+from ..framework.device import resolve_device
+from ..framework.flags import get_flag
+
+__all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
+           "llama_tiny_config", "llama_7b_config"]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+@dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+    dtype: str = "bfloat16"
+    # storage dtype of the parameters; None = the compute dtype
+    param_dtype: str | None = None
+
+    @property
+    def head_dim(self):
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def compute_dtype(self):
+        return _DTYPES[self.dtype]
+
+    @property
+    def storage_dtype(self):
+        return _DTYPES[self.param_dtype or self.dtype]
+
+
+def llama_tiny_config(**kw):
+    cfg = LlamaConfig(vocab_size=512, hidden_size=128,
+                      intermediate_size=384, num_hidden_layers=2,
+                      num_attention_heads=4, num_key_value_heads=4,
+                      max_position_embeddings=256)
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def llama_7b_config(**kw):
+    cfg = LlamaConfig()
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def _resolve_kv_dtype(cfg, kv_dtype=None):
+    """(torch dtype, quantized?) for the paged KV pool: explicit arg
+    beats FLAGS_kv_cache_dtype beats the model compute dtype."""
+    name = kv_dtype if kv_dtype is not None \
+        else get_flag("kv_cache_dtype", "auto")
+    name = str(name)
+    if name in ("auto", "", "None"):
+        return cfg.compute_dtype, False
+    table = {"int8": (torch.int8, True),
+             "bfloat16": (torch.bfloat16, False),
+             "bf16": (torch.bfloat16, False),
+             "float16": (torch.float16, False),
+             "fp16": (torch.float16, False),
+             "float32": (torch.float32, False),
+             "fp32": (torch.float32, False)}
+    if name not in table:
+        raise ValueError(f"unknown kv_cache_dtype {name!r}; one of "
+                         f"auto|{'|'.join(table)}")
+    return table[name]
+
+
+def _param(shape, std, cfg, device, gen):
+    w = torch.empty(shape, dtype=cfg.storage_dtype, device=device)
+    w.normal_(0.0, std, generator=gen)
+    return nn.Parameter(w, requires_grad=False)
+
+
+class LlamaRMSNorm(nn.Module):
+    def __init__(self, config: LlamaConfig, device):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.ones(config.hidden_size, dtype=config.storage_dtype,
+                       device=device), requires_grad=False)
+        self.eps = config.rms_norm_eps
+
+    def forward(self, x):
+        return ops.rms_norm(x, self.weight.to(x.dtype), self.eps)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config: LlamaConfig, device, gen):
+        super().__init__()
+        self.config = config
+        h, hd = config.hidden_size, config.head_dim
+        nh, nkv = config.num_attention_heads, config.num_key_value_heads
+        std = 1.0 / math.sqrt(h)
+        self.q_proj = _param((h, nh * hd), std, config, device, gen)
+        self.k_proj = _param((h, nkv * hd), std, config, device, gen)
+        self.v_proj = _param((h, nkv * hd), std, config, device, gen)
+        self.o_proj = _param((nh * hd, h), std, config, device, gen)
+
+    def _decode_qkv_rope(self, x, cos, sin):
+        """Projection + rope shared by BOTH KV layouts, so the dense and
+        paged paths differ only in where K/V land."""
+        cfg = self.config
+        b, s, _ = x.shape
+        q = (x @ self.q_proj.to(x.dtype)).reshape(
+            b, s, cfg.num_attention_heads, cfg.head_dim)
+        k = (x @ self.k_proj.to(x.dtype)).reshape(
+            b, s, cfg.num_key_value_heads, cfg.head_dim)
+        v = (x @ self.v_proj.to(x.dtype)).reshape(
+            b, s, cfg.num_key_value_heads, cfg.head_dim)
+        q, k = ops.apply_rope(q, k, cos, sin)
+        return q, k, v
+
+    def forward_cached(self, x, cos, sin, k_cache, v_cache, pos):
+        """Dense decode attention: write this step's K/V into the ring
+        buffers at `pos` (in place), attend against the whole buffer."""
+        b, s, _ = x.shape
+        q, k, v = self._decode_qkv_rope(x, cos, sin)
+        ops.dense_kv_update(k_cache, v_cache, pos, k, v)
+        out = ops.cached_attention(q, k_cache, v_cache, pos)
+        return out.reshape(b, s, -1) @ self.o_proj.to(x.dtype)
+
+    def forward_cached_paged(self, x, cos, sin, cache, page_table, pos,
+                             layer, rows):
+        """Paged decode attention: K/V land in the shared page pool at
+        `rows` (ops.paged_write_rows of the slots' page tables, in
+        place); attention walks the pages."""
+        b, s, _ = x.shape
+        q, k, v = self._decode_qkv_rope(x, cos, sin)
+        ops.paged_kv_write(cache["k"], cache["v"], rows, k, v, layer)
+        out = ops.paged_attention(q, cache["k"], cache["v"], page_table,
+                                  pos, layer)
+        return out.reshape(b, s, -1) @ self.o_proj.to(x.dtype)
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config: LlamaConfig, device, gen):
+        super().__init__()
+        h, i = config.hidden_size, config.intermediate_size
+        std = 1.0 / math.sqrt(h)
+        self.gate_proj = _param((h, i), std, config, device, gen)
+        self.up_proj = _param((h, i), std, config, device, gen)
+        self.down_proj = _param((i, h), 1.0 / math.sqrt(i), config, device,
+                                gen)
+
+    def forward(self, x):
+        cd = x.dtype
+        return ops.swiglu(x @ self.gate_proj.to(cd),
+                          x @ self.up_proj.to(cd)) @ self.down_proj.to(cd)
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config: LlamaConfig, device, gen):
+        super().__init__()
+        self.config = config
+        self.self_attn = LlamaAttention(config, device, gen)
+        self.mlp = LlamaMLP(config, device, gen)
+        self.input_layernorm = LlamaRMSNorm(config, device)
+        self.post_attention_layernorm = LlamaRMSNorm(config, device)
+
+    def _block_cached(self, x, attend):
+        """norm → attend(h) → residual → norm → MLP → residual;
+        `attend` is the only point where the KV layouts differ."""
+        x = x + attend(self.input_layernorm(x))
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+    def forward_cached(self, x, cos, sin, k_cache, v_cache, pos):
+        return self._block_cached(x, lambda h: self.self_attn.forward_cached(
+            h, cos, sin, k_cache, v_cache, pos))
+
+    def forward_cached_paged(self, x, cos, sin, cache, page_table, pos,
+                             layer, rows):
+        return self._block_cached(
+            x, lambda h: self.self_attn.forward_cached_paged(
+                h, cos, sin, cache, page_table, pos, layer, rows))
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, config: LlamaConfig, device, gen):
+        super().__init__()
+        self.config = config
+        self.embed_tokens = _param((config.vocab_size, config.hidden_size),
+                                   1.0 / math.sqrt(config.hidden_size),
+                                   config, device, gen)
+        self.layers = nn.ModuleList(
+            [LlamaDecoderLayer(config, device, gen)
+             for _ in range(config.num_hidden_layers)])
+        self.norm = LlamaRMSNorm(config, device)
+
+    def _embed_rope(self, input_ids, pos):
+        """Token embeddings and per-position cos/sin [b, s, d] for
+        input_ids [b, s] starting at `pos` (int or [b] tensor)."""
+        cfg = self.config
+        dev = self.embed_tokens.device
+        s = input_ids.shape[1]
+        lanes = torch.arange(s, dtype=torch.int32, device=dev)
+        if torch.is_tensor(pos) and pos.ndim == 1:
+            positions = pos.to(torch.int32)[:, None] + lanes[None]
+        else:
+            positions = int(pos) + lanes
+        cos, sin = ops.rope_cos_sin(s, cfg.head_dim, cfg.rope_theta,
+                                    torch.float32, position_ids=positions)
+        x = self.embed_tokens[input_ids.to(torch.int64)].to(cfg.compute_dtype)
+        return x, cos.contiguous(), sin.contiguous()
+
+    def init_cache(self, batch: int, max_len: int):
+        """Per-layer dense KV ring buffers [batch, max_len, n_kv, hd] in
+        the compute dtype."""
+        cfg = self.config
+        shape = (batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
+        dev = self.embed_tokens.device
+        return [(torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
+                 torch.zeros(shape, dtype=cfg.compute_dtype, device=dev))
+                for _ in self.layers]
+
+    def init_paged_cache(self, num_pages: int, page_size: int,
+                         kv_dtype=None):
+        """ONE page pool per K and V, [num_pages, page_size, layers,
+        n_kv, head_dim], shared by every serving slot through per-slot
+        page tables.  Page 0 is the reserved null page (unmapped table
+        entries point there; reads of its rows are position-masked)."""
+        cfg = self.config
+        dt, quant = _resolve_kv_dtype(cfg, kv_dtype)
+        if quant:
+            raise NotImplementedError("int8 paged KV pools are not ported "
+                                      "yet")
+        shape = (num_pages, page_size, len(self.layers),
+                 cfg.num_key_value_heads, cfg.head_dim)
+        dev = self.embed_tokens.device
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+    def forward_cached_paged(self, input_ids, cache, page_table, pos):
+        """input_ids [b, s]; cache from init_paged_cache (updated in
+        place); page_table [b, P_slot] int32; pos [b] int32.  Returns
+        (hidden [b, s, h], cache)."""
+        x, cos, sin = self._embed_rope(input_ids, pos)
+        # where this step's K/V rows land: the same for every layer
+        rows = ops.paged_write_rows(page_table, pos, input_ids.shape[1],
+                                    cache["k"].shape[1])
+        for li, layer in enumerate(self.layers):
+            x = layer.forward_cached_paged(x, cos, sin, cache, page_table,
+                                           pos, li, rows)
+        return self.norm(x), cache
+
+    def forward_cached(self, input_ids, cache, pos):
+        """input_ids [b, s]; cache from init_cache (updated in place);
+        pos an int (uniform depth) or a [b] tensor.  Returns (hidden,
+        cache)."""
+        x, cos, sin = self._embed_rope(input_ids, pos)
+        for layer, (kc, vc) in zip(self.layers, cache):
+            x = layer.forward_cached(x, cos, sin, kc, vc, pos)
+        return self.norm(x), cache
+
+
+class LlamaForCausalLM(nn.Module):
+    """Llama with an lm head.  `device` None means CUDA (raises without
+    one); pass device="cpu" to run the plain versions on the host.
+    Weights are random from `seed` until models.convert loads real
+    ones."""
+
+    def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        self.config = config
+        self.llama = LlamaModel(config, dev, gen)
+        if not config.tie_word_embeddings:
+            self.lm_head = _param((config.hidden_size, config.vocab_size),
+                                  1.0 / math.sqrt(config.hidden_size),
+                                  config, dev, gen)
+
+    def init_cache(self, batch: int, max_len: int):
+        return self.llama.init_cache(batch, max_len)
+
+    def init_paged_cache(self, num_pages: int, page_size: int,
+                         kv_dtype=None):
+        return self.llama.init_paged_cache(num_pages, page_size, kv_dtype)
+
+    def _lm_logits(self, x):
+        if self.config.tie_word_embeddings:
+            return x @ self.llama.embed_tokens.t().to(x.dtype)
+        return x @ self.lm_head.to(x.dtype)
+
+    def forward_cached_paged(self, input_ids, cache, page_table, pos):
+        """Returns (logits [b, s, V], cache) — the pool updated in
+        place."""
+        x, cache = self.llama.forward_cached_paged(input_ids, cache,
+                                                   page_table, pos)
+        return self._lm_logits(x), cache
+
+    def forward_cached(self, input_ids, cache, pos):
+        """Returns (logits [b, s, V], cache) — the ring buffers updated
+        in place."""
+        x, cache = self.llama.forward_cached(input_ids, cache, pos)
+        return self._lm_logits(x), cache
