@@ -10,6 +10,7 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace ptt {
 
@@ -91,6 +92,53 @@ __device__ __forceinline__ void store_vec(T* p, const float* f) {
 
 __host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// Two values as one 32-bit word of 16-bit elements, `lo` in the low
+// half (the element at the lower address), rounded to nearest.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const T a = from_f<T>(lo), b = from_f<T>(hi);
+  unsigned short ua, ub;
+  memcpy(&ua, &a, 2);
+  memcpy(&ub, &b, 2);
+  return static_cast<uint32_t>(ua) | (static_cast<uint32_t>(ub) << 16);
+}
+
+__device__ __forceinline__ uint32_t ld32(const void* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += a . b for one warp-wide m16n8k16 tensor-core product: A 16x16
+// (row-major fragments a[4]), B 16x8 (column fragments b[2]), fp32
+// accumulators d[4] (PTX ISA, "Matrix Fragments for mma.m16n8k16").
+template <typename T>
+__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
+                                          const uint32_t* b);
+
+template <>
+__device__ __forceinline__ void mma_16816<__nv_bfloat16>(float* d,
+                                                         const uint32_t* a,
+                                                         const uint32_t* b) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+#endif
+}
+
+template <>
+__device__ __forceinline__ void mma_16816<__half>(float* d, const uint32_t* a,
+                                                  const uint32_t* b) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+#endif
 }
 
 }  // namespace ptt

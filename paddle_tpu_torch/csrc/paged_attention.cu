@@ -16,13 +16,18 @@
 // index map (paged_attention.py:142-146) — so the least time is the
 // live K/V pages of every (slot, kv head) plus q and the output, over
 // 3.35 TB/s: ~18 us per layer for the 8 slots of chip_smoke.py's decode
-// shape.  A page-walk iteration costs a global-load latency plus one
-// warp's fp32 math per query row, so a long walk in one block is
-// latency-bound; the walk is therefore split across blocks.  Tensor-core
-// math (mma / wgmma), cp.async / TMA double-buffering and persistent
-// scheduling are later work.
+// shape.  A page-walk iteration costs a global-load latency plus the
+// math of the block's query rows, so a long walk in one block is
+// latency-bound; the walk is therefore split across blocks.  Math on
+// CUDA cores reads two shared-memory operands per FMA, which made
+// chunked prefill (32 query lanes, 32-128 rows per block) ~40x slower
+// than its byte bound, so bf16/fp16 pools with head_dim 64 or 128,
+// pages of a multiple of 16 rows and at most 128 query rows per block
+// take a tensor-core kernel (mma.sync m16n8k16, fp32 accumulate); fp32
+// pools and other shapes take the CUDA-core kernel.  wgmma, cp.async /
+// TMA double-buffering and persistent scheduling are later work.
 //
-// Design:
+// Design (both kernels):
 //   * grid (n_kv, B, splits): one block per (slot, kv head, split) —
 //     32 x 8 x 8 at the 7B serving decode shape.  The TPU's sequential
 //     grid axis over pages becomes a loop inside the block over that
@@ -32,18 +37,22 @@
 //   * the block reads the WHOLE 5-D pool through the layer index and
 //     strides; no per-layer slice is ever copied.
 //   * each page's K and V tiles [ps, d] are loaded once into shared
-//     memory (fp32; K rows padded to d+1 so a lane per key reads a
-//     distinct bank), shared by the C*group query rows of the block.
-//   * each warp owns query rows; per group of <= 32 keys a lane
-//     computes one key's dot product, the warp reduces max and sum with
-//     shuffles, and lanes own output dims for the P.V update.  The
-//     accumulator, running max and normaliser live in shared memory.
+//     memory, shared by the C*group query rows of the block.
+//   * CUDA-core kernel: tiles in fp32, K rows padded to d+1 so a lane
+//     per key reads a distinct bank; each warp owns query rows; per
+//     group of <= 32 keys a lane computes one key's dot product, the
+//     warp reduces max and sum with shuffles, and lanes own output dims
+//     for the P.V update.  The accumulator, running max and normaliser
+//     live in shared memory.
+//   * tensor-core kernel: see paged_attention_mma_kernel.
 //   * masking is by position only (kpos <= qpos), never by page
 //     content: free slots point at the null page 0, whose rows are junk.
 //     Key row 0 is visible to every query (qpos >= 0), so every row has
 //     at least one valid key and the normaliser is positive.
 //   * query rows beyond the shared-memory budget are processed in row
 //     tiles, each re-walking the pages (never at the serving shapes).
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -254,6 +263,258 @@ __global__ void paged_attention_merge(const float* __restrict__ part_acc,
   }
 }
 
+// Offset of query row r (= c*group + g) of kv head kvh, slot b, in q/out.
+__device__ __forceinline__ long long q_row(int b, int C, int h, int kvh,
+                                           int group, int r, int d) {
+  const int c = r / group;
+  const int g = r - c * group;
+  return ((static_cast<long long>(b) * C + c) * h + kvh * group + g) * d;
+}
+
+// Tensor-core variant for bf16/fp16 (FlashAttention-2 register layout):
+// each warp owns 16 query rows; per 16-key tile it takes S = Q.K^T and
+// O += P.V with m16n8k16 mma.sync and runs the online softmax on the S
+// fragments in registers.  P is rounded to T before P.V, as the plain
+// version rounds its softmax weights.  The page's K tile sits in shared
+// memory row-major and its V tile transposed, rows padded by 8 elements,
+// so every B fragment is one conflict-free 32-bit load.  Grid, page
+// split and partial-state layout are those of paged_attention_kernel.
+template <typename T, int D>
+__global__ void paged_attention_mma_kernel(
+    const T* __restrict__ q, const T* __restrict__ kpool,
+    const T* __restrict__ vpool, const int* __restrict__ page_table,
+    const int* __restrict__ pos, T* __restrict__ out,
+    float* __restrict__ part_acc, float* __restrict__ part_ml, int C, int h,
+    int ps, int L, int n_kv, int P_slot, int layer, float scale,
+    int splits) {
+  constexpr int KS = D + 8;
+  constexpr int N = ptt::Vec<T>::N;
+  const int VS = ps + 8;
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int split = blockIdx.z;
+  const int group = h / n_kv;
+  const int R = C * group;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+
+  extern __shared__ uint4 smem_mma[];
+  T* Ks = reinterpret_cast<T*>(smem_mma);   // [ps][D + 8]
+  T* Vt = Ks + ps * KS;                       // [D][ps + 8]
+
+  const int p0 = pos[b];
+  int last = (max(p0 + C - 1, 0)) / ps;
+  if (last > P_slot - 1) last = P_slot - 1;
+  const int per_split = (last + splits) / splits;
+  const int j_begin = split * per_split;
+  const int j_end = min(last + 1, j_begin + per_split);
+  const long long row_stride = static_cast<long long>(L) * n_kv * D;
+  const long long page_stride = static_cast<long long>(ps) * row_stride;
+  const long long head_off =
+      (static_cast<long long>(layer) * n_kv + kvh) * D;
+  const int* pt = page_table + static_cast<long long>(b) * P_slot;
+
+  // this warp's rows ra and rb = ra + 8 (fragment rows g and g + 8)
+  const int ra = warp * 16 + g;
+  const int rb = ra + 8;
+  const bool active = warp * 16 < R;
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+#pragma unroll
+    for (int reg = 0; reg < 4; ++reg) {
+      const int r = (reg & 1) ? rb : ra;
+      const int col = ks * 16 + 2 * t4 + ((reg & 2) ? 8 : 0);
+      qf[ks][reg] =
+          r < R ? ptt::ld32(q + q_row(b, C, h, kvh, group, r, D) + col) : 0u;
+    }
+  float o[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+    o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  float ma = -1e30f, mb = -1e30f, la = 0.f, lb = 0.f;
+  const int qpa = p0 + ra / group;
+  const int qpb = p0 + rb / group;
+
+  for (int j = j_begin; j < j_end; ++j) {
+    const long long page = pt[j];
+    const T* kb = kpool + page * page_stride + head_off;
+    const T* vb = vpool + page * page_stride + head_off;
+    // consecutive threads take consecutive keys, so the transposed V
+    // stores of a warp land in distinct shared-memory words
+    for (int e = threadIdx.x; e < ps * (D / N); e += blockDim.x) {
+      const int t = e % ps;
+      const int i = (e / ps) * N;
+      *reinterpret_cast<uint4*>(Ks + t * KS + i) =
+          __ldg(reinterpret_cast<const uint4*>(kb + t * row_stride + i));
+      const uint4 vv =
+          __ldg(reinterpret_cast<const uint4*>(vb + t * row_stride + i));
+      const T* ve = reinterpret_cast<const T*>(&vv);
+#pragma unroll
+      for (int u = 0; u < N; ++u) Vt[(i + u) * VS + t] = ve[u];
+    }
+    __syncthreads();
+    if (active) {
+      for (int kt = 0; kt < ps; kt += 16) {
+        float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const T* kr = Ks + (kt + nt * 8 + g) * KS + ks * 16 + 2 * t4;
+            const uint32_t bf[2] = {ptt::ld32(kr), ptt::ld32(kr + 8)};
+            ptt::mma_16816<T>(s[nt], qf[ks], bf);
+          }
+        float mxa = -INFINITY, mxb = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = j * ps + kt + nt * 8 + 2 * t4 + (e & 1);
+            const bool ok = key <= (e < 2 ? qpa : qpb);
+            s[nt][e] = ok ? s[nt][e] * scale : -INFINITY;
+            if (e < 2)
+              mxa = fmaxf(mxa, s[nt][e]);
+            else
+              mxb = fmaxf(mxb, s[nt][e]);
+          }
+        // the four lanes of a quad hold one row's 16 scores
+#pragma unroll
+        for (int x = 1; x <= 2; x <<= 1) {
+          mxa = fmaxf(mxa, __shfl_xor_sync(0xffffffffu, mxa, x));
+          mxb = fmaxf(mxb, __shfl_xor_sync(0xffffffffu, mxb, x));
+        }
+        const float na = fmaxf(ma, mxa);
+        const float nb = fmaxf(mb, mxb);
+        float sa = 0.f, sb = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float v = s[nt][e];
+            const float p = v == -INFINITY ? 0.f : expf(v - (e < 2 ? na : nb));
+            s[nt][e] = p;
+            if (e < 2)
+              sa += p;
+            else
+              sb += p;
+          }
+#pragma unroll
+        for (int x = 1; x <= 2; x <<= 1) {
+          sa += __shfl_xor_sync(0xffffffffu, sa, x);
+          sb += __shfl_xor_sync(0xffffffffu, sb, x);
+        }
+        const float aa = expf(ma - na);
+        const float ab = expf(mb - nb);
+        la = la * aa + sa;
+        lb = lb * ab + sb;
+        ma = na;
+        mb = nb;
+        const uint32_t pf[4] = {ptt::pack2<T>(s[0][0], s[0][1]),
+                                ptt::pack2<T>(s[0][2], s[0][3]),
+                                ptt::pack2<T>(s[1][0], s[1][1]),
+                                ptt::pack2<T>(s[1][2], s[1][3])};
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt) {
+          o[nt][0] *= aa;
+          o[nt][1] *= aa;
+          o[nt][2] *= ab;
+          o[nt][3] *= ab;
+          const T* vr = Vt + (nt * 8 + g) * VS + kt + 2 * t4;
+          const uint32_t bf[2] = {ptt::ld32(vr), ptt::ld32(vr + 8)};
+          ptt::mma_16816<T>(o[nt], pf, bf);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (!active) return;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? rb : ra;
+    if (r >= R) continue;
+    const float m = half ? mb : ma;
+    const float l = half ? lb : la;
+    if (splits == 1) {
+      T* orow = out + q_row(b, C, h, kvh, group, r, D);
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        const int col = nt * 8 + 2 * t4;
+        orow[col] = ptt::from_f<T>(o[nt][2 * half] / fmaxf(l, 1e-30f));
+        orow[col + 1] =
+            ptt::from_f<T>(o[nt][2 * half + 1] / fmaxf(l, 1e-30f));
+      }
+    } else {
+      const long long pr =
+          ((static_cast<long long>(b) * n_kv + kvh) * splits + split) * R +
+          r;
+      float* acc = part_acc + pr * D;
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        const int col = nt * 8 + 2 * t4;
+        acc[col] = o[nt][2 * half];
+        acc[col + 1] = o[nt][2 * half + 1];
+      }
+      if (t4 == 0) {
+        part_ml[pr * 2] = m;
+        part_ml[pr * 2 + 1] = l;
+      }
+    }
+  }
+}
+
+template <typename T, int D>
+int launch_mma(const dim3& grid, int threads, cudaStream_t s, const void* q,
+               const void* kpool, const void* vpool, const void* page_table,
+               const void* pos, void* out, void* part_acc, void* part_ml,
+               int C, int h, int ps, int L, int n_kv, int P_slot, int layer,
+               float scale, int splits) {
+  const size_t smem = sizeof(T) * (static_cast<size_t>(ps) * (D + 8) +
+                                    static_cast<size_t>(D) * (ps + 8));
+  if (smem > static_cast<size_t>(kSmemMax))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool smem_opt_in = false;
+  if (!smem_opt_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_attention_mma_kernel<T, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_opt_in = true;
+  }
+  paged_attention_mma_kernel<T, D><<<grid, threads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kpool),
+      static_cast<const T*>(vpool), static_cast<const int*>(page_table),
+      static_cast<const int*>(pos), static_cast<T*>(out),
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml), C, h, ps,
+      L, n_kv, P_slot, layer, scale, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core kernel's head widths; other widths, fp32, pages not a
+// multiple of 16 rows and more than 128 query rows take the CUDA-core
+// kernel.
+template <typename T>
+int launch_mma_d(int d, const dim3& grid, int threads, cudaStream_t s,
+                 const void* q, const void* kpool, const void* vpool,
+                 const void* page_table, const void* pos, void* out,
+                 void* part_acc, void* part_ml, int C, int h, int ps, int L,
+                 int n_kv, int P_slot, int layer, float scale, int splits) {
+  switch (d) {
+    case 64:
+      return launch_mma<T, 64>(grid, threads, s, q, kpool, vpool, page_table,
+                               pos, out, part_acc, part_ml, C, h, ps, L, n_kv,
+                               P_slot, layer, scale, splits);
+    case 128:
+      return launch_mma<T, 128>(grid, threads, s, q, kpool, vpool,
+                                page_table, pos, out, part_acc, part_ml, C, h,
+                                ps, L, n_kv, P_slot, layer, scale, splits);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 size_t smem_bytes(int rt, int ps, int d, int nwarps) {
   return sizeof(float) *
          (2 * static_cast<size_t>(rt) * d + static_cast<size_t>(ps) * (d + 1) +
@@ -285,44 +546,57 @@ extern "C" int ptt_paged_attention(int device, int dtype, const void* q,
       (splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int R = C * (h / n_kv);
-  const int threads = R <= 4 ? 128 : 256;
-  const int nwarps = threads / 32;
-  int RT = R;
-  while (RT > 1 && smem_bytes(RT, ps, d, nwarps) > kSmemBudget)
-    RT = (RT + 1) / 2;
-  const size_t smem = smem_bytes(RT, ps, d, nwarps);
-  if (smem > static_cast<size_t>(kSmemMax))
-    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(n_kv), static_cast<unsigned>(B),
                   static_cast<unsigned>(splits));
   const dim3 merge_grid(static_cast<unsigned>(n_kv), static_cast<unsigned>(B));
+  const bool tensor_cores =
+      dtype != ptt::kF32 && (d == 64 || d == 128) && ps % 16 == 0 &&
+      R <= 128 && ptt::aligned16(kpool) && ptt::aligned16(vpool) &&
+      (reinterpret_cast<uintptr_t>(q) & 3u) == 0;
+  const int threads =
+      tensor_cores ? 32 * max(4, (R + 15) / 16) : (R <= 4 ? 128 : 256);
   PTT_DISPATCH(dtype, T, {
-    static bool smem_opt_in = false;
-    if (!smem_opt_in) {
-      err = cudaFuncSetAttribute(paged_attention_kernel<T>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kSmemMax);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      smem_opt_in = true;
+    int rc = static_cast<int>(cudaErrorInvalidValue);
+    if constexpr (!std::is_same<T, float>::value) {
+      if (tensor_cores)
+        rc = launch_mma_d<T>(d, grid, threads, s, q, kpool, vpool,
+                             page_table, pos, out, part_acc, part_ml, C, h,
+                             ps, L, n_kv, P_slot, layer, scale, splits);
     }
-    constexpr int N = ptt::Vec<T>::N;
-    const bool vec = (d % N == 0) && ptt::aligned16(kpool) &&
-                     ptt::aligned16(vpool);
-    paged_attention_kernel<T><<<grid, threads, smem, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(kpool),
-        static_cast<const T*>(vpool), static_cast<const int*>(page_table),
-        static_cast<const int*>(pos), static_cast<T*>(out),
-        static_cast<float*>(part_acc), static_cast<float*>(part_ml), C, h, d,
-        ps, L, n_kv, P_slot, layer, scale, RT, splits, vec);
-    if (splits > 1) {
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
+    if (!tensor_cores) {
+      const int nwarps = threads / 32;
+      int RT = R;
+      while (RT > 1 && smem_bytes(RT, ps, d, nwarps) > kSmemBudget)
+        RT = (RT + 1) / 2;
+      const size_t smem = smem_bytes(RT, ps, d, nwarps);
+      if (smem > static_cast<size_t>(kSmemMax))
+        return static_cast<int>(cudaErrorInvalidValue);
+      static bool smem_opt_in = false;
+      if (!smem_opt_in) {
+        err = cudaFuncSetAttribute(paged_attention_kernel<T>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   kSmemMax);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        smem_opt_in = true;
+      }
+      constexpr int N = ptt::Vec<T>::N;
+      const bool vec = (d % N == 0) && ptt::aligned16(kpool) &&
+                       ptt::aligned16(vpool);
+      paged_attention_kernel<T><<<grid, threads, smem, s>>>(
+          static_cast<const T*>(q), static_cast<const T*>(kpool),
+          static_cast<const T*>(vpool), static_cast<const int*>(page_table),
+          static_cast<const int*>(pos), static_cast<T*>(out),
+          static_cast<float*>(part_acc), static_cast<float*>(part_ml), C, h,
+          d, ps, L, n_kv, P_slot, layer, scale, RT, splits, vec);
+      rc = static_cast<int>(cudaGetLastError());
+    }
+    if (rc != 0) return rc;
+    if (splits > 1)
       paged_attention_merge<T><<<merge_grid, threads, 0, s>>>(
           static_cast<const float*>(part_acc),
           static_cast<const float*>(part_ml), static_cast<T*>(out), C, h, d,
           n_kv, splits);
-    }
   });
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,9 @@ Replaces the TPU kernel
 reference's twin `xla_paged_attention` (ops/__init__.py:244): gather
 each slot's logical KV view through the page table, then the dense
 `cached_attention` math.  The kernel walks only the pages up to each
-slot's frontier and never materialises that view.
+slot's frontier and never materialises that view; bf16/fp16 pools with
+head_dim 64 or 128 run on tensor cores, everything else on CUDA cores
+(the choice is made in the C launcher from dtype and shape).
 
 Layout (models/llama.py::init_paged_cache): pools [P, ps, L, n_kv, d];
 page_table [B, P_slot] int32 with entry 0 the reserved null page;

@@ -121,6 +121,53 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build.build()
 
 
+_FAKE_NVCC = """#!/bin/sh
+# stands in for nvcc: '-c SRC -o OBJ' writes OBJ, '-shared -o LIB ...'
+# writes LIB; FAKE_NVCC_FAIL=<name> fails the compile of that source
+out=""; src=""; prev=""
+for a in "$@"; do
+  [ "$prev" = "-o" ] && out="$a"
+  [ "$prev" = "-c" ] && src="$a"
+  prev="$a"
+done
+case "$src" in *"$FAKE_NVCC_FAIL"*)
+  if [ -n "$FAKE_NVCC_FAIL" ]; then echo "error: bad kernel in $src"; exit 2; fi;;
+esac
+echo "ptxas info    : Used 32 registers ($src)"
+echo built > "$out"
+"""
+
+
+@pytest.fixture
+def fake_nvcc(monkeypatch, tmp_path):
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build.shutil, "which", lambda _name: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    return tmp_path / "build"
+
+
+def test_build_compiles_each_source_then_links(fake_nvcc, monkeypatch):
+    monkeypatch.delenv("FAKE_NVCC_FAIL", raising=False)
+    lib = _build.build()
+    assert lib.parent == fake_nvcc and lib.exists()
+    assert _build.build_info["built"]
+    for name in ("rms_norm.cu", "rope.cu", "paged_attention.cu"):
+        assert f"== {name} (rc 0)" in _build.build_info["log"]
+    assert not list(fake_nvcc.glob("work_*"))      # scratch cleaned up
+    _build.build_info["built"] = False
+    assert _build.build() == lib                    # cached: no rebuild
+    assert not _build.build_info["built"]
+
+
+def test_build_failure_raises_with_compiler_output(fake_nvcc, monkeypatch):
+    monkeypatch.setenv("FAKE_NVCC_FAIL", "rope.cu")
+    with pytest.raises(RuntimeError, match="bad kernel in .*rope.cu"):
+        _build.build()
+    assert not list(fake_nvcc.glob("*.so"))
+
+
 def test_build_key_follows_the_sources():
     srcs, headers = _build._sources()
     assert {s.name for s in srcs} == {"rms_norm.cu", "rope.cu",
