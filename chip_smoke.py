@@ -24,7 +24,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              requests of 64-512 prompt tokens, 8 of them sharing a
              256-token system prefix, 64 new tokens each.  Every kernel's
              launch count must equal what the model's structure predicts
-             for the forward steps the batcher ran.
+             for the forward steps the batcher ran.  Then a short decode
+             window under torch.profiler: device time per step by
+             kernel, and the busy share of the step's wall time.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -43,7 +45,6 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor peak
-FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside tensor cores
 REPS = 30
 
 

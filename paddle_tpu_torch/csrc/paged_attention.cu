@@ -49,8 +49,9 @@
 //     content: free slots point at the null page 0, whose rows are junk.
 //     Key row 0 is visible to every query (qpos >= 0), so every row has
 //     at least one valid key and the normaliser is positive.
-//   * query rows beyond the shared-memory budget are processed in row
-//     tiles, each re-walking the pages (never at the serving shapes).
+//   * CUDA-core kernel: query rows beyond the shared-memory budget are
+//     processed in row tiles, each re-walking the pages (never at the
+//     serving shapes).
 #include <type_traits>
 
 #include "common.cuh"
