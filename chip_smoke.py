@@ -27,6 +27,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              for the forward steps the batcher ran.  Then a short decode
              window under torch.profiler: device time per step by
              kernel, and the busy share of the step's wall time.
+  6. train kernels  each training kernel, forward and backward, against
+             its plain version at the training path's shapes in bf16
+             (x [8192, 2560]; q [4, 2048, 20, 128], kv [4, 2048, 4, 128]
+             causal): error against a stated tolerance, the kernel's, the
+             plain version's and a library yardstick's time, the bound
+  7. train parity  a 2-layer Llama at the training width (hidden 2560,
+             20/4 heads, vocab 8192, seq 256) in fp32: 3 TrainStep AdamW
+             steps on the card (kernels) and on the CPU (plain versions)
+             from the same weights; losses and parameters must agree
+  8. train   the training configuration (14 layers, hidden 2560, bf16
+             compute, fp32 parameters, batch 4 x 2048, AdamW with bf16
+             moments) for 6 TrainStep steps on one fixed batch: per-step
+             loss (finite and falling), step ms, tokens/s, MFU, peak
+             memory; every training kernel's launch count must equal
+             steps x what the model's structure predicts.  Then one more
+             step under torch.profiler: device time by kernel and kind,
+             and the busy share of the step's wall time.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -46,6 +63,8 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor peak
 REPS = 30
+# the training path's shapes: bench.py::bench_llama, batch 4 x 2048
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 
 
 def check(cond, msg):
@@ -314,8 +333,9 @@ def phase_serve(torch, ops, dev):
           "token ids outside the vocabulary")
     check(st["prefix_hit_tokens"] > 0, "no prefix hits")
     steps, L = st["forward_steps"], cfg.num_hidden_layers
-    want = {"rms_norm": steps * (2 * L + 1), "rope": steps * L,
-            "paged_attention": steps * L}
+    want = dict.fromkeys(counts, 0)
+    want.update({"rms_norm": steps * (2 * L + 1), "rope": steps * L,
+                 "paged_attention": steps * L})
     check(counts == want, f"launch counts {counts} != predicted {want}")
     ttft = sorted((reqs[r].t_first - reqs[r].t_submit) * 1e3 for r in rids)
     serve = dict(
@@ -379,6 +399,348 @@ def decode_trace(torch, model, dev, chunk):
                 top=[(k[:60], round(ms / steps, 4)) for k, ms in rows[:10]])
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training kernels against their plain versions
+# ---------------------------------------------------------------------------
+def _err_tol(outs, refs, rels):
+    """max |kernel - plain| and its tolerance for each output, and the
+    worst ratio of the two."""
+    errs = [(o.float() - r.float()).abs().max().item()
+            for o, r in zip(outs, refs)]
+    tols = [rel * r.float().abs().max().item() for r, rel in zip(refs, rels)]
+    return errs, tols
+
+
+def _grad_timer(torch, outs, ins, cots):
+    """One backward of an already-recorded graph (the forward excluded)."""
+    return lambda: torch.autograd.grad(outs, ins, cots, retain_graph=True)
+
+
+def phase_train_kernels(torch, ops, dev):
+    F = torch.nn.functional
+    rn = ops.kernel_module("rms_norm")
+    ro = ops.kernel_module("rope")
+    fa = ops.kernel_module("flash_attention")
+    g = torch.Generator(device=dev)
+    g.manual_seed(4321)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.float32).to(dtype)
+
+    cfg = train_config()
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    R, H, eps = b * s, cfg.hidden_size, cfg.rms_norm_eps
+    h, hk, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    res = {}
+
+    def add(name, shape, outs, refs, rels, ms, plain_ms, library_ms,
+            library, nbytes, flops):
+        errs, tols = _err_tol(outs, refs, rels)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        worst = max(range(len(errs)), key=lambda i: errs[i] / max(tols[i],
+                                                                  1e-30))
+        res.setdefault(name, []).append(dict(
+            shape=shape, max_abs_err=errs[worst], tol=tols[worst],
+            errs=errs, tols=tols, ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, library=library, bound_ms=b_ms,
+            bound_by=b_by))
+
+    # -- RMSNorm forward and backward on [8192, 2560] ------------------------
+    x, gy = randn(R, H), randn(R, H)
+    w = (1.0 + 0.1 * randn(H, dtype=torch.float32)).to(bf16)
+    # the kernel casts once after * w, the plain version before: one
+    # extra bf16 rounding, within 2 ulps of the largest output
+    add("rms_norm", [R, H], [rn._launch(x, w, eps)],
+        [ops.plain_rms_norm(x, w, eps)], [2.0 ** -6],
+        time_ms(torch, lambda: rn._launch(x, w, eps)),
+        time_ms(torch, lambda: ops.plain_rms_norm(x, w, eps)),
+        time_ms(torch, lambda: F.rms_norm(x, (H,), w, eps)),
+        "torch.nn.functional.rms_norm", (2 * R * H + H) * 2, 4 * R * H)
+    # backward: the same fp32 math and roundings; the sums differ in
+    # order (dw: per-block partials), so 2 bf16 ulps of the largest entry
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    lib_out = F.rms_norm(xr, (H,), wr, eps)
+    add("rms_norm_bwd", [R, H], list(rn._launch_bwd(x, w, gy, None, eps)),
+        list(ops.plain_rms_norm_bwd(x, w, gy, eps)), [2.0 ** -6] * 2,
+        time_ms(torch, lambda: rn._launch_bwd(x, w, gy, None, eps)),
+        time_ms(torch, lambda: ops.plain_rms_norm_bwd(x, w, gy, eps)),
+        time_ms(torch, _grad_timer(torch, lib_out, (xr, wr), gy)),
+        "autograd of torch.nn.functional.rms_norm (backward only)",
+        3 * R * H * 2 + H * 2 + H * 4, 10 * R * H)
+    del lib_out, xr, wr
+
+    # -- fused add + RMSNorm forward and backward ----------------------------
+    y, gr = randn(R, H), randn(R, H)
+    k_res, k_out = rn._launch_add(x, y, w, eps)
+    p_res, p_out = ops.plain_fused_add_rms_norm(x, y, w, eps)
+    torch.cuda.synchronize()
+    # the residual must be bit-identical to x + y: tolerance 0
+    add("fused_add_rms_norm", [R, H], [k_res, k_out], [p_res, p_out],
+        [0.0, 2.0 ** -6],
+        time_ms(torch, lambda: rn._launch_add(x, y, w, eps)),
+        time_ms(torch, lambda: ops.plain_fused_add_rms_norm(x, y, w, eps)),
+        time_ms(torch, lambda: F.rms_norm(x + y, (H,), w, eps)),
+        "x + y, then torch.nn.functional.rms_norm (two calls)",
+        4 * R * H * 2 + H * 2, 5 * R * H)
+    xr, yr = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    wr = w.clone().requires_grad_(True)
+    lib_res = xr + yr
+    lib_out = F.rms_norm(lib_res, (H,), wr, eps)
+    add("fused_add_rms_norm_bwd", [R, H],
+        list(rn._launch_bwd(k_res, w, gy, gr, eps)),
+        list(ops.plain_rms_norm_bwd(k_res, w, gy, eps, gr)), [2.0 ** -6] * 2,
+        time_ms(torch, lambda: rn._launch_bwd(k_res, w, gy, gr, eps)),
+        time_ms(torch, lambda: ops.plain_rms_norm_bwd(k_res, w, gy, eps,
+                                                      gr)),
+        time_ms(torch, _grad_timer(torch, (lib_res, lib_out), (xr, yr, wr),
+                                   (gr, gy))),
+        "autograd of x + y then torch.nn.functional.rms_norm (backward "
+        "only)", 4 * R * H * 2 + H * 2 + H * 4, 11 * R * H)
+    del x, y, gy, gr, k_res, k_out, p_res, p_out, lib_res, lib_out, xr, yr, wr
+
+    # -- RoPE forward and backward, q [4, 2048, 20, 128], k [.., 4, ..] ------
+    q, kk = randn(b, s, h, d), randn(b, s, hk, d)
+    cos, sin = ops.rope_cos_sin(s, d, 10000.0, device=dev)
+    cos, sin = cos.contiguous(), sin.contiguous()
+    sw = torch.cat([sin[:, d // 2:], sin[:, :d // 2]], dim=-1).contiguous()
+    nbytes = 2 * (q.numel() + kk.numel()) * 2 + 2 * cos.numel() * 4
+    flops = 3 * (q.numel() + kk.numel())
+    # same fp32 products and sum, each rounded as in the plain version,
+    # one final cast: expected bit-identical; tolerance one bf16 ulp
+    add("rope", [b, s, h, d], list(ro._launch(q, kk, cos, sin)),
+        list(ops.plain_apply_rope(q, kk, cos, sin)), [2.0 ** -7] * 2,
+        time_ms(torch, lambda: ro._launch(q, kk, cos, sin)),
+        time_ms(torch, lambda: ops.plain_apply_rope(q, kk, cos, sin)),
+        None, None, nbytes, flops)
+    add("rope_bwd", [b, s, h, d],
+        list(ro._launch(q, kk, cos, sw, neg_sin=True)),
+        list(ops.plain_rope_bwd(q, kk, cos, sin)), [2.0 ** -7] * 2,
+        time_ms(torch, lambda: ro._launch(q, kk, cos, sw, neg_sin=True)),
+        time_ms(torch, lambda: ops.plain_rope_bwd(q, kk, cos, sin)),
+        None, None, nbytes, flops)
+    del q, kk
+
+    # -- flash attention forward and backward, causal GQA --------------------
+    q, k, v, do = randn(b, s, h, d), randn(b, s, hk, d), randn(b, s, hk, d), \
+        randn(b, s, h, d)
+    sc = d ** -0.5
+    out, lse = fa._launch_fwd(q, k, v, True, sc)
+    p_out, p_lse = ops.plain_flash_fwd(q, k, v, True, sc)
+    torch.cuda.synchronize()
+    fwd_flops = 4 * b * h * s * s * d // 2          # causal: half the pairs
+    # out: the kernel rounds the unnormalised weights to bf16 before P.V,
+    # the plain version the normalised ones: <= 2^-7 max|v| from the
+    # weights plus half an ulp of each final rounding; lse: fp32 sums in
+    # another order, 1e-5 relative
+    vmax = v.float().abs().max().item()
+    errs = [(out.float() - p_out.float()).abs().max().item(),
+            (lse - p_lse).abs().max().item()]
+    tols = [2.0 ** -7 * vmax + 2.0 ** -7 * p_out.float().abs().max().item(),
+            1e-5 * p_lse.abs().max().item()]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention
+    b_ms, b_by = bound((3 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4,
+                       fwd_flops, BF16_FLOP_PER_S)
+    worst = 0 if errs[0] / tols[0] >= errs[1] / tols[1] else 1
+    res["flash_attention"] = [dict(
+        shape=[b, s, h, d], kv_heads=hk, causal=True,
+        max_abs_err=errs[worst], tol=tols[worst], errs=errs, tols=tols,
+        ms=time_ms(torch, lambda: fa._launch_fwd(q, k, v, True, sc)),
+        plain_ms=time_ms(torch, lambda: ops.plain_flash_fwd(q, k, v, True,
+                                                            sc), reps=5),
+        library_ms=time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)),
+        library="scaled_dot_product_attention(is_causal, enable_gqa)",
+        bound_ms=b_ms, bound_by=b_by)]
+    grads = fa._launch_bwd(q, k, v, out, lse, do, True, sc)
+    refs = ops.plain_flash_bwd(q, k, v, out, lse, do, True, sc)
+    # the kernels round p and ds to bf16 at the plain version's points;
+    # fp32 sums in another order flip single roundings: 2 bf16 ulps of
+    # the largest entry of each gradient
+    errs, tols = _err_tol(grads, refs, [2.0 ** -6] * 3)
+    del refs
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (qt, kt, vt))
+    lib_out = sdpa(qr, kr, vr, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    b_ms, b_by = bound((4 * q.numel() + 4 * k.numel()) * 2
+                       + 2 * lse.numel() * 4, 5 * fwd_flops // 2,
+                       BF16_FLOP_PER_S)
+    worst = max(range(3), key=lambda i: errs[i] / tols[i])
+    res["flash_attention_bwd"] = [dict(
+        shape=[b, s, h, d], kv_heads=hk, causal=True,
+        max_abs_err=errs[worst], tol=tols[worst], errs=errs, tols=tols,
+        ms=time_ms(torch, lambda: fa._launch_bwd(q, k, v, out, lse, do, True,
+                                                 sc)),
+        plain_ms=time_ms(torch, lambda: ops.plain_flash_bwd(
+            q, k, v, out, lse, do, True, sc), reps=5),
+        library_ms=time_ms(torch, _grad_timer(torch, lib_out, (qr, kr, vr),
+                                              dot)),
+        library="scaled_dot_product_attention backward (is_causal, "
+                "enable_gqa)",
+        bound_ms=b_ms, bound_by=b_by)]
+    del q, k, v, do, out, lse, p_out, p_lse, grads, qr, kr, vr, lib_out
+    torch.cuda.empty_cache()
+    for name, cases in res.items():
+        for c in cases:
+            lib = c["library_ms"]
+            log(f"[train-kernels] {name} {c['shape']}: err {c['errs']} "
+                f"(tol {c['tols']}) kernel {c['ms']:.4f} ms, plain "
+                f"{c['plain_ms']:.4f} ms, library "
+                f"{lib if lib is None else round(lib, 4)} ms, bound "
+                f"{c['bound_ms']:.5f} ms ({c['bound_by']})")
+            for e, t in zip(c["errs"], c["tols"]):
+                check(e <= t, f"{name} {c['shape']} disagrees with its plain "
+                              f"version: {c['errs']} > {c['tols']}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 7: train parity at the training width, card kernels vs CPU plain
+# ---------------------------------------------------------------------------
+def train_config(**kw):
+    """bench.py::bench_llama's configuration (bench.py:238-248)."""
+    from paddle_tpu_torch.models import LlamaConfig
+    cfg = dict(vocab_size=8192, hidden_size=2560, intermediate_size=6912,
+               num_hidden_layers=14, num_attention_heads=20,
+               num_key_value_heads=4, max_position_embeddings=2048,
+               dtype="bfloat16", param_dtype="float32")
+    cfg.update(kw)
+    return LlamaConfig(**cfg)
+
+
+def phase_train_parity(torch, dev):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         load_numpy_state_dict,
+                                         numpy_state_dict)
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = train_config(num_hidden_layers=2, dtype="float32",
+                       param_dtype=None)
+    gpu = LlamaForCausalLM(cfg, device=dev, seed=11)
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=11)
+    load_numpy_state_dict(cpu, numpy_state_dict(gpu))
+    rng = np.random.RandomState(11)
+    batches = [rng.randint(0, cfg.vocab_size, (2, 256)).astype(np.int32)
+               for _ in range(3)]
+    lr, losses = 3e-4, {}
+    for name, m in (("gpu", gpu), ("cpu", cpu)):
+        step = TrainStep(m, m.compute_loss,
+                         AdamW(lr, parameters=m.parameters(),
+                               weight_decay=0.1))
+        losses[name] = [step(bt, bt).item() for bt in batches]
+    # fp32 on both sides: cuBLAS and the CPU sum in other orders and the
+    # kernels' reductions differ from the plain versions' (~1e-6
+    # relative), so the losses agree to 1e-4 relative.  Adam normalises
+    # each update to ~lr, so a gradient entry near zero can flip the sign
+    # of its update: every parameter within 2 lr per step, and all but
+    # 0.1% of each tensor's entries within 1e-5
+    loss_err = max(abs(a - c) / abs(c) for a, c in zip(losses["gpu"],
+                                                       losses["cpu"]))
+    check(all(np.isfinite(losses["gpu"])), f"non-finite losses {losses}")
+    check(loss_err <= 1e-4, f"train losses disagree card vs CPU: {losses}")
+    cpu_params = dict(cpu.named_parameters())
+    worst_frac, worst_max = 0.0, 0.0
+    with torch.no_grad():
+        for n, p in gpu.named_parameters():
+            diff = (p.cpu() - cpu_params[n]).abs()
+            worst_frac = max(worst_frac, (diff > 1e-5).float().mean().item())
+            worst_max = max(worst_max, diff.max().item())
+    check(worst_frac <= 1e-3 and worst_max <= 2 * lr * len(batches),
+          f"train parameters disagree card vs CPU: {worst_frac} of entries "
+          f"beyond 1e-5, max {worst_max}")
+    log(f"[train-parity] 2-layer hidden 2560 fp32, 3 AdamW steps: losses "
+        f"card {losses['gpu']} cpu {losses['cpu']} (max rel err "
+        f"{loss_err:.3g}, tol 1e-4); parameters: {worst_frac:.3g} of "
+        f"entries beyond 1e-5 (tol 1e-3), max abs diff {worst_max:.3g} "
+        f"(tol {2 * lr * len(batches):.3g})")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return losses
+
+
+# ---------------------------------------------------------------------------
+# phase 8: train the bench_llama configuration at full width and depth
+# ---------------------------------------------------------------------------
+def phase_train(torch, ops, dev, steps=6):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = train_config()
+    model = LlamaForCausalLM(cfg, device=dev, seed=2025)
+    n_params = sum(p.numel() for p in model.parameters())
+    step = TrainStep(model, model.compute_loss,
+                     AdamW(3e-4, parameters=model.parameters(),
+                           weight_decay=0.1, moment_dtype="bfloat16"))
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    rng = np.random.RandomState(2025)
+    batch = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))
+                             .astype(np.int32)).to(dev)
+    ops.reset_launch_counts()
+    losses, walls = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(batch, batch)
+        losses.append(loss.item())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    counts = ops.launch_counts()
+    L = cfg.num_hidden_layers
+    per_step = {"rms_norm": L + 1, "fused_add_rms_norm": L, "rope": L,
+                "flash_attention": L}
+    want = dict.fromkeys(counts, 0)
+    for n, c in per_step.items():
+        want[n] = want[n + "_bwd"] = steps * c
+    check(counts == want, f"train launch counts {counts} != predicted {want}")
+    check(all(np.isfinite(losses)), f"non-finite train losses {losses}")
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    step_ms = statistics.median(walls[1:])
+    tok_s = b * s / (step_ms / 1e3)
+    train = dict(
+        layers=L, params=n_params, batch=b, seq=s, steps=steps,
+        losses=losses, step_ms=walls, step_ms_p50=step_ms,
+        tokens_per_s=tok_s, mfu=6 * n_params * tok_s / BF16_FLOP_PER_S,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        launches=counts)
+    log("[train] " + json.dumps(train))
+    log("[train-trace] " + json.dumps(train_trace(torch, step, batch,
+                                                   step_ms)))
+    del step, model, batch
+    torch.cuda.empty_cache()
+    return train, counts
+
+
+def train_trace(torch, step, batch, wall_ms):
+    """Where a train step's time goes: one more step under torch.profiler
+    (after the counted steps), device time by kernel and by kind; the
+    busy share is that device time over the median unprofiled step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(batch, batch)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    kinds = {"flash_attention": ("flash_",), "rms_norm": ("rms_norm",),
+             "rope": ("rope_kernel",),
+             "matmul": ("nvjet", "gemm", "cutlass", "sm90_xmma")}
+    by_kind = dict.fromkeys(list(kinds) + ["other"], 0.0)
+    for key, ms, _ in rows:
+        kind = next((k for k, pats in kinds.items()
+                     if any(p in key for p in pats)), "other")
+        by_kind[kind] += ms
+    busy = sum(r[1] for r in rows)
+    return dict(wall_ms=wall_ms, device_ms=busy if rows else None,
+                busy_share=busy / wall_ms if rows else None,
+                by_kind_ms=by_kind,
+                top=[(k[:60], round(ms, 3), n) for k, ms, n in rows[:14]])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -411,22 +773,38 @@ def main():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log("[build] " + line.strip())
 
-    # 3-5
+    # 3-8
     kern = phase_kernels(torch, ops, dev)
     phase_parity(torch, dev)
     serve, counts = phase_serve(torch, ops, dev)
+    train_kern = phase_train_kernels(torch, ops, dev)
+    for name in ("rms_norm", "rope"):       # the forwards at train shapes
+        kern[name] += train_kern.pop(name)
+    kern.update(train_kern)
+    phase_train_parity(torch, dev)
+    train, train_counts = phase_train(torch, ops, dev)
+    counts = {n: counts[n] + train_counts[n] for n in counts}
 
-    sources = {"rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
-                            "paddle_tpu/ops/pallas/rms_norm.py:130"),
-               "rope": ("paddle_tpu_torch/csrc/rope.cu",
-                        "paddle_tpu/ops/pallas/rope.py:142"),
-               "paged_attention": (
-                   "paddle_tpu_torch/csrc/paged_attention.cu",
-                   "paddle_tpu/ops/pallas/paged_attention.py:108")}
+    cu = "paddle_tpu_torch/csrc/"
+    tpu = "paddle_tpu/ops/pallas/"
+    sources = {
+        "rms_norm": (cu + "rms_norm.cu", tpu + "rms_norm.py:130"),
+        "rms_norm_bwd": (cu + "rms_norm.cu", tpu + "rms_norm.py:105"),
+        "fused_add_rms_norm": (cu + "rms_norm.cu", tpu + "rms_norm.py:228"),
+        "fused_add_rms_norm_bwd": (cu + "rms_norm.cu",
+                                   tpu + "rms_norm.py:201"),
+        "rope": (cu + "rope.cu", tpu + "rope.py:142"),
+        "rope_bwd": (cu + "rope.cu", tpu + "rope.py:120"),
+        "paged_attention": (cu + "paged_attention.cu",
+                            tpu + "paged_attention.py:108"),
+        "flash_attention": (cu + "flash_attention.cu",
+                            tpu + "flash_attention.py:816"),
+        "flash_attention_bwd": (cu + "flash_attention.cu",
+                                tpu + "flash_attention.py:679")}
     line = []
     for name in ops.KERNELS:
         cases = kern[name]
-        head = cases[0]        # the decode shape (C=1, group 1)
+        head = cases[0]   # serving kernels: the decode shape (C=1, group 1)
         line.append(dict(
             name=name, route="cuda", source=sources[name][0],
             replaces=sources[name][1], launches=counts[name],

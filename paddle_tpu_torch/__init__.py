@@ -8,17 +8,24 @@ finds counterparts by path:
 
   framework/   flags and the device rule
   ops/         the op layer: plain PyTorch versions beside hand-written
-               Hopper kernels (csrc/*.cu, bound through ctypes)
-  models/      Llama decode surface, weight carry-over by name
+               Hopper kernels (csrc/*.cu, bound through ctypes), with
+               autograd Functions whose backward is a kernel too
+  nn/          the LM cross-entropy loss
+  models/      Llama training forward and decode surface, weight and
+               optimizer-state carry-over by name
+  optimizer/   Adam / AdamW (the pure update rule, in place)
+  jit/         TrainStep
   inference/   paged KV allocator, greedy generate, ContinuousBatcher
 
 Device rule: entry points (model constructors, ContinuousBatcher,
 generate) run on `cuda` unless the caller passes `device="cpu"`; with no
-CUDA device and no explicit CPU request they raise.
+CUDA device and no explicit CPU request they raise.  A TrainStep runs
+where its model lives.
 
 Importing this package builds nothing and touches no GPU: kernels are
 compiled on first launch (ops/_build.py).
 """
 from __future__ import annotations
 
-__all__ = ["framework", "ops", "models", "inference"]
+__all__ = ["framework", "ops", "nn", "models", "optimizer", "jit",
+           "inference"]

@@ -1,0 +1,69 @@
+"""The train step.
+
+Counterpart of `paddle_tpu/jit/__init__.py::TrainStep` (:267-360,
+:507): `TrainStep(model, loss_fn, optimizer)`, then
+`step(*inputs, label)` returns the loss.  One step runs the forward and
+the loss, `backward`, the optimizer rule on every trainable parameter,
+and clears the gradients.  The optimizer's step count advances before
+the update, as the reference's does, so Adam's bias correction
+matches; the weight-decay list follows `apply_decay_param_fun` as at
+:316-322.
+
+The reference compiles the whole step into one program with donated
+buffers; here the step is eager and the parameters and optimizer state
+are updated in place.  CUDA-graph capture, `run_steps` and the
+checkpoint/telemetry hooks are not ported yet.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..framework.device import module_device
+from ..optimizer.jit_update import apply_update, maybe_master_state
+
+__all__ = ["TrainStep"]
+
+
+class TrainStep:
+    def __init__(self, model, loss_fn, optimizer):
+        self.model = model
+        self.loss_fn = loss_fn
+        self.optimizer = optimizer
+        self.device = module_device(model)
+        named = [(n, p) for n, p in model.named_parameters()
+                 if p.requires_grad]
+        self._names = [n for n, _ in named]
+        self._params = [p for _, p in named]
+        self._wds = [optimizer._decay_of(n, p) for n, p in named]
+        self._opt_states = None
+
+    def _init_opt_states(self):
+        opt = self.optimizer
+        return [maybe_master_state(opt, p, opt._init_state(p))
+                for p in self._params]
+
+    def _to_device(self, b):
+        if not torch.is_tensor(b):
+            b = torch.from_numpy(np.asarray(b))
+        return b.to(self.device)
+
+    def __call__(self, *batch):
+        """batch: (*inputs, label) tensors or arrays; returns the loss
+        (a detached scalar tensor on the model's device)."""
+        if self._opt_states is None:
+            self._opt_states = self._init_opt_states()
+        *inputs, label = [self._to_device(b) for b in batch]
+        opt = self.optimizer
+        opt._step_count += 1
+        lr, step_i = opt.get_lr(), opt._step_count
+        upd, hp = type(opt)._update, opt._hyper()
+        loss = self.loss_fn(self.model(*inputs), label)
+        loss.backward()
+        for p, st, wd in zip(self._params, self._opt_states, self._wds):
+            # a parameter the loss does not reach has a zero gradient,
+            # as in the reference's value_and_grad
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            apply_update(upd, p, g, st, lr, wd, step_i, hp)
+            p.grad = None
+        return loss.detach()

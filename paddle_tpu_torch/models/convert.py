@@ -5,6 +5,12 @@
 into the port's parameters of the same names.  Both packages keep the
 [in, out] layout (`x @ w`), so nothing is transposed.  A missing, extra
 or mis-shaped name raises before any parameter is written.
+
+`load_numpy_opt_state(step, {name: {key: ndarray}}, step_count)` does
+the same for a train step's optimizer state: the reference
+`jit.TrainStep._opt_states` (moment1 / moment2 / ef / master per
+parameter, as numpy) become the port's `TrainStep` state, so a run can
+be compared mid-way.
 """
 from __future__ import annotations
 
@@ -13,7 +19,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["load_numpy_state_dict", "numpy_state_dict"]
+__all__ = ["load_numpy_state_dict", "numpy_state_dict",
+           "load_numpy_opt_state"]
 
 
 def _to_tensor(arr) -> torch.Tensor:
@@ -49,3 +56,33 @@ def numpy_state_dict(model: torch.nn.Module):
     for round-trip checks."""
     return {n: p.detach().float().cpu().numpy()
             for n, p in model.named_parameters()}
+
+
+def load_numpy_opt_state(step, states: Mapping[str, Mapping[str, object]],
+                         step_count=None) -> None:
+    """Copy {param name: {state key: array}} into the optimizer state of
+    the port's `jit.TrainStep` `step` (each value cast to the dtype of
+    the state it replaces), and set the optimizer's step count."""
+    if step._opt_states is None:
+        step._opt_states = step._init_opt_states()
+    names = list(step._names)
+    if sorted(states) != sorted(names):
+        raise KeyError(f"optimizer state does not match the step: missing "
+                       f"{sorted(set(names) - set(states))}, unexpected "
+                       f"{sorted(set(states) - set(names))}")
+    for name, st in zip(names, step._opt_states):
+        if sorted(states[name]) != sorted(st):
+            raise KeyError(f"{name}: state keys {sorted(states[name])} != "
+                           f"{sorted(st)}")
+        for key, t in st.items():
+            if tuple(np.shape(states[name][key])) != tuple(t.shape):
+                raise ValueError(f"{name}.{key}: shape "
+                                 f"{np.shape(states[name][key])} != "
+                                 f"{tuple(t.shape)}")
+    with torch.no_grad():
+        for name, st in zip(names, step._opt_states):
+            for key, t in st.items():
+                t.copy_(_to_tensor(states[name][key]).to(device=t.device,
+                                                         dtype=t.dtype))
+    if step_count is not None:
+        step.optimizer._step_count = int(step_count)

@@ -1,11 +1,20 @@
-"""Llama — the decode surface, in PyTorch.
+"""Llama — the training forward and the decode surface, in PyTorch.
 
 Counterpart of `paddle_tpu/models/llama.py`: `LlamaConfig` (:60),
-`llama_tiny_config` (:112), `llama_7b_config` (:132), and the cached
-decode paths of `LlamaAttention` (:248-310), `LlamaMLP` (:350),
-`LlamaDecoderLayer` (:475-515), `LlamaModel` (:554-634) and
-`LlamaForCausalLM` (:673-692).  Training (`forward`, the loss) comes in
-a later slice.
+`llama_tiny_config` (:112), `llama_7b_config` (:132); the training
+forward of `LlamaAttention` (:197-246), `LlamaMLP` (:362),
+`LlamaDecoderLayer._block` (:466) with the fused mid-block add + norm
+`_add_norm_mid` (:428), `LlamaModel.forward` (:532) and
+`LlamaForCausalLM.forward` (:649) / `compute_loss` (:708, the logits
+path); and the cached decode paths (:248-310, :475-515, :554-634,
+:673-692).  Not ported yet (they raise NotImplementedError): selective
+and full recompute, MoE experts, the fused linear + cross-entropy loss,
+and sequence-parallel ring attention.
+
+Parameters are trainable (`requires_grad=True`).  Serving runs under
+`torch.inference_mode()` (inference/generation.py, serving.py), so the
+decode paths record no graph; their blocks stay unfused, as the
+reference's `_block_cached` is.
 
 Parameters keep the reference's names and its [in, out] layout
 (`x @ w`) — `llama.embed_tokens`, `llama.layers.N.self_attn.q_proj`,
@@ -29,6 +38,7 @@ import torch
 from torch import nn
 
 from .. import ops
+from ..nn import functional as F
 from ..framework.device import resolve_device
 from ..framework.flags import get_flag
 
@@ -54,6 +64,12 @@ class LlamaConfig:
     dtype: str = "bfloat16"
     # storage dtype of the parameters; None = the compute dtype
     param_dtype: str | None = None
+    # training-only fields, with the reference's defaults; recompute and
+    # MoE experts are not ported yet (a model built with them raises)
+    recompute: bool = False
+    recompute_layers: int | None = None
+    recompute_granularity: str = "full"
+    moe_num_experts: int = 0
 
     @property
     def head_dim(self):
@@ -109,7 +125,7 @@ def _resolve_kv_dtype(cfg, kv_dtype=None):
 def _param(shape, std, cfg, device, gen):
     w = torch.empty(shape, dtype=cfg.storage_dtype, device=device)
     w.normal_(0.0, std, generator=gen)
-    return nn.Parameter(w, requires_grad=False)
+    return nn.Parameter(w)
 
 
 class LlamaRMSNorm(nn.Module):
@@ -117,7 +133,7 @@ class LlamaRMSNorm(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(
             torch.ones(config.hidden_size, dtype=config.storage_dtype,
-                       device=device), requires_grad=False)
+                       device=device))
         self.eps = config.rms_norm_eps
 
     def forward(self, x):
@@ -136,9 +152,9 @@ class LlamaAttention(nn.Module):
         self.v_proj = _param((h, nkv * hd), std, config, device, gen)
         self.o_proj = _param((nh * hd, h), std, config, device, gen)
 
-    def _decode_qkv_rope(self, x, cos, sin):
-        """Projection + rope shared by BOTH KV layouts, so the dense and
-        paged paths differ only in where K/V land."""
+    def _qkv_rope(self, x, cos, sin):
+        """Projection + rope shared by training and BOTH KV layouts, so
+        the paths differ only in where K/V land and how they attend."""
         cfg = self.config
         b, s, _ = x.shape
         q = (x @ self.q_proj.to(x.dtype)).reshape(
@@ -150,11 +166,19 @@ class LlamaAttention(nn.Module):
         q, k = ops.apply_rope(q, k, cos, sin)
         return q, k, v
 
+    def forward(self, x, cos, sin):
+        """Causal self-attention over the whole sequence (training):
+        `ops.attention`, the flash kernels on the card."""
+        b, s, _ = x.shape
+        q, k, v = self._qkv_rope(x, cos, sin)
+        out = ops.attention(q, k, v, causal=True)
+        return out.reshape(b, s, -1) @ self.o_proj.to(x.dtype)
+
     def forward_cached(self, x, cos, sin, k_cache, v_cache, pos):
         """Dense decode attention: write this step's K/V into the ring
         buffers at `pos` (in place), attend against the whole buffer."""
         b, s, _ = x.shape
-        q, k, v = self._decode_qkv_rope(x, cos, sin)
+        q, k, v = self._qkv_rope(x, cos, sin)
         ops.dense_kv_update(k_cache, v_cache, pos, k, v)
         out = ops.cached_attention(q, k_cache, v_cache, pos)
         return out.reshape(b, s, -1) @ self.o_proj.to(x.dtype)
@@ -165,7 +189,7 @@ class LlamaAttention(nn.Module):
         `rows` (ops.paged_write_rows of the slots' page tables, in
         place); attention walks the pages."""
         b, s, _ = x.shape
-        q, k, v = self._decode_qkv_rope(x, cos, sin)
+        q, k, v = self._qkv_rope(x, cos, sin)
         ops.paged_kv_write(cache["k"], cache["v"], rows, k, v, layer)
         out = ops.paged_attention(q, cache["k"], cache["v"], page_table,
                                   pos, layer)
@@ -197,6 +221,21 @@ class LlamaDecoderLayer(nn.Module):
         self.input_layernorm = LlamaRMSNorm(config, device)
         self.post_attention_layernorm = LlamaRMSNorm(config, device)
 
+    def forward(self, x, cos, sin):
+        return self._block(x, cos, sin)
+
+    def _add_norm_mid(self, x, delta):
+        """The fused mid-block residual add + RMSNorm: (x + delta, its
+        norm) in one kernel pass on the card."""
+        norm = self.post_attention_layernorm
+        return ops.fused_add_rms_norm(x, delta, norm.weight.to(x.dtype),
+                                      norm.eps)
+
+    def _block(self, x, cos, sin):
+        a = self.self_attn(self.input_layernorm(x), cos, sin)
+        x, h = self._add_norm_mid(x, a)
+        return x + self.mlp(h)
+
     def _block_cached(self, x, attend):
         """norm → attend(h) → residual → norm → MLP → residual;
         `attend` is the only point where the KV layouts differ."""
@@ -225,6 +264,19 @@ class LlamaModel(nn.Module):
             [LlamaDecoderLayer(config, device, gen)
              for _ in range(config.num_hidden_layers)])
         self.norm = LlamaRMSNorm(config, device)
+
+    def forward(self, input_ids):
+        """input_ids [b, s] → final hidden states [b, s, h]; rope tables
+        [s, head_dim] shared by every batch row."""
+        cfg = self.config
+        dev = self.embed_tokens.device
+        cos, sin = ops.rope_cos_sin(input_ids.shape[1], cfg.head_dim,
+                                    cfg.rope_theta, torch.float32,
+                                    device=dev)
+        x = self.embed_tokens[input_ids.to(torch.int64)].to(cfg.compute_dtype)
+        for layer in self.layers:
+            x = layer(x, cos, sin)
+        return self.norm(x)
 
     def _embed_rope(self, input_ids, pos):
         """Token embeddings and per-position cos/sin [b, s, d] for
@@ -300,6 +352,11 @@ class LlamaForCausalLM(nn.Module):
 
     def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
+        if config.recompute or config.moe_num_experts > 0:
+            raise NotImplementedError(
+                "recompute and MoE experts are not ported yet (recompute="
+                f"{config.recompute}, moe_num_experts="
+                f"{config.moe_num_experts})")
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
@@ -309,6 +366,16 @@ class LlamaForCausalLM(nn.Module):
             self.lm_head = _param((config.hidden_size, config.vocab_size),
                                   1.0 / math.sqrt(config.hidden_size),
                                   config, dev, gen)
+
+    def forward(self, input_ids):
+        """input_ids [b, s] → logits [b, s, V] in the compute dtype."""
+        return self._lm_logits(self.llama(input_ids))
+
+    def compute_loss(self, logits, labels):
+        """Next-token cross entropy in fp32 over the logits (the
+        reference's flags-off path; the fused linear + CE of
+        FLAGS_fused_ce is not ported yet)."""
+        return F.fused_cross_entropy(logits, labels, shift=True)
 
     def init_cache(self, batch: int, max_len: int):
         return self.llama.init_cache(batch, max_len)
@@ -322,15 +389,18 @@ class LlamaForCausalLM(nn.Module):
             return x @ self.llama.embed_tokens.t().to(x.dtype)
         return x @ self.lm_head.to(x.dtype)
 
+    @torch.no_grad()
     def forward_cached_paged(self, input_ids, cache, page_table, pos):
         """Returns (logits [b, s, V], cache) — the pool updated in
-        place."""
+        place.  Decode records no graph, as the reference's raw-array
+        decode path is not taped."""
         x, cache = self.llama.forward_cached_paged(input_ids, cache,
                                                    page_table, pos)
         return self._lm_logits(x), cache
 
+    @torch.no_grad()
     def forward_cached(self, input_ids, cache, pos):
         """Returns (logits [b, s, V], cache) — the ring buffers updated
-        in place."""
+        in place; no graph is recorded."""
         x, cache = self.llama.forward_cached(input_ids, cache, pos)
         return self._lm_logits(x), cache

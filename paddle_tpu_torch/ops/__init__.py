@@ -1,16 +1,20 @@
-"""paddle_tpu_torch.ops — the op layer of the decode path.
+"""paddle_tpu_torch.ops — the op layer of the decode and training paths.
 
 Counterpart of `paddle_tpu/ops/__init__.py`.  Each op whose reference
 reaches a Pallas TPU kernel has a hand-written Hopper kernel here
 (csrc/*.cu) with a plain PyTorch version beside it in the same module:
 
-  rms_norm         ops/rms_norm.py        (ref :316, twin xla_rms_norm :306)
-  apply_rope       ops/rope.py            (ref :383, XLA branch :399-409)
-  paged_attention  ops/paged_attention.py (ref :269, twin xla_paged_attention :244)
+  rms_norm            ops/rms_norm.py        (ref :316, twin xla_rms_norm :306)
+  fused_add_rms_norm  ops/rms_norm.py        (ref :337, twin :328)
+  apply_rope          ops/rope.py            (ref :383, XLA branch :399-409)
+  paged_attention     ops/paged_attention.py (ref :269, twin xla_paged_attention :244)
+  attention           ops/flash_attention.py (ref :289, twin xla_attention :80)
 
-Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
-the kernel or raises.  There is no fallback — an argument the kernel
-does not take is an error, not a detour to the plain version.
+The training ops have kernels for their backward too (autograd
+Functions in the same modules).  Dispatch: a CPU tensor takes the plain
+version and native autograd; a CUDA tensor launches the kernel or
+raises, forward and backward.  There is no fallback — an argument the
+kernel does not take is an error, not a detour to the plain version.
 
 The rest (`gqa_scores`, `gqa_weighted_v`, `cached_attention`,
 `paged_kv_update`, `rope_cos_sin`, `swiglu`) is plain PyTorch, as the
@@ -26,39 +30,55 @@ import torch
 from .attention import (cached_attention, dense_kv_update, gqa_scores,
                         gqa_weighted_v, paged_kv_update, paged_kv_write,
                         paged_write_rows)
+from .flash_attention import (attention, flash_attention, plain_attention,
+                              plain_flash_bwd, plain_flash_fwd)
 from .paged_attention import paged_attention, plain_paged_attention
-from .rms_norm import plain_rms_norm, rms_norm
-from .rope import apply_rope, plain_apply_rope, rope_cos_sin
+from .rms_norm import (fused_add_rms_norm, plain_fused_add_rms_norm,
+                       plain_rms_norm, plain_rms_norm_bwd, rms_norm)
+from .rope import apply_rope, plain_apply_rope, plain_rope_bwd, rope_cos_sin
 
 __all__ = ["gqa_scores", "gqa_weighted_v", "cached_attention",
            "paged_kv_update", "paged_write_rows", "paged_kv_write",
            "dense_kv_update",
            "paged_attention", "plain_paged_attention",
-           "rms_norm", "plain_rms_norm",
-           "apply_rope", "plain_apply_rope", "rope_cos_sin", "swiglu",
+           "rms_norm", "plain_rms_norm", "plain_rms_norm_bwd",
+           "fused_add_rms_norm", "plain_fused_add_rms_norm",
+           "apply_rope", "plain_apply_rope", "plain_rope_bwd",
+           "rope_cos_sin", "swiglu",
+           "attention", "flash_attention", "plain_attention",
+           "plain_flash_fwd", "plain_flash_bwd",
            "KERNELS", "kernel_module", "launch_counts",
            "reset_launch_counts"]
 
-# the kernel-bearing modules, by the name of their wrapper
-KERNELS = ("rms_norm", "rope", "paged_attention")
+# every kernel entry point (forward and backward), by the module that
+# launches and counts it
+KERNELS = {"rms_norm": "rms_norm", "rms_norm_bwd": "rms_norm",
+           "fused_add_rms_norm": "rms_norm",
+           "fused_add_rms_norm_bwd": "rms_norm",
+           "rope": "rope", "rope_bwd": "rope",
+           "paged_attention": "paged_attention",
+           "flash_attention": "flash_attention",
+           "flash_attention_bwd": "flash_attention"}
 
 
 def kernel_module(name):
-    """The module of kernel `name` (its wrapper function shadows the
-    module's attribute on this package, so look it up by path)."""
-    if name not in KERNELS:
-        raise KeyError(f"unknown kernel {name!r}; one of {KERNELS}")
+    """The module of kernel-bearing module `name` (a wrapper function
+    shadows the module's attribute on this package, so look it up by
+    path)."""
+    if name not in set(KERNELS.values()):
+        raise KeyError(f"unknown kernel module {name!r}; one of "
+                       f"{sorted(set(KERNELS.values()))}")
     return importlib.import_module(f"{__name__}.{name}")
 
 
 def launch_counts():
-    """{kernel: launches since the last reset}."""
-    return {n: kernel_module(n).launches for n in KERNELS}
+    """{kernel entry point: launches since the last reset}."""
+    return {n: kernel_module(m).launches[n] for n, m in KERNELS.items()}
 
 
 def reset_launch_counts():
-    for n in KERNELS:
-        kernel_module(n).launches = 0
+    for n, m in KERNELS.items():
+        kernel_module(m).launches[n] = 0
 
 
 def swiglu(x, gate=None):

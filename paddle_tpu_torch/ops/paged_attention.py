@@ -29,7 +29,7 @@ from .attention import cached_attention
 __all__ = ["paged_attention", "plain_paged_attention", "launches"]
 
 # kernel launches since the last reset (chip_smoke.py zeroes and reads it)
-launches = 0
+launches = {"paged_attention": 0}
 
 
 def _check_args(q, k_pool):
@@ -64,7 +64,6 @@ def paged_attention(q, k_pool, v_pool, page_table, pos, layer, scale=None):
 
 
 def _launch(q, k_pool, v_pool, page_table, pos, layer, scale):
-    global launches
     req = _build.require
     dev = _build.cuda_device_index(q, k_pool, v_pool, page_table, pos)
     code = _build.dtype_code(q.dtype)
@@ -110,7 +109,7 @@ def _launch(q, k_pool, v_pool, page_table, pos, layer, scale):
         n_kv, P_slot, int(layer), float(s), splits,
         _build.stream_of(q.device))
     _build.check(rc, "paged_attention")
-    launches += 1
+    launches["paged_attention"] += 1
     return out
 
 

@@ -1,14 +1,20 @@
-"""Rotary position embedding (NeoX rotate-half) forward: the Hopper
-kernel (csrc/rope.cu) and its plain PyTorch version.
+"""Rotary position embedding (NeoX rotate-half), forward and backward:
+the Hopper kernel (csrc/rope.cu) and its plain PyTorch version.
 
 Replaces the TPU kernel `paddle_tpu/ops/pallas/rope.py::rope_apply`
-(:142, `_rope3` :73 / `_rope_kernel` :45).  The plain version is the
-XLA branch of the reference's `apply_rope` (ops/__init__.py:399-409).
-The kernel rounds each product and the sum like the plain version, so
-the two agree bit for bit.
+(:142, `_rope3` :73 / `_rope_kernel` :45, backward `_rope_bwd` :120).
+The plain version is the XLA branch of the reference's `apply_rope`
+(ops/__init__.py:399-409).  The kernel rounds each product and the sum
+like the plain version, so the two agree bit for bit.
+
+The backward is the same kernel on (g_q, g_k) with sin's halves swapped
+and negated (`neg_sin`), the true adjoint of the half-split rotation
+(rope.py:124-127); the cos/sin cotangents are plain PyTorch, computed
+only when an input table asks for a gradient (`_cos_sin_cotangent`
+:105).  q and k are saved for the backward only in that case.
 
 `apply_rope` takes the plain version for CPU tensors and launches the
-kernel for CUDA tensors, or raises — there is no fallback, and unlike
+kernels for CUDA tensors, or raises — there is no fallback, and unlike
 the TPU kernel every row count is served.
 """
 from __future__ import annotations
@@ -17,10 +23,12 @@ import torch
 
 from . import _build
 
-__all__ = ["apply_rope", "plain_apply_rope", "rope_cos_sin", "launches"]
+__all__ = ["apply_rope", "plain_apply_rope", "plain_rope_bwd",
+           "rope_cos_sin", "launches"]
 
-# kernel launches since the last reset (chip_smoke.py zeroes and reads it)
-launches = 0
+# kernel launches per entry point since the last reset (chip_smoke.py
+# zeroes and reads them)
+launches = {"rope": 0, "rope_bwd": 0}
 
 
 def rope_cos_sin(seq_len, head_dim, base=10000.0, dtype=torch.float32,
@@ -57,14 +65,61 @@ def plain_apply_rope(q, k, cos, sin):
     return q_out, k_out
 
 
+def _swap_halves(t):
+    half = t.shape[-1] // 2
+    return torch.cat([t[..., half:], t[..., :half]], dim=-1)
+
+
+def plain_rope_bwd(gq, gk, cos, sin):
+    """(dq, dk) of the rotation: the forward's math on (g_q, g_k) with
+    sin's halves swapped and negated."""
+    return plain_apply_rope(gq, gk, cos, -_swap_halves(sin))
+
+
+def _cos_sin_cotangent(g, x, cos_shape):
+    """d/dcos, d/dsin of one operand's rotation (rope.py:105-117),
+    summed over the heads, and over the batch for [s, d] tables."""
+    half = g.shape[-1] // 2
+    gf, xf = g.float(), x.float()
+    g1, g2 = gf[..., :half], gf[..., half:]
+    x1, x2 = xf[..., :half], xf[..., half:]
+    dc = torch.cat([(g1 * x1).sum(2), (g2 * x2).sum(2)], dim=-1)
+    ds = torch.cat([-(g1 * x2).sum(2), (g2 * x1).sum(2)], dim=-1)
+    if len(cos_shape) == 2:
+        dc, ds = dc.sum(0), ds.sum(0)
+    return dc, ds
+
+
 def apply_rope(q, k, cos, sin):
     if q.device.type == "cpu":
         return plain_apply_rope(q, k, cos, sin)
-    return _launch(q, k, cos, sin)
+    return _Rope.apply(q, k, cos, sin)
 
 
-def _launch(q, k, cos, sin):
-    global launches
+class _Rope(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, cos, sin):
+        tables = ctx.needs_input_grad[2] or ctx.needs_input_grad[3]
+        ctx.save_for_backward(cos, sin, *((q, k) if tables else ()))
+        return _launch(q, k, cos, sin)
+
+    @staticmethod
+    def backward(ctx, gq, gk):
+        cos, sin, *qk = ctx.saved_tensors
+        gq, gk = gq.contiguous(), gk.contiguous()
+        dq, dk = _launch(gq, gk, cos, _swap_halves(sin).contiguous(),
+                         neg_sin=True)
+        dcos = dsin = None
+        if qk:
+            dcq, dsq = _cos_sin_cotangent(gq, qk[0], cos.shape)
+            dck, dsk = _cos_sin_cotangent(gk, qk[1], cos.shape)
+            dcos, dsin = (dcq + dck).to(cos.dtype), (dsq + dsk).to(sin.dtype)
+        return dq, dk, dcos, dsin
+
+
+def _launch(q, k, cos, sin, neg_sin=False):
+    """The rotation kernel; neg_sin rotates by -sin (the backward, with
+    sin's halves swapped by the caller)."""
     req = _build.require
     dev = _build.cuda_device_index(q, k, cos, sin)
     code = _build.dtype_code(q.dtype)
@@ -88,8 +143,9 @@ def _launch(q, k, cos, sin):
     cs_rows = s if cos.ndim == 2 else b * s
     rc = _build.library().ptt_rope(
         dev, code, q.data_ptr(), k.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-        oq.data_ptr(), ok.data_ptr(), b * s, h, hk, d, cs_rows,
+        oq.data_ptr(), ok.data_ptr(), b * s, h, hk, d, cs_rows, int(neg_sin),
         _build.stream_of(q.device))
-    _build.check(rc, "rope")
-    launches += 1
+    name = "rope_bwd" if neg_sin else "rope"
+    _build.check(rc, name)
+    launches[name] += 1
     return oq, ok

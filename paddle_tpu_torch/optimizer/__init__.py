@@ -1,0 +1,5 @@
+from .jit_update import apply_update, maybe_master_state, wants_master
+from .optimizer import Adam, AdamW, Optimizer
+
+__all__ = ["Optimizer", "Adam", "AdamW", "apply_update",
+           "maybe_master_state", "wants_master"]

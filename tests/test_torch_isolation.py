@@ -153,7 +153,8 @@ def test_build_compiles_each_source_then_links(fake_nvcc, monkeypatch):
     lib = _build.build()
     assert lib.parent == fake_nvcc and lib.exists()
     assert _build.build_info["built"]
-    for name in ("rms_norm.cu", "rope.cu", "paged_attention.cu"):
+    for name in ("rms_norm.cu", "rope.cu", "paged_attention.cu",
+                 "flash_attention.cu"):
         assert f"== {name} (rc 0)" in _build.build_info["log"]
     assert not list(fake_nvcc.glob("work_*"))      # scratch cleaned up
     _build.build_info["built"] = False
@@ -171,7 +172,8 @@ def test_build_failure_raises_with_compiler_output(fake_nvcc, monkeypatch):
 def test_build_key_follows_the_sources():
     srcs, headers = _build._sources()
     assert {s.name for s in srcs} == {"rms_norm.cu", "rope.cu",
-                                      "paged_attention.cu"}
+                                      "paged_attention.cu",
+                                      "flash_attention.cu"}
     assert _build._digest(srcs + headers) == _build._digest(srcs + headers)
     assert _build._digest(srcs + headers) != _build._digest(srcs)
 
