@@ -30,8 +30,8 @@ import torch
 from .attention import (cached_attention, dense_kv_update, gqa_scores,
                         gqa_weighted_v, paged_kv_update, paged_kv_write,
                         paged_write_rows)
-from .flash_attention import (attention, flash_attention, plain_attention,
-                              plain_flash_bwd, plain_flash_fwd)
+from .flash_attention import (attention, plain_attention, plain_flash_bwd,
+                              plain_flash_fwd)
 from .paged_attention import paged_attention, plain_paged_attention
 from .rms_norm import (fused_add_rms_norm, plain_fused_add_rms_norm,
                        plain_rms_norm, plain_rms_norm_bwd, rms_norm)
@@ -45,7 +45,7 @@ __all__ = ["gqa_scores", "gqa_weighted_v", "cached_attention",
            "fused_add_rms_norm", "plain_fused_add_rms_norm",
            "apply_rope", "plain_apply_rope", "plain_rope_bwd",
            "rope_cos_sin", "swiglu",
-           "attention", "flash_attention", "plain_attention",
+           "attention", "plain_attention",
            "plain_flash_fwd", "plain_flash_bwd",
            "KERNELS", "kernel_module", "launch_counts",
            "reset_launch_counts"]

@@ -30,7 +30,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["library", "build", "build_info", "check", "require",
-           "cuda_device_index", "dtype_code", "stream_of", "DTYPE_CODES",
+           "cuda_device_index", "dtype_code", "stream_of", "records_grad",
+           "DTYPE_CODES",
            "BUILD_DIR", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -175,6 +176,14 @@ def require(cond: bool, msg: str, *tensors):
     if not cond:
         got = ", ".join(f"{tuple(t.shape)} {t.dtype}" for t in tensors)
         raise ValueError(f"{msg} (got {got})" if tensors else msg)
+
+
+def records_grad(*tensors) -> bool:
+    """Whether autograd would record an op on `tensors`.  Only then do
+    the wrappers go through their autograd.Function: without a graph
+    (the decode loop runs under inference_mode) they launch the forward
+    kernel directly and skip apply's per-call Python work."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def cuda_device_index(*tensors) -> int:

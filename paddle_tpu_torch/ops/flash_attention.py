@@ -14,14 +14,13 @@ forward `_fwd` :540 (and `_fwd_small` :131, `_fwd_1b` :367), backward
   plain_flash_bwd   the kernels' backward math (recompute from the saved
                     logsumexp; p and ds rounded to the operand dtype
                     before their products, :618, :664, :670)
-  flash_attention   q [b, sq, h, d], k/v [b, sk, hk, d] (h % hk == 0):
-                    a torch.autograd.Function over the CUDA kernels on
-                    the card, saving (q, k, v, out, lse) as the TPU
-                    custom VJP does (:795)
-  attention         the reference's `ops.attention` (:289): the plain
-                    version for CPU tensors; on CUDA the kernel, which
-                    refuses a mask, dropout and causal with sq != sk (the
-                    JAX kernel refuses them too, :832-837).  The
+  attention         the reference's `ops.attention` (:289), q [b, sq,
+                    h, d], k/v [b, sk, hk, d] (h % hk == 0): the plain
+                    version for CPU tensors; on CUDA a
+                    torch.autograd.Function over the kernels, saving
+                    (q, k, v, out, lse) as the TPU custom VJP does (:795).
+                    It refuses a mask, dropout and causal with sq != sk
+                    (the JAX kernel refuses them too, :832-837).  The
                     reference's `except ValueError` detour to the twin
                     (:296-299) is not carried over: those calls raise.
 
@@ -34,7 +33,7 @@ import torch
 from . import _build
 from .attention import NEG_INF, gqa_scores, gqa_weighted_v
 
-__all__ = ["attention", "flash_attention", "plain_attention",
+__all__ = ["attention", "plain_attention",
            "plain_flash_fwd", "plain_flash_bwd", "launches"]
 
 # kernel launches per entry point since the last reset (chip_smoke.py
@@ -108,19 +107,6 @@ def plain_flash_bwd(q, k, v, out, lse, dout, causal=False, scale=None):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention(q, k, v, causal=False, scale=None):
-    """Causal or full attention with GQA, no mask and no dropout:
-    the plain version for CPU tensors, the kernels for CUDA tensors."""
-    if q.device.type == "cpu":
-        return plain_attention(q, k, v, causal=causal, scale=scale)
-    if causal and q.shape[1] != k.shape[1]:
-        raise ValueError("flash_attention kernel: causal attention needs "
-                         f"sq == sk (got {q.shape[1]} and {k.shape[1]}); "
-                         "the kernel masks top-left aligned")
-    return _FlashAttention.apply(q, k, v, bool(causal),
-                                 float(_scale(q, scale)))
-
-
 def attention(q, k, v, mask=None, causal=False, scale=None, dropout_p=0.0):
     if q.device.type == "cpu":
         return plain_attention(q, k, v, mask, causal, scale, dropout_p)
@@ -128,7 +114,12 @@ def attention(q, k, v, mask=None, causal=False, scale=None, dropout_p=0.0):
         raise NotImplementedError("attention dropout is not ported yet")
     if mask is not None:
         raise ValueError("the flash_attention kernel takes no mask")
-    return flash_attention(q, k, v, causal, scale)
+    if causal and q.shape[1] != k.shape[1]:
+        raise ValueError("flash_attention kernel: causal attention needs "
+                         f"sq == sk (got {q.shape[1]} and {k.shape[1]}); "
+                         "the kernel masks top-left aligned")
+    return _FlashAttention.apply(q, k, v, bool(causal),
+                                 float(_scale(q, scale)))
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -19,8 +19,10 @@ bit-identical to `x + y`.  `plain_rms_norm_bwd` does the math of
 
 On a CUDA tensor the forward and the backward both run kernels, through
 `torch.autograd.Function`s that save `(x, w)` (the residual for the
-fused add) as the reference's custom VJPs do.  A CPU tensor takes the
-plain versions and native autograd; there is no fallback.
+fused add) as the reference's custom VJPs do; with no graph to record
+(`_build.records_grad`) the forward kernel is launched directly.  A CPU
+tensor takes the plain versions and native autograd; there is no
+fallback.
 """
 from __future__ import annotations
 
@@ -70,6 +72,8 @@ def rms_norm(x, weight, epsilon=1e-6):
     """x [..., H]; weight [H] of x's dtype."""
     if x.device.type == "cpu":
         return plain_rms_norm(x, weight, epsilon)
+    if not _build.records_grad(x, weight):
+        return _launch(x, weight, float(epsilon))
     return _RMSNorm.apply(x, weight, float(epsilon))
 
 
@@ -83,6 +87,8 @@ def fused_add_rms_norm(x, y, weight, epsilon=1e-6):
     weight [H] of that dtype."""
     if x.device.type == "cpu":
         return plain_fused_add_rms_norm(x, y, weight, epsilon)
+    if not _build.records_grad(x, y, weight):
+        return _launch_add(x, y, weight, float(epsilon))
     return _FusedAddRMSNorm.apply(x, y, weight, float(epsilon))
 
 

@@ -15,7 +15,9 @@ only when an input table asks for a gradient (`_cos_sin_cotangent`
 
 `apply_rope` takes the plain version for CPU tensors and launches the
 kernels for CUDA tensors, or raises — there is no fallback, and unlike
-the TPU kernel every row count is served.
+the TPU kernel every row count is served.  With no graph to record
+(`_build.records_grad`, as in the decode loop) it launches the forward
+kernel without the autograd.Function.
 """
 from __future__ import annotations
 
@@ -93,6 +95,8 @@ def _cos_sin_cotangent(g, x, cos_shape):
 def apply_rope(q, k, cos, sin):
     if q.device.type == "cpu":
         return plain_apply_rope(q, k, cos, sin)
+    if not _build.records_grad(q, k, cos, sin):
+        return _launch(q, k, cos, sin)
     return _Rope.apply(q, k, cos, sin)
 
 

@@ -1,0 +1,93 @@
+#!/usr/bin/env python3
+"""Serving speed of several trees of this repo, in turns, on one card.
+
+    python3 serve_ab.py TREE [TREE ...]
+
+Each TREE is a checkout of this repository: `.` for this one, or another
+commit unpacked with `git archive` into a directory that .gitignore lists
+(only `chip_smoke.py` and `paddle_tpu_torch/` are needed).  In the order
+given, each tree's own `chip_smoke.py` builds that tree's kernels and runs
+its serve phase (phase 5: Llama-2-7B, bf16, 16 requests, then a profiled
+pure-decode window) twice in a fresh process; the second run is kept, so
+first-call costs fall on the first.  Give the trees in turns (A B B A) so
+that a drift of the card's clocks falls on each alike.
+
+Prints the card's name and power limit, one JSON line per run, and last
+the median of each tree's runs.  Exits 2 without a CUDA device.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+# run inside each tree: its own chip_smoke.py and paddle_tpu_torch
+_RUN = """
+import sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from paddle_tpu_torch import ops
+from paddle_tpu_torch.ops import _build
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+_build.library()
+for _ in range(2):
+    cs.phase_serve(torch, ops, dev)
+"""
+
+METRICS = ("decode_ms_per_step", "tok_per_s", "ttft_ms_p50",
+           "trace_wall_ms_per_step", "trace_device_ms_per_step")
+
+
+def _last(lines, tag):
+    rows = [ln[len(tag):] for ln in lines if ln.startswith(tag)]
+    if not rows:
+        raise RuntimeError(f"serve_ab: no {tag!r} line in the run's output")
+    return json.loads(rows[-1])
+
+
+def run(tree):
+    proc = subprocess.run([sys.executable, "-c", _RUN], cwd=tree, text=True,
+                          capture_output=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"serve_ab: {tree} failed (rc {proc.returncode})"
+                           f":\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    serve, trace = _last(lines, "[serve] "), _last(lines, "[trace] ")
+    return dict(tree=tree, decode_ms_per_step=serve["decode_ms_per_step"],
+                tok_per_s=serve["tok_per_s"], ttft_ms_p50=serve["ttft_ms_p50"],
+                trace_wall_ms_per_step=trace["wall_ms_per_step"],
+                trace_device_ms_per_step=trace["device_ms_per_step"])
+
+
+def main(trees):
+    import torch
+    if not torch.cuda.is_available():
+        print("serve_ab: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not trees:
+        print(__doc__, file=sys.stderr)
+        return 2
+    for tree in trees:
+        if not os.path.isfile(os.path.join(tree, "chip_smoke.py")):
+            raise SystemExit(f"serve_ab: {tree} holds no chip_smoke.py")
+    print(subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip(), flush=True)
+    runs = []
+    for tree in trees:
+        runs.append(run(tree))
+        print(json.dumps(runs[-1]), flush=True)
+    medians = {t: {m: statistics.median(r[m] for r in runs if r["tree"] == t)
+                   for m in METRICS} for t in dict.fromkeys(trees)}
+    print(json.dumps({"medians": medians}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -7,7 +7,9 @@
   * the kernel wrappers have no fallback: a tensor that is not on the
     CPU goes to the kernel or raises, and no `try` in ops/ can swallow
     a launch or build error;
-  * a build with no nvcc raises with the reason.
+  * a build with no nvcc raises with the reason;
+  * the card scripts (chip_smoke.py, serve_ab.py) import nothing of the
+    reference and, with no CUDA device, exit 2 without a result.
 """
 import ast
 import os
@@ -61,6 +63,24 @@ def test_sources_never_import_the_reference():
             for n in names:
                 top = n.split(".")[0]
                 assert top not in ("jax", "jaxlib", "paddle_tpu"), (f, n)
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "serve_ab.py"])
+def test_card_scripts_stand_alone_and_refuse_without_cuda(script, tmp_path):
+    """The card scripts import nothing of the reference, and with no CUDA
+    device (as here) exit 2 and print no result."""
+    path = PKG.parent / script
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = [a.name for a in node.names] \
+                if isinstance(node, ast.Import) else [node.module or ""]
+            assert not any(n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")
+                           for n in names), (script, names)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, str(path)], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 2, (res.stdout, res.stderr)
+    assert '"ok"' not in res.stdout
 
 
 @pytest.fixture

@@ -324,6 +324,37 @@ def _meta(*shape):
     return torch.zeros(shape, device="meta")
 
 
+@pytest.mark.parametrize("mod,launch,outs,function,call", [
+    ("rms_norm", "_launch", 1, "_RMSNorm",
+     lambda m, t: m.rms_norm(t, _meta(8))),
+    ("rms_norm", "_launch_add", 2, "_FusedAddRMSNorm",
+     lambda m, t: m.fused_add_rms_norm(t, _meta(4, 8), _meta(8))[1]),
+    ("rope", "_launch", 2, "_Rope",
+     lambda m, t: m.apply_rope(t, _meta(4, 1, 8), _meta(4, 8),
+                               _meta(4, 8))[0]),
+], ids=["rms_norm", "fused_add_rms_norm", "rope"])
+def test_wrapper_skips_the_function_without_a_graph(monkeypatch, mod, launch,
+                                                     outs, function, call):
+    """Off the CPU (a meta tensor stands in for the card's here) the
+    wrapper launches the forward kernel directly when no graph is
+    recorded, as in the decode loop, and goes through its
+    autograd.Function, whose backward is a kernel too, when one is."""
+    m = tops.kernel_module(mod)
+
+    def fake_launch(x, *args):
+        return torch.empty_like(x) if outs == 1 else \
+            (torch.empty_like(x),) * outs
+
+    monkeypatch.setattr(m, launch, fake_launch)
+    x = _meta(4, 8) if mod == "rms_norm" else _meta(4, 4, 2, 8)
+    with torch.inference_mode():
+        assert call(m, x).grad_fn is None
+    x.requires_grad_()
+    with torch.no_grad():
+        assert call(m, x).grad_fn is None
+    assert type(call(m, x).grad_fn).__name__ == function + "Backward"
+
+
 @pytest.mark.parametrize("call,err", [
     (lambda: tops.attention(_meta(1, 4, 2, 64), _meta(1, 4, 2, 64),
                             _meta(1, 4, 2, 64), mask=_meta(1, 1, 4, 4)),
@@ -333,8 +364,8 @@ def _meta(*shape):
      NotImplementedError),
     (lambda: tops.attention(_meta(1, 4, 2, 64), _meta(1, 6, 2, 64),
                             _meta(1, 6, 2, 64), causal=True), ValueError),
-    (lambda: tops.flash_attention(_meta(1, 4, 2, 32), _meta(1, 4, 2, 32),
-                                  _meta(1, 4, 2, 32)), ValueError),
+    (lambda: tops.attention(_meta(1, 4, 2, 32), _meta(1, 4, 2, 32),
+                            _meta(1, 4, 2, 32)), ValueError),
 ], ids=["mask", "dropout", "cross_causal", "head_dim_32"])
 def test_attention_kernel_refuses_what_it_does_not_take(call, err):
     """Off the CPU there is no detour to the plain version: arguments
