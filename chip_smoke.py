@@ -10,10 +10,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   1. card    print `nvidia-smi --query-gpu=name,power.limit` for card 0
   2. build   compile the hand-written kernels (csrc/*.cu, nvcc sm_90a)
   3. kernels each kernel against its plain PyTorch version on the card,
-             at the serving path's shapes in bf16: max abs error against
-             a stated tolerance, the kernel's, the plain version's and a
-             library yardstick's time (CUDA events, median of 30 after
-             warm-up), and the least time the work could take
+             at the serving path's shapes in bf16: every element against
+             its own tolerance from the kernel's rounding model (the
+             share of it used and median tol / median |plain| logged),
+             the kernel's, the plain version's and a library
+             yardstick's time (CUDA events, median of 30 after warm-up),
+             and the least time the work could take
   4. parity  a 2-layer Llama at full width (hidden 4096, 32 heads, vocab
              32000) in fp32: the card (kernels) against the CPU (plain
              versions) on the same weights — prefill logits, and the
@@ -30,23 +32,42 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   6. train kernels  each training kernel, forward and backward, against
              its plain version at the training path's shapes in bf16
              (x [8192, 2560]; q [4, 2048, 20, 128], kv [4, 2048, 4, 128]
-             causal): every element against its own tolerance from the
-             kernel's rounding model, the kernel's, the plain version's
-             and a library yardstick's time, the bound
+             causal); the fused AdamW in its four variants (fp32 params
+             or bf16 params + fp32 master, each with and without the ef
+             residual; bf16 moments) at [2560, 6912], [2560] and [2563];
+             the cross-entropy rows at [1024, 8192] with ignored rows:
+             every element against its own tolerance from the kernel's
+             rounding model, the kernel's, the plain version's and a
+             library yardstick's time, the bound
   7. train parity  a 2-layer Llama at the training width (hidden 2560,
              20/4 heads, vocab 8192, seq 256) in fp32: 3 TrainStep AdamW
              steps on the card (kernels) and on the CPU (plain versions)
              from the same weights; losses and parameters must agree.
-             fp32 takes the CUDA-core flash kernels; the tensor-core
-             ones of the bf16 path are held by phase 6
-  8. train   the training configuration (14 layers, hidden 2560, bf16
-             compute, fp32 parameters, batch 4 x 2048, AdamW with bf16
-             moments) for 6 TrainStep steps on one fixed batch: per-step
-             loss (finite and falling), step ms, tokens/s, MFU, peak
-             memory; every training kernel's launch count must equal
-             steps x what the model's structure predicts.  Then one more
-             step under torch.profiler: device time by kernel and kind,
-             and the busy share of the step's wall time.
+             Twice: the logits-path loss, then FLAGS_fused_ce with the
+             first layer under selective recompute.  fp32 takes the
+             CUDA-core flash kernels; the tensor-core ones of the bf16
+             path are held by phase 6
+  8. train   bench.py::bench_llama's configuration (14 layers, hidden
+             2560, bf16 compute, fp32 parameters, the first 3 layers
+             under selective recompute, batch 4 x 2048, AdamW with bf16
+             moments through the fused AdamW kernel) for 6 TrainStep
+             steps on one fixed batch: per-step loss (finite and
+             falling), step ms, tokens/s, MFU, peak memory; every
+             kernel's launch count must equal steps x what the model's
+             structure predicts, the recomputed regions' replays
+             included.  Then one more step under torch.profiler: device
+             time by kernel and kind, and the busy share of the step's
+             wall time.
+  8a. beside it, the same configuration without recompute and with the
+             pure AdamW rule (FLAGS_use_fused_adamw off): step ms and the
+             trace's split of the pure rule's share, in the same call;
+             not the main path, so its launches do not count toward the
+             kernels line
+  9. train, fused  the same with FLAGS_fused_ce (the lm head folded into
+             the chunked loss: 8 cross-entropy-row launches a step) and
+             FLAGS_bf16_adamw_moments (the ef variant of the fused
+             AdamW); its first loss must match phase 8's within the bf16
+             rounding of phase 8's logits.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -65,9 +86,12 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor peak
+FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
 REPS = 30
-# the training path's shapes: bench.py::bench_llama, batch 4 x 2048
+# the training path's shapes: bench.py::bench_llama, batch 4 x 2048,
+# the first 3 layers under selective recompute (bench.py:240-248)
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+TRAIN_RECOMPUTE = 3
 
 
 def check(cond, msg):
@@ -132,16 +156,15 @@ def phase_kernels(torch, ops, dev):
         k = ops.rms_norm(x, w, 1e-5)
         p = plain_rms_norm(x, w, 1e-5)
         torch.cuda.synchronize()
-        err = (k.float() - p.float()).abs().max().item()
         # the kernel casts once after * w (as the TPU kernel); the plain
         # version casts before * w (as the reference twin): one extra
-        # bf16 rounding, i.e. at most ~1.5 ulp, within 2 ulps of the
-        # largest output (2 * 2**-7 relative)
-        tol = 2.0 ** -6 * p.float().abs().max().item()
+        # bf16 rounding, <= 3 2^-8 of each output, plus ~2^-12 from the
+        # fp32 sum order: 2^-6 |plain| per element
         nbytes = 2 * x.numel() * 2 + H * 2
         b_ms, b_by = bound(nbytes, 4 * x.numel(), BF16_FLOP_PER_S)
         results["rms_norm"].append(dict(
-            shape=[B * C, H], max_abs_err=err, tol=tol,
+            shape=[B * C, H], **_checked([k], [p],
+                                         [2.0 ** -6 * p.float().abs()]),
             ms=time_ms(torch, lambda: ops.rms_norm(x, w, 1e-5)),
             plain_ms=time_ms(torch, lambda: plain_rms_norm(x, w, 1e-5)),
             library_ms=time_ms(torch, lambda: torch.nn.functional.rms_norm(
@@ -161,18 +184,17 @@ def phase_kernels(torch, ops, dev):
         kq, kk_ = ops.apply_rope(q, kk, cos, sin)
         pq, pk = plain_apply_rope(q, kk, cos, sin)
         torch.cuda.synchronize()
-        err = max((kq.float() - pq.float()).abs().max().item(),
-                  (kk_.float() - pk.float()).abs().max().item())
         # same fp32 products and sum, each rounded as in the plain
-        # version, one final cast: expected bit-identical; tolerance
-        # one bf16 ulp of the largest output
-        tol = 2.0 ** -7 * max(pq.float().abs().max().item(),
-                              pk.float().abs().max().item())
+        # version, one final cast: expected bit-identical; tolerance one
+        # bf16 ulp of each output, 2^-7 |plain|
+        checked = _checked([kq, kk_], [pq, pk],
+                           [2.0 ** -7 * pq.float().abs(),
+                            2.0 ** -7 * pk.float().abs()])
         nbytes = 2 * (q.numel() + kk.numel()) * 2 + 2 * cos.numel() * 4
         b_ms, b_by = bound(nbytes, 3 * (q.numel() + kk.numel()),
                            BF16_FLOP_PER_S)
         results["rope"].append(dict(
-            shape=[B, C, heads, hd], max_abs_err=err, tol=tol,
+            shape=[B, C, heads, hd], **checked,
             ms=time_ms(torch, lambda: ops.apply_rope(q, kk, cos, sin)),
             plain_ms=time_ms(torch, lambda: plain_apply_rope(q, kk, cos, sin)),
             library_ms=None, library=None, bound_ms=b_ms, bound_by=b_by))
@@ -189,14 +211,7 @@ def phase_kernels(torch, ops, dev):
             k = ops.paged_attention(q, kpool, vpool, pt, pos, layer)
             p = plain_paged_attention(q, kpool, vpool, pt, pos, layer)
             torch.cuda.synchronize()
-            err = (k.float() - p.float()).abs().max().item()
-            # the plain version rounds the softmax weights to bf16
-            # before P.V (as the reference twin does); the kernel keeps
-            # them fp32: |err| <= 2**-8 * max|v| from the weights, plus
-            # half an ulp of the output from each final rounding
             pages = torch.clamp((pos + C - 1) // ps + 1, max=P_slot)
-            vmax = vpool[:, :, layer].float().abs().max().item()
-            tol = 2.0 ** -7 * vmax + 2.0 ** -7 * p.float().abs().max().item()
             kv_bytes = int(pages.sum().item()) * ps * n_kv * hd * 2 * 2
             nbytes = kv_bytes + 2 * q.numel() * 2 + pt.numel() * 4 + B * 4
             keys = (pos[:, None].long() + torch.arange(C, device=dev)[None]
@@ -217,8 +232,10 @@ def phase_kernels(torch, ops, dev):
             sdpa = torch.nn.functional.scaled_dot_product_attention
             lib = sdpa(qt, kg, vg, attn_mask=mask)
             lib_err = (lib.transpose(1, 2).float() - p.float()).abs().max()
+            checked = _checked([k], [p], [_paged_tolerance(
+                torch, qt, kg, vg, mask, p)])
             results["paged_attention"].append(dict(
-                shape=[B, C, h, hd], group=group, max_abs_err=err, tol=tol,
+                shape=[B, C, h, hd], group=group, **checked,
                 library_err=lib_err.item(),
                 ms=time_ms(torch, lambda: ops.paged_attention(
                     q, kpool, vpool, pt, pos, layer)),
@@ -235,14 +252,56 @@ def phase_kernels(torch, ops, dev):
         for c in cases:
             log(f"[kernels] {name} {c['shape']}"
                 f"{' group ' + str(c['group']) if 'group' in c else ''}: "
-                f"err {c['max_abs_err']:.3g} (tol {c['tol']:.3g}) "
+                f"err {c['errs']}, share of the per-element tolerance "
+                f"{c['shares']}, median tol / median |plain| {c['tight']}; "
                 f"kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
                 f"library {c['library_ms'] if c['library_ms'] is None else round(c['library_ms'], 4)} ms, "
                 f"bound {c['bound_ms']:.5f} ms ({c['bound_by']})")
-            check(c["max_abs_err"] <= c["tol"],
+            check(c["tol_share"] <= 1.0,
                   f"{name} {c['shape']} disagrees with its plain version: "
-                  f"{c['max_abs_err']} > {c['tol']}")
+                  f"errors {c['errs']} use {c['shares']} of their "
+                  f"per-element tolerances")
     return results
+
+
+def _checked(outs, refs, tols):
+    """_compare's rows folded into one result: the largest error, the
+    share of its per-element tolerance the worst element uses, and the
+    tolerance there; per output, the errors, shares and tightness."""
+    rows = _compare(outs, refs, tols)
+    worst = max(rows, key=lambda r: r["share"])
+    return dict(max_abs_err=max(r["err"] for r in rows), tol=worst["tol"],
+                tol_share=worst["share"], errs=[r["err"] for r in rows],
+                shares=[r["share"] for r in rows],
+                tight=[r["tight"] for r in rows])
+
+
+def _weighted_sum_tolerance(torch, P, v, ref):
+    """Per-element tolerance of out = sum_j P_j v_j (the softmax weights
+    over the keys times V, [b, h, q, k] x [b, h, k, d]) against a
+    version that rounds each weight to bf16 where the other keeps it
+    fp32 (or rounds it at another point), as in `_flash_tolerances`:
+      2^-7 |plain|            an output rounding that flips;
+      2^-4 sqrt(sum P^2 v^2)  the weight roundings (<= 2^-8 each),
+                              independent and of mean zero (Hoeffding,
+                              8 standard deviations);
+      2^-12 sum |P| |v|       fp32 scores and sums in another order."""
+    vf = v.float()
+    rows = lambda w, x: (w @ x).transpose(1, 2)
+    return (2.0 ** -7 * ref.float().abs()
+            + 2.0 ** -4 * rows(P * P, vf * vf).sqrt()
+            + 2.0 ** -12 * rows(P, vf.abs()))
+
+
+def _paged_tolerance(torch, qt, kg, vg, mask, ref):
+    """Per-element tolerance of paged attention against
+    plain_paged_attention, on the pre-gathered dense view (qt [B, h, C,
+    d], kg/vg [B, h, S, d], mask [B, 1, C, S]): the plain version rounds
+    the softmax weights to bf16 before P.V, as the reference twin does."""
+    scale = qt.shape[-1] ** -0.5
+    s = (qt.float() @ kg.float().transpose(-1, -2)) * scale
+    P = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return _weighted_sum_tolerance(torch, P, vg, ref)
 
 
 # ---------------------------------------------------------------------------
@@ -528,17 +587,13 @@ def phase_train_kernels(torch, ops, dev):
     res = {}
 
     def add(name, shape, outs, refs, tols, ms, plain_ms, library_ms,
-            library, nbytes, flops, **extra):
-        rows = _compare(outs, refs, tols)
-        worst = max(rows, key=lambda r: r["share"])
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+            library, nbytes, flops, rate=BF16_FLOP_PER_S, **extra):
+        b_ms, b_by = bound(nbytes, flops, rate)
         res.setdefault(name, []).append(dict(
-            shape=shape, **extra, max_abs_err=max(r["err"] for r in rows),
-            tol=worst["tol"], tol_share=worst["share"],
-            errs=[r["err"] for r in rows], shares=[r["share"] for r in rows],
-            tight=[r["tight"] for r in rows], ms=ms, plain_ms=plain_ms,
-            library_ms=library_ms, library=library, bound_ms=b_ms,
-            bound_by=b_by))
+            shape=shape, **extra, **_checked(outs, refs, tols), ms=ms,
+            plain_ms=plain_ms, library_ms=library_ms, library=library,
+            bound_ms=b_ms, bound_by=b_by))
+        return res[name][-1]
 
     # Tolerances are per element.  bf16 has 8 significant bits: one
     # rounding moves a value by <= 2^-8 of it, so two roundings that
@@ -668,21 +723,171 @@ def phase_train_kernels(torch, ops, dev):
         5 * fwd_flops // 2, kv_heads=hk, causal=True)
     del q, k, v, do, out, lse, grads, refs, tols, qr, kr, vr, lib_out
     torch.cuda.empty_cache()
+    _adamw_kernel_cases(torch, ops, g, add)
+    _ce_kernel_case(torch, ops, g, add)
+    torch.cuda.empty_cache()
     mm.allow_bf16_reduced_precision_reduction = reduced
     for name, cases in res.items():
         for c in cases:
-            lib = c["library_ms"]
-            log(f"[train-kernels] {name} {c['shape']}: err {c['errs']}, "
-                f"share of the per-element tolerance {c['shares']}, median "
-                f"tol / median |plain| {c['tight']}; kernel {c['ms']:.4f} "
-                f"ms, plain {c['plain_ms']:.4f} ms, library "
-                f"{lib if lib is None else round(lib, 4)} ms, bound "
-                f"{c['bound_ms']:.5f} ms ({c['bound_by']})")
+            ms = {k: c[k] if c[k] is None else round(c[k], 4)
+                  for k in ("ms", "plain_ms", "library_ms")}
+            log(f"[train-kernels] {name} {c['shape']}"
+                f"{' ' + c['variant'] if 'variant' in c else ''}: err "
+                f"{c['errs']}, share of the per-element tolerance "
+                f"{c['shares']}, median tol / median |plain| {c['tight']}; "
+                f"kernel {ms['ms']} ms, plain {ms['plain_ms']} ms, library "
+                f"{ms['library_ms']} ms, bound {c['bound_ms']:.5f} ms "
+                f"({c['bound_by']})")
             check(c["tol_share"] <= 1.0,
                   f"{name} {c['shape']} disagrees with its plain version: "
                   f"errors {c['errs']} use {c['shares']} of their "
                   f"per-element tolerances")
     return res
+
+
+# AdamW variants: (fp32 parameters?, ef?) -> the TPU kernel body each
+# stands for; the first is the one the bench_llama step runs
+ADAMW_VARIANTS = {"fp32": (True, False), "fp32_ef": (True, True),
+                  "master": (False, False), "master_ef": (False, True)}
+
+
+def _adamw_kernel_cases(torch, ops, gen, add):
+    """The fused AdamW kernel against plain_fused_adamw, all four
+    variants, at the MLP weight's [2560, 6912] (the largest parameter of
+    the training step; timed), a norm weight's [2560] and a [2563] whose
+    last 3 elements take the kernel's scalar tail.  bf16 moments as in
+    the training step; grads fp32 for fp32 parameters, bf16 for bf16
+    ones.  Both sides update in place, so each runs on its own copy."""
+    fam = ops.kernel_module("fused_adamw")
+    bf16, f32 = torch.bfloat16, torch.float32
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.1, decoupled=True)
+    lr, step = 3e-4, 5
+    for name, (fp32_params, ef) in ADAMW_VARIANTS.items():
+        for shape in ((2560, 6912), (2560,), (2563,)):
+            def rnd(scale, dtype=f32, positive=False):
+                t = torch.randn(shape, generator=gen, device=gen.device,
+                                dtype=f32) * scale
+                return (t.abs() if positive else t).to(dtype)
+            g = rnd(1e-2, f32 if fp32_params else bf16)
+            m = rnd(1e-2, bf16)
+            v = rnd(1e-2, f32, True).square().to(bf16)
+            # a residual of the size bf16 rounding leaves on v
+            e = (v.float() * torch.empty_like(v, dtype=f32).uniform_(
+                -2.0 ** -9, 2.0 ** -9, generator=gen)).to(bf16) if ef \
+                else None
+            mst = rnd(1.0)
+            out_dtype = f32 if fp32_params else bf16
+            state = lambda: [t.clone() if t is not None else None
+                             for t in (m, v, mst, e)]
+            km, kv, kmst, ke = state()
+            pm, pv, pmst, pe = state()
+            kp = None if fp32_params else torch.empty_like(mst, dtype=bf16)
+            kout = fam._launch(g, km, kv, kmst, lr, step, ef=ke, param=kp,
+                               out_dtype=out_dtype, **kw)
+            pout = fam.plain_fused_adamw(g, pm, pv, pmst, lr, step, ef=pe,
+                                         out_dtype=out_dtype, **kw)
+            torch.cuda.synchronize()
+            # the same fp32 ops in the same order, each rounded once (no
+            # FMA, true divisions): expected bit-identical.  Tolerance one
+            # rounding of each stored value: 2^-7 |plain| for a bf16 one;
+            # the fp32 master an ulp of itself plus 2^-22 of its step (an
+            # ulp of sqrt or of a quotient upstream)
+            step_size = (pout[3] - mst).abs()
+            tols = [2.0 ** -7 * pout[0].float().abs(),
+                    2.0 ** -7 * pout[1].float().abs(),
+                    2.0 ** -7 * pout[2].float().abs(),
+                    2.0 ** -23 * pout[3].abs() + 2.0 ** -22 * step_size]
+            if fp32_params:
+                tols[0] = tols[3]
+            if ef:
+                # ef is v's rounding residual: where v came out the same,
+                # an ulp of ef itself; where v's rounding flipped, an ulp
+                # of v
+                same_v = kout[2] == pout[2]
+                tols.append(torch.where(same_v, 2.0 ** -7 * pout[4].float()
+                                        .abs(), 2.0 ** -7 * pout[2].float()
+                                        .abs()))
+            n = g.numel()
+            # bytes: grad, m, v, [ef], master read; m, v, [ef], master,
+            # [half param] written; ~20 fp32 operations per element
+            per = (g.element_size() + 2 * 2 + 4 + (2 if ef else 0)
+                   + 2 * 2 + 4 + (2 if ef else 0) + (0 if fp32_params else 2))
+            # compared first: the timed calls below go on updating the
+            # same tensors in place
+            entry = add("fused_adamw", list(shape), list(kout), list(pout),
+                        tols, None, None, None, None, n * per, 20 * n,
+                        rate=FP32_FLOP_PER_S, variant=name)
+            if shape == (2560, 6912):
+                # library yardstick: torch.optim.AdamW(fused=True)'s step
+                # on an fp32 copy of the same parameter and gradient (its
+                # moments are fp32: a yardstick, not the same function)
+                lp = torch.nn.Parameter(mst.clone())
+                lp.grad = g.float()
+                lopt = torch.optim.AdamW([lp], lr=lr, weight_decay=0.1,
+                                         fused=True)
+                entry.update(
+                    ms=time_ms(torch, lambda: fam._launch(
+                        g, km, kv, kmst, lr, step, ef=ke, param=kp,
+                        out_dtype=out_dtype, **kw)),
+                    plain_ms=time_ms(torch, lambda: fam.plain_fused_adamw(
+                        g, pm, pv, pmst, lr, step, ef=pe,
+                        out_dtype=out_dtype, **kw)),
+                    library_ms=time_ms(torch, lopt.step),
+                    library="torch.optim.AdamW(fused=True).step, fp32 "
+                            "moments")
+                del lp, lopt
+            del g, m, v, e, mst, km, kv, kmst, ke, pm, pv, pmst, pe, kp, \
+                kout, pout, tols, step_size
+
+
+def _ce_kernel_case(torch, ops, gen, add):
+    """The cross-entropy rows kernel against plain_ce_rows at the
+    training chunk [1024, 8192] (fp32 logits, bf16 dlogits), with 40
+    labels at -1 (ignored rows) and one at the last vocab entry."""
+    fce = ops.kernel_module("fused_cross_entropy")
+    C, V = 1024, 8192
+    x = torch.randn((C, V), generator=gen, device=gen.device) * 2.0
+    lbl = torch.randint(0, V, (C,), generator=gen, device=gen.device,
+                        dtype=torch.int32)
+    lbl[::26] = -1
+    lbl[1] = V - 1
+    scale = 1.0 / (lbl >= 0).sum().clamp_min(1).float().reshape(1)
+    k_loss, k_d = fce._launch(x, lbl, scale, torch.bfloat16)
+    p_loss, p_d = fce.plain_ce_rows(x, lbl, scale, torch.bfloat16)
+    torch.cuda.synchronize()
+    # per element: lse = m + log(s) with s summed in another order, each
+    # side <= ~2^-19 relative, so the row loss within scale 2^-18
+    # (|lse| + |picked| + 1) plus an ulp of itself; dlog's fp32 value
+    # p - onehot within scale p 2^-18 before its bf16 rounding, then one
+    # rounding that may flip, 2^-7 |plain|
+    m = x.amax(-1, keepdim=True)
+    e = torch.exp(x - m)
+    sm = e.sum(-1, keepdim=True)
+    p = e / sm
+    lse = (m + sm.log())[:, 0]
+    picked = x.gather(-1, lbl.clamp_min(0).long()[:, None])[:, 0]
+    loss_tol = scale * 2.0 ** -18 * (lse.abs() + picked.abs() + 1) \
+        + 2.0 ** -22 * p_loss.abs()
+    d_tol = 2.0 ** -7 * p_d.float().abs() + scale * 2.0 ** -18 * p
+    del e, p, m, sm
+    F = torch.nn.functional
+    xr = x.clone().requires_grad_(True)
+    lbl64 = lbl.long()
+
+    def library():
+        loss = F.cross_entropy(xr, lbl64, ignore_index=-1)
+        return torch.autograd.grad(loss, xr)
+
+    add("cross_entropy", [C, V], [k_loss, k_d], [p_loss, p_d],
+        [loss_tol, d_tol],
+        time_ms(torch, lambda: fce._launch(x, lbl, scale, torch.bfloat16)),
+        time_ms(torch, lambda: fce.plain_ce_rows(x, lbl, scale,
+                                                 torch.bfloat16)),
+        time_ms(torch, library),
+        "F.cross_entropy(ignore_index=-1) forward + backward, fp32 grad",
+        C * V * 4 + C * V * 2 + C * 4 * 2 + 4, 6 * C * V,
+        rate=FP32_FLOP_PER_S)
+    del x, xr, k_d, p_d
 
 
 # ---------------------------------------------------------------------------
@@ -699,14 +904,21 @@ def train_config(**kw):
     return LlamaConfig(**cfg)
 
 
-def phase_train_parity(torch, dev):
+def phase_train_parity(torch, dev, fused=False):
+    """fused=False: the logits-path loss, no recompute.
+    fused=True: FLAGS_fused_ce on and the first of the 2 layers under
+    selective recompute.  Both update through the fused AdamW (the
+    kernel on the card, its plain version on the CPU)."""
+    from paddle_tpu_torch.framework.flags import set_flags
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (LlamaForCausalLM,
                                          load_numpy_state_dict,
                                          numpy_state_dict)
     from paddle_tpu_torch.optimizer import AdamW
+    extra = dict(recompute=True, recompute_layers=1,
+                 recompute_granularity="selective") if fused else {}
     cfg = train_config(num_hidden_layers=2, dtype="float32",
-                       param_dtype=None)
+                       param_dtype=None, **extra)
     gpu = LlamaForCausalLM(cfg, device=dev, seed=11)
     cpu = LlamaForCausalLM(cfg, device="cpu", seed=11)
     load_numpy_state_dict(cpu, numpy_state_dict(gpu))
@@ -714,11 +926,15 @@ def phase_train_parity(torch, dev):
     batches = [rng.randint(0, cfg.vocab_size, (2, 256)).astype(np.int32)
                for _ in range(3)]
     lr, losses = 3e-4, {}
-    for name, m in (("gpu", gpu), ("cpu", cpu)):
-        step = TrainStep(m, m.compute_loss,
-                         AdamW(lr, parameters=m.parameters(),
-                               weight_decay=0.1))
-        losses[name] = [step(bt, bt).item() for bt in batches]
+    set_flags({"FLAGS_fused_ce": fused})
+    try:
+        for name, m in (("gpu", gpu), ("cpu", cpu)):
+            step = TrainStep(m, m.compute_loss,
+                             AdamW(lr, parameters=m.parameters(),
+                                   weight_decay=0.1))
+            losses[name] = [step(bt, bt).item() for bt in batches]
+    finally:
+        set_flags({"FLAGS_fused_ce": False})
     # fp32 on both sides: cuBLAS and the CPU sum in other orders and the
     # kernels' reductions differ from the plain versions' (~1e-6
     # relative), so the losses agree to 1e-4 relative.  Adam normalises
@@ -739,8 +955,9 @@ def phase_train_parity(torch, dev):
     check(worst_frac <= 1e-3 and worst_max <= 2 * lr * len(batches),
           f"train parameters disagree card vs CPU: {worst_frac} of entries "
           f"beyond 1e-5, max {worst_max}")
-    log(f"[train-parity] 2-layer hidden 2560 fp32, 3 AdamW steps: losses "
-        f"card {losses['gpu']} cpu {losses['cpu']} (max rel err "
+    log(f"[train-parity] 2-layer hidden 2560 fp32, 3 AdamW steps"
+        f"{', fused CE, layer 0 selective recompute' if fused else ''}: "
+        f"losses card {losses['gpu']} cpu {losses['cpu']} (max rel err "
         f"{loss_err:.3g}, tol 1e-4); parameters: {worst_frac:.3g} of "
         f"entries beyond 1e-5 (tol 1e-3), max abs diff {worst_max:.3g} "
         f"(tol {2 * lr * len(batches):.3g})")
@@ -750,53 +967,125 @@ def phase_train_parity(torch, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: train the bench_llama configuration at full width and depth
+# phases 8 and 9: train the bench_llama configuration at full width/depth
 # ---------------------------------------------------------------------------
-def phase_train(torch, ops, dev, steps=6):
+def phase_train(torch, ops, dev, mode="bench", ref=None, steps=6):
+    """mode "bench" (phase 8): bench_llama as bench.py runs it — 3
+    selective-recompute layers, bf16 AdamW moments, the fused AdamW.
+    "fused" (phase 9): the same with FLAGS_fused_ce and
+    FLAGS_bf16_adamw_moments; `ref` is phase 8's result, whose first
+    loss (same seed, weights and batch) the first loss must match.
+    "unfused" (phase 8a, beside the main path): the configuration
+    without recompute and with the pure AdamW rule (FLAGS_use_fused_adamw
+    off), so that one call times both and splits the pure rule's share
+    of the step."""
+    from paddle_tpu_torch.framework.flags import set_flags
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
+    fused = mode == "fused"
+    tag = {"bench": "train", "fused": "train-fused",
+           "unfused": "train-unfused"}[mode]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    cfg = train_config()
+    R = 0 if mode == "unfused" else TRAIN_RECOMPUTE
+    cfg = train_config(recompute=R > 0, recompute_layers=R,
+                       recompute_granularity="selective")
     model = LlamaForCausalLM(cfg, device=dev, seed=2025)
     n_params = sum(p.numel() for p in model.parameters())
-    step = TrainStep(model, model.compute_loss,
-                     AdamW(3e-4, parameters=model.parameters(),
-                           weight_decay=0.1, moment_dtype="bfloat16"))
+    n_tensors = sum(1 for _ in model.parameters())
     b, s = TRAIN_BATCH, TRAIN_SEQ
     rng = np.random.RandomState(2025)
     batch = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))
                              .astype(np.int32)).to(dev)
-    ops.reset_launch_counts()
-    losses, walls = [], []
-    for _ in range(steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = step(batch, batch)
-        losses.append(loss.item())
-        walls.append((time.perf_counter() - t0) * 1e3)
-    counts = ops.launch_counts()
+    logit_max = None
+    if mode == "bench":
+        # the largest |logit| of the initial model: phase 9's first-loss
+        # tolerance scales with it
+        with torch.no_grad():
+            logit_max = model(batch).float().abs().max().item()
+    flags = {"FLAGS_fused_ce": fused, "FLAGS_bf16_adamw_moments": fused,
+             "FLAGS_use_fused_adamw": mode != "unfused"}
+    set_flags(flags)
+    try:
+        step = TrainStep(model, model.compute_loss,
+                         AdamW(3e-4, parameters=model.parameters(),
+                               weight_decay=0.1, moment_dtype="bfloat16"))
+        ops.reset_launch_counts()
+        fam = ops.kernel_module("fused_adamw")
+        losses, walls = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(batch, batch)
+            losses.append(loss.item())
+            walls.append((time.perf_counter() - t0) * 1e3)
+        counts = ops.launch_counts()
+        variants = dict(fam.variant_launches)
+        # a profiled step whose trace lost kernel events (fewer flash or
+        # fused AdamW kernels than the step launches) is profiled again
+        full = {"flash_attention": 3 * cfg.num_hidden_layers,
+                "fused_adamw": 0 if mode == "unfused" else n_tensors}
+        for tries in range(1, 4):
+            trace = train_trace(torch, step, batch,
+                                statistics.median(walls[1:]))
+            if all(trace["events"][k] == n for k, n in full.items()):
+                break
+        trace["tries"] = tries
+    finally:
+        set_flags({"FLAGS_fused_ce": False,
+                   "FLAGS_bf16_adamw_moments": False,
+                   "FLAGS_use_fused_adamw": True})
     L = cfg.num_hidden_layers
-    per_step = {"rms_norm": L + 1, "fused_add_rms_norm": L, "rope": L,
-                "flash_attention": L}
+    # forward: every layer once, plus the replays of the R selective
+    # layers' regions (A: input norm + rope; B: fused add + norm); flash
+    # attention sits outside the regions.  Backward: once per layer.
+    fwd = {"rms_norm": L + 1 + R, "fused_add_rms_norm": L + R,
+           "rope": L + R, "flash_attention": L}
+    bwd = {"rms_norm": L + 1, "fused_add_rms_norm": L, "rope": L,
+           "flash_attention": L}
     want = dict.fromkeys(counts, 0)
-    for n, c in per_step.items():
-        want[n] = want[n + "_bwd"] = steps * c
-    check(counts == want, f"train launch counts {counts} != predicted {want}")
-    check(all(np.isfinite(losses)), f"non-finite train losses {losses}")
-    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    for n in fwd:
+        want[n], want[n + "_bwd"] = steps * fwd[n], steps * bwd[n]
+    want["fused_adamw"] = 0 if mode == "unfused" else steps * n_tensors
+    ce_chunks = -(-b * (s - 1) // 1024)
+    if fused:
+        want["cross_entropy"] = steps * ce_chunks
+    check(counts == want, f"{tag} launch counts {counts} != predicted {want}")
+    want_var = dict.fromkeys(variants, 0)
+    if mode != "unfused":
+        want_var["fp32_ef" if fused else "fp32"] = steps * n_tensors
+    check(variants == want_var,
+          f"{tag} fused_adamw variants {variants} != predicted {want_var}")
+    check(all(np.isfinite(losses)), f"non-finite {tag} losses {losses}")
+    check(losses[-1] < losses[0], f"{tag} loss did not fall: {losses}")
     step_ms = statistics.median(walls[1:])
     tok_s = b * s / (step_ms / 1e3)
     train = dict(
-        layers=L, params=n_params, batch=b, seq=s, steps=steps,
+        layers=L, recompute_layers=R, params=n_params, tensors=n_tensors,
+        batch=b, seq=s, steps=steps, fused_ce=fused, bf16_moments_ef=fused,
         losses=losses, step_ms=walls, step_ms_p50=step_ms,
         tokens_per_s=tok_s, mfu=6 * n_params * tok_s / BF16_FLOP_PER_S,
         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
-        launches=counts)
-    log("[train] " + json.dumps(train))
-    log("[train-trace] " + json.dumps(train_trace(torch, step, batch,
-                                                   step_ms)))
+        launches=counts, adamw_variants=variants, logit_max=logit_max)
+    if fused:
+        # the first step's loss: logits in fp32 here against logits
+        # rounded to bf16 in phase 8 (each <= 2^-9 of itself, and up to a
+        # few more roundings in cuBLAS's reduced-precision split-K
+        # reductions): a token's lse - picked moves by <= 2 x 2^-8
+        # max|logit|, and so does the mean
+        tol = 2.0 ** -7 * ref["logit_max"]
+        diff = abs(losses[0] - ref["losses"][0])
+        check(diff <= tol, f"phase 9's first loss {losses[0]} differs from "
+              f"phase 8's {ref['losses'][0]} by {diff} > {tol}")
+        train.update(first_loss_diff=diff, first_loss_tol=tol,
+                     vs_phase8=dict(
+                         step_ms=step_ms / ref["step_ms_p50"],
+                         mfu=train["mfu"] - ref["mfu"],
+                         peak_mem_gb=train["peak_mem_gb"]
+                         - ref["peak_mem_gb"]))
+    log(f"[{tag}] " + json.dumps(train))
+    log(f"[{tag}-trace] " + json.dumps(trace))
     del step, model, batch
     torch.cuda.empty_cache()
     return train, counts
@@ -815,19 +1104,31 @@ def train_trace(torch, step, batch, wall_ms):
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    # the first kind whose pattern a kernel's name holds; PyTorch's own
+    # kernels split "other" by what they are
     kinds = {"flash_attention": ("flash_",), "rms_norm": ("rms_norm",),
-             "rope": ("rope_kernel",),
-             "matmul": ("nvjet", "gemm", "cutlass", "sm90_xmma")}
+             "rope": ("rope_kernel",), "fused_adamw": ("fused_adamw",),
+             "cross_entropy": ("ce_rows",),
+             "matmul": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
+             "copy_cast": ("copy", "Copy"),
+             "reduce": ("reduce_kernel",),
+             "index_embedding": ("index", "gather", "scatter", "embedding"),
+             "softmax_loss": ("softmax", "nll_loss", "cross_entropy"),
+             "elementwise": ("elementwise",)}
     by_kind = dict.fromkeys(list(kinds) + ["other"], 0.0)
-    for key, ms, _ in rows:
+    # kernel events seen per kind: a trace that dropped events (the
+    # counts fall short of the launch counters' structure) is not read
+    events = dict.fromkeys(by_kind, 0)
+    for key, ms, n in rows:
         kind = next((k for k, pats in kinds.items()
                      if any(p in key for p in pats)), "other")
         by_kind[kind] += ms
+        events[kind] += n
     busy = sum(r[1] for r in rows)
     return dict(wall_ms=wall_ms, device_ms=busy if rows else None,
                 busy_share=busy / wall_ms if rows else None,
-                by_kind_ms=by_kind,
-                top=[(k[:60], round(ms, 3), n) for k, ms, n in rows[:14]])
+                by_kind_ms=by_kind, events=events,
+                top=[(k[:60], round(ms, 3), n) for k, ms, n in rows[:20]])
 
 
 def main():
@@ -858,21 +1159,49 @@ def main():
     info = _build.build_info
     log(f"[build] {time.perf_counter() - t0:.1f} s "
         f"({'compiled' if info['built'] else 'cached'}) {info['path']}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            log("[build] " + line.strip())
+    # per source file, and only the kernels that spill (ptxas -v prints
+    # registers, stack and spills for every kernel instantiated)
+    lines = info["log"].splitlines()
+    log(f"[build] {sum('Compiling entry function' in x for x in lines)} "
+        f"kernels compiled")
+    for prev, line in zip([""] + lines, lines):
+        if line.startswith("==") or ("spill" in line and
+                                     " 0 bytes spill stores" not in line):
+            log("[build] " + (prev.strip() + " | " if "spill" in line
+                              else "") + line.strip())
 
-    # 3-8
-    kern = phase_kernels(torch, ops, dev)
-    phase_parity(torch, dev)
-    serve, counts = phase_serve(torch, ops, dev)
-    train_kern = phase_train_kernels(torch, ops, dev)
+    # 3-9, each phase's wall time logged
+    walls = {}
+
+    def timed(name, fn, *a, **k):
+        t = time.perf_counter()
+        out = fn(*a, **k)
+        walls[name] = round(time.perf_counter() - t, 1)
+        log(f"[time] {name} {walls[name]} s")
+        return out
+
+    kern = timed("3 kernels", phase_kernels, torch, ops, dev)
+    timed("4 parity", phase_parity, torch, dev)
+    serve, counts = timed("5 serve", phase_serve, torch, ops, dev)
+    train_kern = timed("6 train kernels", phase_train_kernels, torch, ops,
+                       dev)
     for name in ("rms_norm", "rope"):       # the forwards at train shapes
         kern[name] += train_kern.pop(name)
     kern.update(train_kern)
-    phase_train_parity(torch, dev)
-    train, train_counts = phase_train(torch, ops, dev)
-    counts = {n: counts[n] + train_counts[n] for n in counts}
+    timed("7 train parity", phase_train_parity, torch, dev)
+    timed("7 train parity (fused CE, recompute)", phase_train_parity, torch,
+          dev, fused=True)
+    timed("8a train (no recompute, pure AdamW rule)", phase_train, torch,
+          ops, dev, mode="unfused")
+    train, train_counts = timed("8 train", phase_train, torch, ops, dev)
+    _, fused_counts = timed("9 train (fused CE, bf16 moments + ef)",
+                            phase_train, torch, ops, dev, mode="fused",
+                            ref=train)
+    # launches on the main path: the serve (5) and both trainings (8, 9)
+    counts = {n: counts[n] + train_counts[n] + fused_counts[n]
+              for n in counts}
+    check(all(counts[n] > 0 for n in ops.KERNELS),
+          f"a kernel never launched on the main path: {counts}")
 
     cu = "paddle_tpu_torch/csrc/"
     tpu = "paddle_tpu/ops/pallas/"
@@ -889,11 +1218,16 @@ def main():
         "flash_attention": (cu + "flash_attention.cu",
                             tpu + "flash_attention.py:816"),
         "flash_attention_bwd": (cu + "flash_attention.cu",
-                                tpu + "flash_attention.py:679")}
+                                tpu + "flash_attention.py:679"),
+        "fused_adamw": (cu + "fused_adamw.cu", tpu + "fused_adamw.py:140"),
+        "cross_entropy": (cu + "cross_entropy.cu",
+                          tpu + "fused_cross_entropy.py:95")}
     line = []
     for name in ops.KERNELS:
         cases = kern[name]
-        head = cases[0]   # serving kernels: the decode shape (C=1, group 1)
+        # serving kernels: the decode shape (C=1, group 1); fused_adamw:
+        # the fp32-parameter variant at [2560, 6912], the training step's
+        head = cases[0]
         line.append(dict(
             name=name, route="cuda", source=sources[name][0],
             replaces=sources[name][1], launches=counts[name],
@@ -902,6 +1236,7 @@ def main():
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"],
             cases=cases))
+    log(f"[time] phases {walls}")
     log(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

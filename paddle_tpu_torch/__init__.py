@@ -10,10 +10,12 @@ finds counterparts by path:
   ops/         the op layer: plain PyTorch versions beside hand-written
                Hopper kernels (csrc/*.cu, bound through ctypes), with
                autograd Functions whose backward is a kernel too
-  nn/          the LM cross-entropy loss
-  models/      Llama training forward and decode surface, weight and
-               optimizer-state carry-over by name
-  optimizer/   Adam / AdamW (the pure update rule, in place)
+  nn/          the LM cross-entropy loss (logits or fused linear + CE)
+  models/      Llama training forward (recompute, fused-CE mode) and
+               decode surface, weight and optimizer-state carry-over
+  optimizer/   Adam / AdamW: the fused AdamW kernel or the pure rule,
+               in place
+  distributed/ fleet.recompute (activation checkpointing)
   jit/         TrainStep
   inference/   paged KV allocator, greedy generate, ContinuousBatcher
 
@@ -28,4 +30,4 @@ compiled on first launch (ops/_build.py).
 from __future__ import annotations
 
 __all__ = ["framework", "ops", "nn", "models", "optimizer", "jit",
-           "inference"]
+           "inference", "distributed"]

@@ -69,6 +69,23 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   return scratch[32];
 }
 
+// Max over the whole block, as block_sum; every thread gets it.
+__device__ __forceinline__ float block_max(float v, float* scratch) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  v = warp_max(v);
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float t = lane < nwarps ? scratch[lane] : -INFINITY;
+    t = warp_max(t);
+    if (lane == 0) scratch[32] = t;
+  }
+  __syncthreads();
+  return scratch[32];
+}
+
 // 16-byte vector of T: loads and stores of VEC consecutive elements
 template <typename T> struct Vec {
   static constexpr int N = 16 / sizeof(T);

@@ -1,10 +1,14 @@
-"""Flag registry — the subset the serving slice reads.
+"""Flag registry — the subset the ported slices read.
 
-Counterpart of `paddle_tpu/framework/flags.py` (:179-190): the same
-flag names and defaults, the same `FLAGS_<name>` environment pickup at
-import, and `get_flag`/`set_flags` with the reference's
-semantics.  Only the three paged-KV flags are defined here; other flags
-arrive with the modules that read them.
+Counterpart of `paddle_tpu/framework/flags.py`: the same flag names and
+defaults, the same `FLAGS_<name>` environment pickup at import, and
+`get_flag`/`set_flags` with the reference's semantics.  Defined here:
+the three paged-KV flags (reference :179-190), the training fusions
+`fused_ce` and `bf16_adamw_moments` (:150-161) and the fused-AdamW
+dispatch flags `use_fused_adamw` and `multi_tensor_adamw`
+(`paddle_tpu/optimizer/jit_update.py:42-56`).  The reference's
+`fused_adamw_interpret` (Pallas interpret mode off the TPU) has no
+counterpart: a CPU tensor already takes the kernel's plain version.
 """
 from __future__ import annotations
 
@@ -68,3 +72,27 @@ define_flag("kv_pool_pages", 0,
             "total pages in the serving KV pool (page 0 is a reserved "
             "null page); 0 sizes the pool to dense-equivalent capacity "
             "(every slot fully backed)")
+
+# training-step fusions (optimizer/jit_update.py, nn/functional/loss.py,
+# models/llama.py): both off by default, as in the reference
+define_flag("fused_ce", False,
+            "causal/masked LM losses compute from the HIDDEN states via "
+            "the chunked fused linear+cross-entropy "
+            "(nn.functional.fused_cross_entropy): the [B, S, vocab] fp32 "
+            "logits tensor is never materialized — the model's training "
+            "forward returns hidden states and compute_loss folds the "
+            "lm-head matmul into the loss")
+define_flag("bf16_adamw_moments", False,
+            "store Adam/AdamW moments in bfloat16 with an error-feedback "
+            "residual for the second moment (state key 'ef'): moment HBM "
+            "traffic halves (8->4 bytes/param) plus a 2-byte residual; "
+            "update math stays fp32 via the v+ef reconstruction")
+define_flag("use_fused_adamw", True,
+            "dispatch Adam/AdamW updates to the fused AdamW kernel "
+            "(csrc/fused_adamw.cu on the card, its plain version for CPU "
+            "tensors); off = the pure update rule")
+define_flag("multi_tensor_adamw", False,
+            "flatten same-(wd, dtype, state-layout) SMALL params into one "
+            "fused AdamW call (reference: fused_adam_kernel.cu "
+            "multi-tensor); large params keep per-param calls.  Default "
+            "OFF, as in the reference")

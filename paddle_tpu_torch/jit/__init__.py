@@ -3,11 +3,13 @@
 Counterpart of `paddle_tpu/jit/__init__.py::TrainStep` (:267-360,
 :507): `TrainStep(model, loss_fn, optimizer)`, then
 `step(*inputs, label)` returns the loss.  One step runs the forward and
-the loss, `backward`, the optimizer rule on every trainable parameter,
-and clears the gradients.  The optimizer's step count advances before
-the update, as the reference's does, so Adam's bias correction
-matches; the weight-decay list follows `apply_decay_param_fun` as at
-:316-322.
+the loss, `backward`, the optimizer update of every trainable parameter
+(`optimizer.jit_update.apply_updates`, as the reference step calls it
+at :350-356: the fused AdamW kernel where the state layout allows it,
+the pure rule elsewhere), and clears the gradients.  The optimizer's
+step count advances before the update, as the reference's does, so
+Adam's bias correction matches; the weight-decay list follows
+`apply_decay_param_fun` as at :316-322.
 
 The reference compiles the whole step into one program with donated
 buffers; here the step is eager and the parameters and optimizer state
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from ..framework.device import module_device
-from ..optimizer.jit_update import apply_update, maybe_master_state
+from ..optimizer.jit_update import apply_updates, maybe_master_state
 
 __all__ = ["TrainStep"]
 
@@ -60,10 +62,12 @@ class TrainStep:
         upd, hp = type(opt)._update, opt._hyper()
         loss = self.loss_fn(self.model(*inputs), label)
         loss.backward()
-        for p, st, wd in zip(self._params, self._opt_states, self._wds):
-            # a parameter the loss does not reach has a zero gradient,
-            # as in the reference's value_and_grad
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
-            apply_update(upd, p, g, st, lr, wd, step_i, hp)
+        # a parameter the loss does not reach has a zero gradient, as in
+        # the reference's value_and_grad
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self._params]
+        apply_updates(upd, self._params, grads, self._opt_states, lr,
+                      self._wds, step_i, hp)
+        for p in self._params:
             p.grad = None
         return loss.detach()

@@ -4,12 +4,30 @@ Counterpart of `paddle_tpu/models/llama.py`: `LlamaConfig` (:60),
 `llama_tiny_config` (:112), `llama_7b_config` (:132); the training
 forward of `LlamaAttention` (:197-246), `LlamaMLP` (:362),
 `LlamaDecoderLayer._block` (:466) with the fused mid-block add + norm
-`_add_norm_mid` (:428), `LlamaModel.forward` (:532) and
-`LlamaForCausalLM.forward` (:649) / `compute_loss` (:708, the logits
-path); and the cached decode paths (:248-310, :475-515, :554-634,
-:673-692).  Not ported yet (they raise NotImplementedError): selective
-and full recompute, MoE experts, the fused linear + cross-entropy loss,
-and sequence-parallel ring attention.
+`_add_norm_mid` (:428), full and selective recompute
+(`LlamaDecoderLayer.forward` / `_forward_selective`, :377-425),
+`LlamaModel.forward` (:532) and `LlamaForCausalLM.forward` (:649) /
+`compute_loss` (:708) in both loss modes; and the cached decode paths
+(:248-310, :475-515, :554-634, :673-692).  Not ported yet (they raise
+NotImplementedError): MoE experts and sequence-parallel ring attention.
+
+Recompute (`recompute=True`, the first `recompute_layers` layers, all
+when None) goes through `distributed.fleet.recompute`
+(`torch.utils.checkpoint`, non-reentrant).  "full" checkpoints the whole
+block: only its input is saved and the backward replays it.
+"selective" splits the block as the reference does: region A (input
+norm, q/k/v projections, rope) is recomputed, flash attention runs
+outside any region (it saves q, k, v, out and lse for its backward), and
+region B (o_proj, the fused mid-block add + norm, the MLP, the residual)
+is recomputed.  What a selective layer keeps is therefore its input x
+and the attention's own residuals; the reference also keeps the
+mid-block residual (`save_only_these_names("resid_mid")`), which the
+port rebuilds by replaying o_proj in region B.
+
+Under `FLAGS_fused_ce` a model in training mode returns the final hidden
+states from `forward`, and `compute_loss` folds the lm head (the tied
+embedding, transposed, when `tie_word_embeddings`) into the chunked
+fused linear + cross-entropy — the [B, S, V] logits never exist.
 
 Parameters are trainable (`requires_grad=True`).  Serving runs under
 `torch.inference_mode()` (inference/generation.py, serving.py), so the
@@ -39,6 +57,7 @@ from torch import nn
 
 from .. import ops
 from ..nn import functional as F
+from ..distributed.fleet.recompute import recompute
 from ..framework.device import resolve_device
 from ..framework.flags import get_flag
 
@@ -64,8 +83,8 @@ class LlamaConfig:
     dtype: str = "bfloat16"
     # storage dtype of the parameters; None = the compute dtype
     param_dtype: str | None = None
-    # training-only fields, with the reference's defaults; recompute and
-    # MoE experts are not ported yet (a model built with them raises)
+    # training-only fields, with the reference's defaults; MoE experts
+    # are not ported yet (a model built with them raises)
     recompute: bool = False
     recompute_layers: int | None = None
     recompute_granularity: str = "full"
@@ -152,7 +171,7 @@ class LlamaAttention(nn.Module):
         self.v_proj = _param((h, nkv * hd), std, config, device, gen)
         self.o_proj = _param((nh * hd, h), std, config, device, gen)
 
-    def _qkv_rope(self, x, cos, sin):
+    def qkv_rope(self, x, cos, sin):
         """Projection + rope shared by training and BOTH KV layouts, so
         the paths differ only in where K/V land and how they attend."""
         cfg = self.config
@@ -166,19 +185,24 @@ class LlamaAttention(nn.Module):
         q, k = ops.apply_rope(q, k, cos, sin)
         return q, k, v
 
-    def forward(self, x, cos, sin):
-        """Causal self-attention over the whole sequence (training):
+    def core_attention(self, q, k, v):
+        """Causal GQA attention over the whole sequence (training):
         `ops.attention`, the flash kernels on the card."""
-        b, s, _ = x.shape
-        q, k, v = self._qkv_rope(x, cos, sin)
-        out = ops.attention(q, k, v, causal=True)
-        return out.reshape(b, s, -1) @ self.o_proj.to(x.dtype)
+        return ops.attention(q, k, v, causal=True)
+
+    def output_proj(self, attn):
+        b, s = attn.shape[:2]
+        return attn.reshape(b, s, -1) @ self.o_proj.to(attn.dtype)
+
+    def forward(self, x, cos, sin):
+        return self.output_proj(self.core_attention(
+            *self.qkv_rope(x, cos, sin)))
 
     def forward_cached(self, x, cos, sin, k_cache, v_cache, pos):
         """Dense decode attention: write this step's K/V into the ring
         buffers at `pos` (in place), attend against the whole buffer."""
         b, s, _ = x.shape
-        q, k, v = self._qkv_rope(x, cos, sin)
+        q, k, v = self.qkv_rope(x, cos, sin)
         ops.dense_kv_update(k_cache, v_cache, pos, k, v)
         out = ops.cached_attention(q, k_cache, v_cache, pos)
         return out.reshape(b, s, -1) @ self.o_proj.to(x.dtype)
@@ -189,7 +213,7 @@ class LlamaAttention(nn.Module):
         `rows` (ops.paged_write_rows of the slots' page tables, in
         place); attention walks the pages."""
         b, s, _ = x.shape
-        q, k, v = self._qkv_rope(x, cos, sin)
+        q, k, v = self.qkv_rope(x, cos, sin)
         ops.paged_kv_write(cache["k"], cache["v"], rows, k, v, layer)
         out = ops.paged_attention(q, cache["k"], cache["v"], page_table,
                                   pos, layer)
@@ -213,16 +237,37 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, config: LlamaConfig, device, gen):
+    def __init__(self, config: LlamaConfig, device, gen, layer_idx=0):
         super().__init__()
         self.config = config
+        self._recompute = config.recompute and (
+            config.recompute_layers is None
+            or layer_idx < config.recompute_layers)
         self.self_attn = LlamaAttention(config, device, gen)
         self.mlp = LlamaMLP(config, device, gen)
         self.input_layernorm = LlamaRMSNorm(config, device)
         self.post_attention_layernorm = LlamaRMSNorm(config, device)
 
     def forward(self, x, cos, sin):
+        if self._recompute:
+            if self.config.recompute_granularity == "selective":
+                return self._forward_selective(x, cos, sin)
+            return recompute(self._block, x, cos, sin)
         return self._block(x, cos, sin)
+
+    def _forward_selective(self, x, cos, sin):
+        """Region A (norm + q/k/v + rope) and region B (o_proj + add +
+        norm + MLP) are recomputed; flash attention between them is not."""
+        q, k, v = recompute(self._qkv_part, x, cos, sin)
+        attn = self.self_attn.core_attention(q, k, v)
+        return recompute(self._post_attention, x, attn)
+
+    def _qkv_part(self, x, cos, sin):
+        return self.self_attn.qkv_rope(self.input_layernorm(x), cos, sin)
+
+    def _post_attention(self, x, attn):
+        x, h = self._add_norm_mid(x, self.self_attn.output_proj(attn))
+        return x + self.mlp(h)
 
     def _add_norm_mid(self, x, delta):
         """The fused mid-block residual add + RMSNorm: (x + delta, its
@@ -261,8 +306,8 @@ class LlamaModel(nn.Module):
                                    1.0 / math.sqrt(config.hidden_size),
                                    config, device, gen)
         self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(config, device, gen)
-             for _ in range(config.num_hidden_layers)])
+            [LlamaDecoderLayer(config, device, gen, i)
+             for i in range(config.num_hidden_layers)])
         self.norm = LlamaRMSNorm(config, device)
 
     def forward(self, input_ids):
@@ -352,11 +397,14 @@ class LlamaForCausalLM(nn.Module):
 
     def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
-        if config.recompute or config.moe_num_experts > 0:
+        if config.moe_num_experts > 0:
             raise NotImplementedError(
-                "recompute and MoE experts are not ported yet (recompute="
-                f"{config.recompute}, moe_num_experts="
+                "MoE experts are not ported yet (moe_num_experts="
                 f"{config.moe_num_experts})")
+        if config.recompute_granularity not in ("full", "selective"):
+            raise ValueError("recompute_granularity must be 'full' or "
+                             "'selective', not "
+                             f"{config.recompute_granularity!r}")
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
@@ -368,13 +416,28 @@ class LlamaForCausalLM(nn.Module):
                                   config, dev, gen)
 
     def forward(self, input_ids):
-        """input_ids [b, s] → logits [b, s, V] in the compute dtype."""
-        return self._lm_logits(self.llama(input_ids))
+        """input_ids [b, s] → logits [b, s, V] in the compute dtype; under
+        FLAGS_fused_ce in training mode, the final hidden states [b, s,
+        h] (compute_loss then folds the lm head into the loss)."""
+        x = self.llama(input_ids)
+        if get_flag("fused_ce") and self.training:
+            return x
+        return self._lm_logits(x)
 
     def compute_loss(self, logits, labels):
-        """Next-token cross entropy in fp32 over the logits (the
-        reference's flags-off path; the fused linear + CE of
-        FLAGS_fused_ce is not ported yet)."""
+        """Next-token cross entropy in fp32.  Fused mode follows
+        forward's own gate (the flag and training), not a guess from
+        shapes; the shape check only catches logits computed outside
+        it."""
+        cfg = self.config
+        if get_flag("fused_ce") and self.training \
+                and logits.shape[-1] == cfg.hidden_size:
+            if cfg.tie_word_embeddings:
+                w, tw = self.llama.embed_tokens, True
+            else:
+                w, tw = self.lm_head, False
+            return F.fused_cross_entropy(logits, labels, weight=w,
+                                         transpose_weight=tw, shift=True)
         return F.fused_cross_entropy(logits, labels, shift=True)
 
     def init_cache(self, batch: int, max_len: int):

@@ -9,6 +9,11 @@ reaches a Pallas TPU kernel has a hand-written Hopper kernel here
   apply_rope          ops/rope.py            (ref :383, XLA branch :399-409)
   paged_attention     ops/paged_attention.py (ref :269, twin xla_paged_attention :244)
   attention           ops/flash_attention.py (ref :289, twin xla_attention :80)
+  fused_adamw         ops/fused_adamw.py     (ref pallas/fused_adamw.py:140,
+                                              twin adamw_hostside :290)
+  ce_rows             ops/fused_cross_entropy.py (ref pallas/
+                      fused_cross_entropy.py _ce_rows_pallas :95, twin
+                      _ce_rows_jnp :116), inside fused_linear_cross_entropy
 
 The training ops have kernels for their backward too (autograd
 Functions in the same modules).  Dispatch: a CPU tensor takes the plain
@@ -32,6 +37,9 @@ from .attention import (cached_attention, dense_kv_update, gqa_scores,
                         paged_write_rows)
 from .flash_attention import (attention, plain_attention, plain_flash_bwd,
                               plain_flash_fwd)
+from .fused_adamw import fused_adamw, plain_fused_adamw
+from .fused_cross_entropy import (ce_rows, fused_linear_cross_entropy,
+                                  plain_ce_rows)
 from .paged_attention import paged_attention, plain_paged_attention
 from .rms_norm import (fused_add_rms_norm, plain_fused_add_rms_norm,
                        plain_rms_norm, plain_rms_norm_bwd, rms_norm)
@@ -47,6 +55,8 @@ __all__ = ["gqa_scores", "gqa_weighted_v", "cached_attention",
            "rope_cos_sin", "swiglu",
            "attention", "plain_attention",
            "plain_flash_fwd", "plain_flash_bwd",
+           "fused_adamw", "plain_fused_adamw",
+           "fused_linear_cross_entropy", "ce_rows", "plain_ce_rows",
            "KERNELS", "kernel_module", "launch_counts",
            "reset_launch_counts"]
 
@@ -58,7 +68,9 @@ KERNELS = {"rms_norm": "rms_norm", "rms_norm_bwd": "rms_norm",
            "rope": "rope", "rope_bwd": "rope",
            "paged_attention": "paged_attention",
            "flash_attention": "flash_attention",
-           "flash_attention_bwd": "flash_attention"}
+           "flash_attention_bwd": "flash_attention",
+           "fused_adamw": "fused_adamw",
+           "cross_entropy": "fused_cross_entropy"}
 
 
 def kernel_module(name):
@@ -77,8 +89,12 @@ def launch_counts():
 
 
 def reset_launch_counts():
+    """Zero every counter, the per-variant ones (fused_adamw) too."""
     for n, m in KERNELS.items():
-        kernel_module(m).launches[n] = 0
+        mod = kernel_module(m)
+        mod.launches[n] = 0
+        for k in getattr(mod, "variant_launches", {}):
+            mod.variant_launches[k] = 0
 
 
 def swiglu(x, gate=None):

@@ -7,14 +7,18 @@ count, `apply_decay_param_fun`), `Adam` (:246) with `moment_dtype`,
 
 The update rule `_update` is the reference's pure rule, in fp32, but
 written IN PLACE: it overwrites the parameter and the state tensors
-(moments stored in `moment_dtype`) instead of returning new ones.
-Gradient clipping, LR schedulers, `lr_ratio` and the
-`FLAGS_bf16_adamw_moments` switch are not ported yet (the first three
-raise; pass `moment_ef=True` for the error-feedback residual).
+(moments stored in `moment_dtype`) instead of returning new ones.  A
+train step sends Adam/AdamW updates to the fused kernel instead
+(optimizer/jit_update.py) where the state layout allows it.
+`FLAGS_bf16_adamw_moments` is read at construction, as at the
+reference's :261-275.  Gradient clipping, LR schedulers and `lr_ratio`
+are not ported yet (they raise).
 """
 from __future__ import annotations
 
 import torch
+
+from ..framework.flags import get_flag
 
 __all__ = ["Optimizer", "Adam", "AdamW"]
 
@@ -86,6 +90,14 @@ class Adam(Optimizer):
         # storage dtype of the moments (default fp32); the math runs in
         # fp32.  moment_ef adds the error-feedback residual of the
         # second moment for a sub-fp32 moment_dtype.
+        # FLAGS_bf16_adamw_moments (read here, at construction): bf16
+        # moments by default, with the residual unless moment_ef says
+        # otherwise
+        flag_on = bool(get_flag("bf16_adamw_moments"))
+        if flag_on and moment_dtype is None:
+            moment_dtype = "bfloat16"
+        if moment_ef is None:
+            moment_ef = flag_on
         if moment_dtype not in _DTYPES:
             raise ValueError(f"moment_dtype {moment_dtype!r}: one of "
                              f"{sorted(k for k in _DTYPES if k)}")

@@ -124,6 +124,45 @@ def test_non_cpu_tensor_never_takes_the_plain_version(call):
     assert ops.launch_counts() == before
 
 
+@pytest.mark.parametrize("call", [
+    lambda t: ops.fused_adamw(t(4), t(4), t(4), t(4), 1e-3, 1,
+                              out_dtype=torch.float32),
+    lambda t: ops.fused_adamw(t(4), t(4), t(4), t(4), 1e-3, 1,
+                              out_dtype=torch.bfloat16, ef=t(4)),
+    lambda t: ops.ce_rows(t(2, 8), t(2, dtype=torch.int32), t(1),
+                          torch.bfloat16),
+    lambda t: ops.fused_linear_cross_entropy(
+        t(3, 4).requires_grad_(), t(4, 8), t(3, dtype=torch.int32)),
+], ids=["fused_adamw", "fused_adamw_master_ef", "ce_rows",
+        "fused_linear_cross_entropy"])
+def test_non_cpu_tensor_never_takes_the_training_plain_versions(
+        call, monkeypatch):
+    """The fused AdamW and cross-entropy rows on a tensor off the CPU
+    go to their kernels, which refuse anything that is not a CUDA
+    tensor; the plain versions are never reached."""
+    def never(*a, **k):
+        raise AssertionError("a plain version ran for a non-CPU tensor")
+    for mod, fn in (("fused_adamw", "plain_fused_adamw"),
+                    ("fused_cross_entropy", "plain_ce_rows")):
+        monkeypatch.setattr(ops.kernel_module(mod), fn, never)
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        call(lambda *s, dtype=torch.float32: torch.zeros(
+            s, dtype=dtype, device="meta"))
+    assert ops.launch_counts() == before
+
+
+def test_training_flags_match_reference_defaults():
+    import paddle_tpu.optimizer.jit_update  # noqa: F401 (defines two)
+    from paddle_tpu.framework import flags as jflags
+    for name in ("use_fused_adamw", "multi_tensor_adamw", "fused_ce",
+                 "bf16_adamw_moments"):
+        assert tflags.get_flag(name) == jflags.get_flag(name), name
+        assert tflags._registry[name]["default"] \
+            == jflags._registry[name]["default"], name
+    assert tflags.get_flag("fused_adamw_interpret") is None
+
+
 def test_ops_have_no_try():
     for f in sorted((PKG / "ops").glob("*.py")):
         tree = ast.parse(f.read_text())
@@ -174,7 +213,7 @@ def test_build_compiles_each_source_then_links(fake_nvcc, monkeypatch):
     assert lib.parent == fake_nvcc and lib.exists()
     assert _build.build_info["built"]
     for name in ("rms_norm.cu", "rope.cu", "paged_attention.cu",
-                 "flash_attention.cu"):
+                 "flash_attention.cu", "fused_adamw.cu", "cross_entropy.cu"):
         assert f"== {name} (rc 0)" in _build.build_info["log"]
     assert not list(fake_nvcc.glob("work_*"))      # scratch cleaned up
     _build.build_info["built"] = False
@@ -193,7 +232,8 @@ def test_build_key_follows_the_sources():
     srcs, headers = _build._sources()
     assert {s.name for s in srcs} == {"rms_norm.cu", "rope.cu",
                                       "paged_attention.cu",
-                                      "flash_attention.cu"}
+                                      "flash_attention.cu", "fused_adamw.cu",
+                                      "cross_entropy.cu"}
     assert _build._digest(srcs + headers) == _build._digest(srcs + headers)
     assert _build._digest(srcs + headers) != _build._digest(srcs)
 

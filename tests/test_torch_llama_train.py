@@ -222,8 +222,11 @@ def test_weight_decay_follows_apply_decay_param_fun():
 
 
 def test_not_ported_options_raise():
-    with pytest.raises(NotImplementedError):
-        LlamaForCausalLM(llama_tiny_config(recompute=True), device="cpu")
+    # recompute is ported; an unknown granularity is refused
+    LlamaForCausalLM(llama_tiny_config(recompute=True), device="cpu")
+    with pytest.raises(ValueError, match="recompute_granularity"):
+        LlamaForCausalLM(llama_tiny_config(
+            recompute=True, recompute_granularity="core_attn"), device="cpu")
     with pytest.raises(NotImplementedError):
         LlamaForCausalLM(llama_tiny_config(moe_num_experts=4), device="cpu")
     _, tm = _pair()
@@ -238,3 +241,85 @@ def test_train_step_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         m = LlamaForCausalLM(llama_tiny_config())
         TrainStep(m, m.compute_loss, AdamW(1e-3, parameters=m.parameters()))
+
+
+@pytest.mark.parametrize("granularity,layers", [("full", None),
+                                                ("selective", 1),
+                                                ("selective", None)])
+def test_recompute_matches_no_recompute_and_reference(granularity, layers):
+    """Full and selective recompute (torch.utils.checkpoint) replay the
+    same ops: loss and gradients equal the step without recompute
+    exactly, and match paddle_tpu's recomputed model (jax.checkpoint)
+    to the fp32 tolerances above."""
+    rc = dict(recompute=True, recompute_granularity=granularity,
+              recompute_layers=layers)
+    jm, tm = _pair(seed=7, **rc)
+    _, plain = _pair(seed=7)
+    assert [l._recompute for l in tm.llama.layers] == \
+        [layers is None or i < layers for i in range(2)]
+    ids = torch.from_numpy(_batch(np.random.RandomState(8)))
+    grads = {}
+    for name, m in (("recompute", tm), ("plain", plain)):
+        loss = m.compute_loss(m(ids), ids)
+        loss.backward()
+        grads[name] = (loss.item(), {n: p.grad.clone()
+                                     for n, p in m.named_parameters()})
+    assert grads["recompute"][0] == grads["plain"][0]
+    for n, g in grads["plain"][1].items():
+        assert torch.equal(grads["recompute"][1][n], g), n
+
+    names = [n for n, _ in jm.named_parameters()]
+    vals = [jm.state_dict()[n]._value for n in names]
+    jids = JTensor(jnp.asarray(ids.numpy()))
+
+    def loss_of(param_vals):
+        with _swapped_state(jm, names, list(param_vals)):
+            return jm.compute_loss(jm(jids), jids).value
+
+    jloss, jgrads = jax.value_and_grad(loss_of)(vals)
+    np.testing.assert_allclose(grads["recompute"][0], float(jloss),
+                               rtol=1e-5)
+    for n, g in zip(names, jgrads):
+        ref = np.asarray(g)
+        np.testing.assert_allclose(grads["recompute"][1][n].numpy(), ref,
+                                   atol=1e-5 + 1e-4 * np.abs(ref).max(),
+                                   err_msg=n)
+
+
+def test_recompute_replays_the_regions(monkeypatch):
+    """What a backward replays: selective layers run region A (input
+    norm, rope) and region B (fused add + norm) twice and attention once;
+    a full layer replays attention too."""
+    from paddle_tpu_torch import ops as tops
+    calls = {"rms_norm": 0, "apply_rope": 0, "fused_add_rms_norm": 0,
+             "attention": 0}
+    llama_mod = __import__("paddle_tpu_torch.models.llama",
+                           fromlist=["ops"])
+
+    def counting(name):
+        real = getattr(tops, name)
+
+        def f(*a, **k):
+            calls[name] += 1
+            return real(*a, **k)
+        return f
+
+    class _Ops:
+        def __getattr__(self, n):
+            return counting(n) if n in calls else getattr(tops, n)
+    monkeypatch.setattr(llama_mod, "ops", _Ops())
+    ids = torch.from_numpy(_batch(np.random.RandomState(9)))
+    # L = 2 layers, the first recomputed: forward L + 1 norms, L ropes,
+    # L fused add + norms, L attentions, plus the replays
+    for gran, want in (("selective", {"rms_norm": 3 + 1, "apply_rope": 2 + 1,
+                                      "fused_add_rms_norm": 2 + 1,
+                                      "attention": 2}),
+                       ("full", {"rms_norm": 3 + 1, "apply_rope": 2 + 1,
+                                 "fused_add_rms_norm": 2 + 1,
+                                 "attention": 2 + 1})):
+        _, tm = _pair(recompute=True, recompute_granularity=gran,
+                      recompute_layers=1)
+        for k in calls:
+            calls[k] = 0
+        tm.compute_loss(tm(ids), ids).backward()
+        assert calls == want, (gran, calls)

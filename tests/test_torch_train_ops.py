@@ -381,6 +381,10 @@ def test_launch_counters_cover_every_entry_point():
     assert set(counts) == {
         "rms_norm", "rms_norm_bwd", "fused_add_rms_norm",
         "fused_add_rms_norm_bwd", "rope", "rope_bwd", "paged_attention",
-        "flash_attention", "flash_attention_bwd"}
+        "flash_attention", "flash_attention_bwd", "fused_adamw",
+        "cross_entropy"}
+    fam = tops.kernel_module("fused_adamw")
+    fam.variant_launches["master_ef"] += 1
     tops.reset_launch_counts()
     assert set(tops.launch_counts().values()) == {0}
+    assert set(fam.variant_launches.values()) == {0}
