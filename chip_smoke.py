@@ -15,11 +15,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              share of it used and median tol / median |plain| logged),
              the kernel's, the plain version's and a library
              yardstick's time (CUDA events, median of 30 after warm-up),
-             and the least time the work could take
+             and the least time the work could take.  paged_attention
+             also on int8 pools (the bf16 pools quantized per page);
+             quant_matmul int8 and int4 (group 64) at M = 8 and 256 and
+             every [K, N] of Llama-2-7B's decode matmuls
   4. parity  a 2-layer Llama at full width (hidden 4096, 32 heads, vocab
              32000) in fp32: the card (kernels) against the CPU (plain
              versions) on the same weights — prefill logits, and the
-             greedy tokens of a short serve
+             greedy tokens of a short serve.  Three times: unquantized,
+             int8 weights with an int8 KV pool, int4 group-64 weights;
+             the packed codes must agree card vs CPU
   5. serve   Llama-2-7B (`llama_7b_config`, 32 layers) in bf16 with
              seeded random weights through ContinuousBatcher (paged KV,
              8 slots, max_len 1024, prefill_chunk 32, chunk 16): 16
@@ -68,6 +73,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              FLAGS_bf16_adamw_moments (the ef variant of the fused
              AdamW); its first loss must match phase 8's within the bf16
              rounding of phase 8's logits.
+  10. serve, int8  phase 5's requests, geometry and seed through
+             ContinuousBatcher(weight_only_dtype="int8", kv_dtype="int8"):
+             every decode matmul and the lm head on quant_matmul, the int8
+             page write, paged_attention on the int8 pool; launch counts
+             per step 225 quant_matmul (int8), 32 paged_attention (int8
+             pool), 65 rms_norm, 32 rope; the decode trace split by kind
+  11. serve, int4  the same with weight_only_dtype="int4" (group 64) and
+             the bf16 pool.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -147,7 +160,8 @@ def phase_kernels(torch, ops, dev):
                            dtype=torch.float32).to(dtype)
 
     B, H, heads, hd = 8, 4096, 32, 128
-    results = {"rms_norm": [], "rope": [], "paged_attention": []}
+    results = {"rms_norm": [], "rope": [], "paged_attention": [],
+               "quant_matmul": []}
 
     # -- rms_norm on [8*C, 4096] -------------------------------------------
     for C in (1, 32):
@@ -247,10 +261,17 @@ def phase_kernels(torch, ops, dev):
                         "dense view (gather excluded)",
                 bound_ms=b_ms, bound_by=b_by))
             del kg, vg, lib
+    for c in results["paged_attention"]:
+        c["variant"] = "fp"
+    results["paged_attention"] += _paged_int8_cases(
+        torch, ops, kpool, vpool, pt, pos, layer, g)
     del kpool, vpool
+    torch.cuda.empty_cache()
+    results["quant_matmul"] = _quant_matmul_cases(torch, ops, g)
     for name, cases in results.items():
         for c in cases:
             log(f"[kernels] {name} {c['shape']}"
+                f"{' ' + c['variant'] if 'variant' in c else ''}"
                 f"{' group ' + str(c['group']) if 'group' in c else ''}: "
                 f"err {c['errs']}, share of the per-element tolerance "
                 f"{c['shares']}, median tol / median |plain| {c['tight']}; "
@@ -262,6 +283,147 @@ def phase_kernels(torch, ops, dev):
                   f"errors {c['errs']} use {c['shares']} of their "
                   f"per-element tolerances")
     return results
+
+
+def _quantize_pool(torch, pool):
+    """An int8 copy of a [P, ps, L, n_kv, d] pool with one scale per
+    (page, layer, kv head): amax over (rows, head_dim) / 127, as the
+    serving page write quantizes a full page."""
+    amax = pool.float().abs().amax(dim=(1, 4))                 # [P, L, n_kv]
+    sc = torch.clamp_min(amax, 1e-8) / 127.0
+    q8 = torch.clamp(torch.round(pool.float() / sc[:, None, :, :, None]),
+                     -127, 127).to(torch.int8)
+    return q8, sc.contiguous()
+
+
+def _paged_int8_cases(torch, ops, kpool, vpool, pt, pos, layer, g):
+    """int8 paged_attention against plain_paged_attention with scales,
+    at phase 3's serve shapes: the bf16 pools quantized per page.  The
+    tolerance is `_paged_tolerance` on the dequantized view (the kernel
+    and the plain version dequantize to the same bf16 values, so only
+    the softmax-weight rounding differs); the library yardstick is SDPA
+    on the gathered, dequantized view (gather and dequant excluded)."""
+    from paddle_tpu_torch.ops import plain_paged_attention
+    dev = kpool.device
+    B, P_slot = pt.shape
+    _, ps, L, n_kv, hd = kpool.shape
+    k8, ks = _quantize_pool(torch, kpool)
+    v8, vs = _quantize_pool(torch, vpool)
+    out = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for C in (1, 32):
+        for group in (1, 4):
+            h = n_kv * group
+            q = torch.randn((B, C, h, hd), generator=g, device=dev,
+                            dtype=torch.float32).to(torch.bfloat16)
+            args = (q, k8, v8, pt, pos, layer, ks, vs)
+            k = ops.paged_attention(*args)
+            p = plain_paged_attention(*args)
+            torch.cuda.synchronize()
+            pages = torch.clamp((pos + C - 1) // ps + 1, max=P_slot)
+            n_pages = int(pages.sum().item())
+            # int8 K/V rows of the live pages, their two scales per page,
+            # q, out, the page table and pos
+            nbytes = (n_pages * (ps * n_kv * hd * 2 + n_kv * 4 * 2)
+                      + 2 * q.numel() * 2 + pt.numel() * 4 + B * 4)
+            keys = (pos[:, None].long() + torch.arange(C, device=dev)[None]
+                    + 1).clamp(max=P_slot * ps)
+            flops = int(keys.sum().item()) * h * hd * 4
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+            S = P_slot * ps
+            idx = pt.long()
+
+            def view(p8, sc):
+                d = (p8[:, :, layer][idx].float()
+                     * sc[:, layer][idx][:, :, None, :, None])
+                return d.to(torch.bfloat16).reshape(B, S, n_kv, hd) \
+                    .repeat_interleave(group, dim=2).transpose(1, 2)
+            kg, vg = view(k8, ks), view(v8, vs)
+            qt = q.transpose(1, 2)
+            mask = (torch.arange(S, device=dev)[None, None, :]
+                    <= (pos[:, None, None].long()
+                        + torch.arange(C, device=dev)[None, :, None]))[:, None]
+            lib = sdpa(qt, kg, vg, attn_mask=mask)
+            out.append(dict(
+                shape=[B, C, h, hd], group=group, variant="int8",
+                **_checked([k], [p], [_paged_tolerance(torch, qt, kg, vg,
+                                                       mask, p)]),
+                library_err=(lib.transpose(1, 2).float() - p.float()).abs()
+                .max().item(),
+                ms=time_ms(torch, lambda: ops.paged_attention(*args)),
+                plain_ms=time_ms(torch, lambda: plain_paged_attention(*args)),
+                library_ms=time_ms(torch, lambda: sdpa(qt, kg, vg,
+                                                       attn_mask=mask)),
+                library="scaled_dot_product_attention on the gathered, "
+                        "dequantized bf16 view (gather, dequant excluded)",
+                bound_ms=b_ms, bound_by=b_by))
+            del kg, vg, lib
+    return out
+
+
+# quant_matmul at the serving path's shapes: [K, N] of q/k/v/o, gate/up,
+# down and the lm head of Llama-2-7B; M = 8 slots decoding, 8 x 32 lanes
+# of an admission chunk
+QM_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
+QM_GROUP = 64
+
+
+def _quant_matmul_tolerance(torch, x, w, ref):
+    """Per-element tolerance of quant_matmul against plain_quant_matmul.
+    Both dequantize every weight to the same bf16 value (the same fp32
+    product, rounded once) and sum the exact products x*w in fp32; only
+    the order of the sums (the kernel's K tiles, splits and mma
+    accumulation against cuBLAS's fp32 GEMM) and the final rounding
+    differ: 2^-7 |plain| for an output rounding that flips, 2^-12
+    sum |x| |w| for fp32 sums of up to 11008 terms in another order
+    (a random walk of rounding errors stays near 2^-17 of it)."""
+    return 2.0 ** -7 * ref.float().abs() + 2.0 ** -12 * (x.float().abs()
+                                                         @ w.float().abs())
+
+
+def _quant_matmul_cases(torch, ops, g):
+    """quant_matmul against plain_quant_matmul, int8 and int4 (group 64)
+    bf16 weights from seeded random ones, bf16 x, at M in {8, 256} and
+    every [K, N] of the serving path.  Library yardstick: torch.matmul
+    of x with the already-dequantized bf16 weight (the dequant is left
+    out of its time)."""
+    from paddle_tpu_torch.ops import dequant_weight, plain_quant_matmul
+    from paddle_tpu_torch.quantization import quantize_weight
+    dev = g.device
+    bf16 = torch.bfloat16
+    out = []
+    for fmt in ("int8", "int4"):
+        for K, N in QM_SHAPES:
+            w = (torch.randn((K, N), generator=g, device=dev)
+                 / K ** 0.5).to(bf16)
+            qw, sc = quantize_weight(w, fmt, QM_GROUP)
+            wd = dequant_weight(qw, sc, fmt, QM_GROUP).to(bf16)
+            del w
+            for M in (8, 256):
+                x = torch.randn((M, K), generator=g, device=dev).to(bf16)
+                args = (x, qw, sc, fmt, QM_GROUP)
+                k = ops.quant_matmul(*args)
+                p = plain_quant_matmul(*args)
+                lib = torch.matmul(x, wd)
+                torch.cuda.synchronize()
+                nbytes = (x.numel() * 2 + qw.numel() + sc.numel() * 2
+                          + M * N * 2)
+                b_ms, b_by = bound(nbytes, 2 * M * K * N, BF16_FLOP_PER_S)
+                out.append(dict(
+                    shape=[M, K, N], variant=fmt,
+                    **_checked([k], [p], [_quant_matmul_tolerance(
+                        torch, x, wd, p)]),
+                    library_err=(lib.float() - p.float()).abs().max().item(),
+                    ms=time_ms(torch, lambda: ops.quant_matmul(*args)),
+                    plain_ms=time_ms(torch, lambda: plain_quant_matmul(*args),
+                                     reps=10),
+                    library_ms=time_ms(torch, lambda: torch.matmul(x, wd)),
+                    library="torch.matmul on the dequantized bf16 weight "
+                            "(dequant excluded)",
+                    bound_ms=b_ms, bound_by=b_by))
+                del x, k, p, lib
+            del qw, sc, wd
+    return out
 
 
 def _checked(outs, refs, tols):
@@ -308,67 +470,123 @@ def _paged_tolerance(torch, qt, kg, vg, mask, ref):
 # phase 4: full-width parity, card kernels vs CPU plain versions
 # ---------------------------------------------------------------------------
 def phase_parity(torch, dev):
+    """The unquantized model, then the quantized ones (int8 weights with
+    an int8 KV pool, int4 group-64 weights with an fp32 pool)."""
+    return [_parity_case(torch, dev, fmt, kv)
+            for fmt, kv in ((None, None), ("int8", "int8"), ("int4", None))]
+
+
+def _parity_case(torch, dev, fmt, kv):
     from paddle_tpu_torch.inference import ContinuousBatcher
     from paddle_tpu_torch.models import (LlamaForCausalLM, llama_7b_config,
                                          load_numpy_state_dict,
                                          numpy_state_dict)
+    from paddle_tpu_torch.quantization import quantize_model
     cfg = llama_7b_config(num_hidden_layers=2, dtype="float32")
     gpu = LlamaForCausalLM(cfg, device=dev, seed=7)
     cpu = LlamaForCausalLM(cfg, device="cpu", seed=7)
     load_numpy_state_dict(cpu, numpy_state_dict(gpu))
+    code_diffs = None
+    if fmt is not None:
+        # each side packs the same fp32 weights (on its own device); the
+        # codes must agree, and the card's are carried to the CPU so the
+        # logits below compare the kernels on identical weights
+        quantize_model(gpu, fmt, QM_GROUP)
+        quantize_model(cpu, fmt, QM_GROUP)
+        cpu_packed = numpy_state_dict(cpu)
+        gpu_packed = numpy_state_dict(gpu)
+        code_diffs = int(sum((cpu_packed[n] != a).sum()
+                             for n, a in gpu_packed.items()
+                             if a.dtype == np.int8))
+        check(code_diffs == 0, f"{fmt} codes differ card vs CPU in "
+              f"{code_diffs} places")
+        load_numpy_state_dict(cpu, gpu_packed)
+        del cpu_packed, gpu_packed
     rng = np.random.RandomState(7)
     ids = rng.randint(1, cfg.vocab_size, (2, 48)).astype(np.int32)
     B, ps, P_slot = 2, 16, 4
     pt = np.arange(1, 1 + B * P_slot, dtype=np.int32).reshape(B, P_slot)
     pos = np.zeros((B,), np.int32)
-    logits = {}
+    logits, pools = {}, {}
     with torch.inference_mode():
         for name, m, d in (("gpu", gpu, dev), ("cpu", cpu, "cpu")):
-            cache = m.init_paged_cache(1 + B * P_slot, ps)
-            lg, _ = m.forward_cached_paged(
+            cache = m.init_paged_cache(1 + B * P_slot, ps, kv)
+            lg, cache = m.forward_cached_paged(
                 torch.from_numpy(ids).to(d), cache,
                 torch.from_numpy(pt).to(d), torch.from_numpy(pos).to(d))
             logits[name] = lg.float().cpu()
+            pools[name] = {k: v.cpu() for k, v in cache.items()}
     ref = logits["cpu"]
     err = (logits["gpu"] - ref).abs().max().item()
-    # fp32 on both sides: cuBLAS and the CPU BLAS sum the 4096- and
-    # 11008-long dot products in different orders, and the kernels'
-    # reductions differ from the plain versions' — relative drift of
-    # ~1e-5; 1e-3 of the logit scale leaves a wide margin
-    tol = 1e-3 * max(1.0, ref.abs().max().item())
+    # fp32 on both sides: cuBLAS (or quant_matmul's fp32 kernel) and the
+    # CPU BLAS sum the 4096- and 11008-long dot products in different
+    # orders, and the kernels' reductions differ from the plain versions'
+    # — relative drift of ~1e-5; 1e-3 of the logit scale leaves a wide
+    # margin.  An int8 pool requantizes each page it writes, which turns
+    # that drift (~1e-6 of a K/V value) into occasional one-step code
+    # flips (at most one step each, checked below), each moving one K/V
+    # element by 1/127 of its page's amax: 2^-6 of the logit scale
+    tol = (2.0 ** -6 if kv == "int8" else 1e-3) * max(1.0,
+                                                      ref.abs().max().item())
+    flips = None
+    if kv == "int8":
+        steps = [(pools["gpu"][k].int() - pools["cpu"][k].int()).abs()
+                 for k in ("k", "v")]
+        flips = int(sum((d > 0).sum().item() for d in steps))
+        check(max(d.max().item() for d in steps) <= 1,
+              "int8 KV codes differ card vs CPU by more than one step")
     check(torch.isfinite(logits["gpu"]).all().item(), "non-finite logits")
-    check(err <= tol, f"prefill logits disagree card vs CPU: {err} > {tol}")
+    check(err <= tol, f"{fmt or 'unquantized'} prefill logits disagree card "
+          f"vs CPU: {err} > {tol}")
     toks = {}
     prompts = [ids[0], ids[1, :40]]
     for name, m, d in (("gpu", gpu, dev), ("cpu", cpu, "cpu")):
         bat = ContinuousBatcher(m, max_batch_size=2, max_len=128,
-                                prefill_chunk=32, chunk=4, device=d)
+                                prefill_chunk=32, chunk=4, kv_dtype=kv,
+                                device=d)
         rids = [bat.submit(p, 8) for p in prompts]
         out = bat.run()
         toks[name] = [out[r].tolist() for r in rids]
     check(toks["gpu"] == toks["cpu"],
           f"greedy tokens disagree card vs CPU: {toks}")
-    log(f"[parity] 2-layer full-width fp32: prefill logits max abs err "
-        f"{err:.3g} (tol {tol:.3g}); greedy tokens equal: {toks['gpu']}")
+    what = "fp32" if fmt is None else f"{fmt} weights, {kv or 'fp32'} KV"
+    log(f"[parity] 2-layer full-width {what}: prefill logits max abs err "
+        f"{err:.3g} (tol {tol:.3g}); greedy tokens equal: {toks['gpu']}"
+        + ("" if code_diffs is None else
+           f"; packed codes equal card vs CPU ({code_diffs} differ)")
+        + ("" if flips is None else
+           f"; int8 KV codes one step apart in {flips} places"))
     del gpu, cpu
     torch.cuda.empty_cache()
-    return err, tol
+    return dict(weights=fmt, kv=kv, err=err, tol=tol, kv_code_flips=flips)
 
 
 # ---------------------------------------------------------------------------
 # phase 5: serve Llama-2-7B at full width and depth
 # ---------------------------------------------------------------------------
-def phase_serve(torch, ops, dev):
+def phase_serve(torch, ops, dev, weight_only=None, kv_dtype=None,
+                tag="serve"):
+    """Serve Llama-2-7B through ContinuousBatcher: phase 5 (bf16, as
+    built), 10 (weight_only "int8", kv_dtype "int8") and 11 (weight_only
+    "int4" at FLAGS_weight_only_group_size 64, bf16 KV) — the same
+    requests, geometry and seed.  Returns (the logged record, launch
+    counts, per-variant launches)."""
     from paddle_tpu_torch.inference import ContinuousBatcher
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
+    from paddle_tpu_torch.quantization import weight_pool_bytes
     torch.cuda.reset_peak_memory_stats(dev)
     cfg = llama_7b_config()
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device=dev, seed=2024)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     bat = ContinuousBatcher(model, max_batch_size=8, max_len=1024,
-                            prefill_chunk=32, chunk=16, device=dev)
+                            prefill_chunk=32, chunk=16,
+                            weight_only_dtype=weight_only, kv_dtype=kv_dtype,
+                            device=dev)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
     rng = np.random.RandomState(2024)
     V = cfg.vocab_size
     system = rng.randint(1, V, 256).astype(np.int32)
@@ -387,20 +605,37 @@ def phase_serve(torch, ops, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    variants = {n: dict(ops.kernel_module(n).variant_launches)
+                for n in ("paged_attention", "quant_matmul")}
     st = bat.stats()
     reqs = bat.finished_requests
     check(len(out) == 16 and all(len(out[r]) == new for r in rids),
-          "not every request completed with 64 tokens")
+          f"{tag}: not every request completed with 64 tokens")
     check(all(((out[r] >= 0) & (out[r] < V)).all() for r in rids),
-          "token ids outside the vocabulary")
-    check(st["prefix_hit_tokens"] > 0, "no prefix hits")
+          f"{tag}: token ids outside the vocabulary")
+    check(st["prefix_hit_tokens"] > 0, f"{tag}: no prefix hits")
+    check(st["weight_only"] == (weight_only or "none"),
+          f"{tag}: stats weight_only {st['weight_only']}")
     steps, L = st["forward_steps"], cfg.num_hidden_layers
+    # per forward step: 2 norms a layer and the final one, rope and
+    # attention once a layer; quantized, 7 projections a layer and the
+    # untied lm head
     want = dict.fromkeys(counts, 0)
     want.update({"rms_norm": steps * (2 * L + 1), "rope": steps * L,
-                 "paged_attention": steps * L})
-    check(counts == want, f"launch counts {counts} != predicted {want}")
+                 "paged_attention": steps * L,
+                 "quant_matmul": steps * (7 * L + 1) if weight_only else 0})
+    check(counts == want, f"{tag} launch counts {counts} != predicted {want}")
+    want_var = {"paged_attention": {"fp": 0, "int8": 0},
+                "quant_matmul": {"int8": 0, "int4": 0}}
+    want_var["paged_attention"]["int8" if kv_dtype == "int8" else "fp"] = \
+        steps * L
+    if weight_only:
+        want_var["quant_matmul"][weight_only] = steps * (7 * L + 1)
+    check(variants == want_var,
+          f"{tag} variant launches {variants} != predicted {want_var}")
     ttft = sorted((reqs[r].t_first - reqs[r].t_submit) * 1e3 for r in rids)
     serve = dict(
+        weight_only=st["weight_only"], kv_dtype=st["kv_dtype"],
         requests=16, new_tokens_each=new,
         prompt_tokens=int(sum(len(p) for p in prompts)),
         wall_s=wall, tok_per_s=st["tokens_produced"] / wall,
@@ -412,26 +647,30 @@ def phase_serve(torch, ops, dev):
         prefix_hit_tokens=st["prefix_hit_tokens"],
         prefill_tokens=st["prefill_tokens"], cow_copies=st["cow_copies"],
         evictions=st["evictions"], kv_bytes=st["kv_bytes"],
+        weight_pool_bytes=weight_pool_bytes(model),
         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
-        model_init_s=init_s, launches=counts)
-    log("[serve] " + json.dumps(serve))
-    trace = decode_trace(torch, model, dev, bat.chunk)
-    log("[trace] " + json.dumps(trace))
+        model_init_s=init_s, batcher_init_s=quantize_s, launches=counts,
+        variant_launches=variants)
+    log(f"[{tag}] " + json.dumps(serve))
+    trace = decode_trace(torch, model, dev, bat.chunk, kv_dtype)
+    log(f"[{tag}-trace] " + json.dumps(trace))
     del bat, model
     torch.cuda.empty_cache()
-    return serve, counts
+    return serve, counts, variants
 
 
-def decode_trace(torch, model, dev, chunk):
+def decode_trace(torch, model, dev, chunk, kv_dtype=None):
     """Where a decode step's time goes: 8 slots in pure decode, two
     chunks timed without a profiler (wall), then two more under
-    torch.profiler (device time per kernel name).  busy_share is the
-    profiled device time over the unprofiled wall of as many steps."""
+    torch.profiler (device time per kernel name and kind).  busy_share
+    is the profiled device time over the unprofiled wall of as many
+    steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference import ContinuousBatcher
     bat = ContinuousBatcher(model, max_batch_size=8, max_len=1024,
-                            prefill_chunk=32, chunk=chunk, device=dev)
+                            prefill_chunk=32, chunk=chunk, kv_dtype=kv_dtype,
+                            device=dev)
     rng = np.random.RandomState(99)
     for _ in range(8):
         bat.submit(rng.randint(1, model.config.vocab_size, 100), 200)
@@ -450,15 +689,49 @@ def decode_trace(torch, model, dev, chunk):
         torch.cuda.synchronize()
     # device-side rows only (kernels, copies): the CPU op rows would
     # count the same kernel time a second time
-    rows = [(e.key, e.self_device_time_total / 1e3)
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     steps = 2 * chunk
+    by_kind, events = _by_kind(rows)
     return dict(steps=steps, wall_ms_per_step=wall_ms / steps,
                 device_ms_per_step=busy_ms / steps if rows else None,
                 busy_share=busy_ms / wall_ms if rows else None,
-                top=[(k[:60], round(ms / steps, 4)) for k, ms in rows[:10]])
+                by_kind_ms_per_step={k: v / steps for k, v in by_kind.items()},
+                events_per_step={k: v / steps for k, v in events.items()},
+                top=[(k[:60], round(ms / steps, 4)) for k, ms, _ in rows[:10]])
+
+
+# trace kinds: the first kind whose pattern a kernel's name holds;
+# PyTorch's own kernels split by what they are (an int8 pool's page write
+# is index/gather/scatter, elementwise and reduce kernels)
+TRACE_KINDS = {"flash_attention": ("flash_",),
+               "paged_attention": ("paged_attention",),
+               "quant_matmul": ("quant_matmul",),
+               "rms_norm": ("rms_norm",),
+               "rope": ("rope_kernel",), "fused_adamw": ("fused_adamw",),
+               "cross_entropy": ("ce_rows",),
+               "matmul": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
+               "copy_cast": ("copy", "Copy"),
+               "reduce": ("reduce_kernel",),
+               "index_embedding": ("index", "gather", "scatter",
+                                   "embedding"),
+               "softmax_loss": ("softmax", "nll_loss", "cross_entropy"),
+               "elementwise": ("elementwise",)}
+
+
+def _by_kind(rows):
+    """(device ms by kind, kernel events by kind) of trace rows (name,
+    ms, count)."""
+    by_kind = dict.fromkeys(list(TRACE_KINDS) + ["other"], 0.0)
+    events = dict.fromkeys(by_kind, 0)
+    for key, ms, n in rows:
+        kind = next((k for k, pats in TRACE_KINDS.items()
+                     if any(p in key for p in pats)), "other")
+        by_kind[kind] += ms
+        events[kind] += n
+    return by_kind, events
 
 
 # ---------------------------------------------------------------------------
@@ -1104,26 +1377,9 @@ def train_trace(torch, step, batch, wall_ms):
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
-    # the first kind whose pattern a kernel's name holds; PyTorch's own
-    # kernels split "other" by what they are
-    kinds = {"flash_attention": ("flash_",), "rms_norm": ("rms_norm",),
-             "rope": ("rope_kernel",), "fused_adamw": ("fused_adamw",),
-             "cross_entropy": ("ce_rows",),
-             "matmul": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
-             "copy_cast": ("copy", "Copy"),
-             "reduce": ("reduce_kernel",),
-             "index_embedding": ("index", "gather", "scatter", "embedding"),
-             "softmax_loss": ("softmax", "nll_loss", "cross_entropy"),
-             "elementwise": ("elementwise",)}
-    by_kind = dict.fromkeys(list(kinds) + ["other"], 0.0)
     # kernel events seen per kind: a trace that dropped events (the
     # counts fall short of the launch counters' structure) is not read
-    events = dict.fromkeys(by_kind, 0)
-    for key, ms, n in rows:
-        kind = next((k for k, pats in kinds.items()
-                     if any(p in key for p in pats)), "other")
-        by_kind[kind] += ms
-        events[kind] += n
+    by_kind, events = _by_kind(rows)
     busy = sum(r[1] for r in rows)
     return dict(wall_ms=wall_ms, device_ms=busy if rows else None,
                 busy_share=busy / wall_ms if rows else None,
@@ -1182,7 +1438,7 @@ def main():
 
     kern = timed("3 kernels", phase_kernels, torch, ops, dev)
     timed("4 parity", phase_parity, torch, dev)
-    serve, counts = timed("5 serve", phase_serve, torch, ops, dev)
+    _, counts, variants = timed("5 serve", phase_serve, torch, ops, dev)
     train_kern = timed("6 train kernels", phase_train_kernels, torch, ops,
                        dev)
     for name in ("rms_norm", "rope"):       # the forwards at train shapes
@@ -1197,11 +1453,22 @@ def main():
     _, fused_counts = timed("9 train (fused CE, bf16 moments + ef)",
                             phase_train, torch, ops, dev, mode="fused",
                             ref=train)
-    # launches on the main path: the serve (5) and both trainings (8, 9)
+    _, int8_counts, int8_var = timed(
+        "10 serve (int8 weights, int8 KV)", phase_serve, torch, ops, dev,
+        weight_only="int8", kv_dtype="int8", tag="serve-int8")
+    _, int4_counts, int4_var = timed(
+        "11 serve (int4 g64 weights, bf16 KV)", phase_serve, torch, ops,
+        dev, weight_only="int4", tag="serve-int4")
+    # launches on the main path: the serves (5, 10, 11) and both
+    # trainings (8, 9)
     counts = {n: counts[n] + train_counts[n] + fused_counts[n]
-              for n in counts}
+              + int8_counts[n] + int4_counts[n] for n in counts}
+    variants = {n: {v: variants[n][v] + int8_var[n][v] + int4_var[n][v]
+                    for v in variants[n]} for n in variants}
     check(all(counts[n] > 0 for n in ops.KERNELS),
           f"a kernel never launched on the main path: {counts}")
+    check(all(c > 0 for v in variants.values() for c in v.values()),
+          f"a kernel variant never launched on the main path: {variants}")
 
     cu = "paddle_tpu_torch/csrc/"
     tpu = "paddle_tpu/ops/pallas/"
@@ -1221,21 +1488,35 @@ def main():
                                 tpu + "flash_attention.py:679"),
         "fused_adamw": (cu + "fused_adamw.cu", tpu + "fused_adamw.py:140"),
         "cross_entropy": (cu + "cross_entropy.cu",
-                          tpu + "fused_cross_entropy.py:95")}
+                          tpu + "fused_cross_entropy.py:95"),
+        "quant_matmul": (cu + "quant_matmul.cu", tpu + "quant_matmul.py:58")}
     line = []
-    for name in ops.KERNELS:
-        cases = kern[name]
-        # serving kernels: the decode shape (C=1, group 1); fused_adamw:
-        # the fp32-parameter variant at [2560, 6912], the training step's
+
+    def entry(name, cases, launches, **extra):
+        # serving kernels: the decode shape (C=1 / M=8, group 1) first;
+        # fused_adamw: the fp32-parameter variant at [2560, 6912], the
+        # training step's
         head = cases[0]
-        line.append(dict(
+        return dict(
             name=name, route="cuda", source=sources[name][0],
-            replaces=sources[name][1], launches=counts[name],
+            replaces=sources[name][1], launches=launches, **extra,
             max_abs_err=head["max_abs_err"], tol=head["tol"],
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], shape=head["shape"],
-            cases=cases))
+            cases=cases)
+
+    for name in ops.KERNELS:
+        extra = {"variant_launches": variants[name]} if name in variants \
+            else {}
+        line.append(entry(name, kern[name], counts[name], **extra))
+    # the int8 pool variant of paged_attention and the int4 body of
+    # quant_matmul on their own lines: each its own launches and head case
+    for name, variant in (("paged_attention", "int8"),
+                          ("quant_matmul", "int4")):
+        line.append(entry(name, [c for c in kern[name]
+                                 if c["variant"] == variant],
+                          variants[name][variant], variant=variant))
     log(f"[time] phases {walls}")
     log(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,15 @@
 // r = c*group + g is lane c = r // group of query head kvh*group + g
 // (paged_attention.py:86-87).  fp32 scores and online softmax.
 //
+// int8 pools (the TPU kernel's quant branch, :77-80): the pools hold
+// int8 and k_scale/v_scale [P, L, n_kv] fp32 hold one scale per page,
+// layer and kv head.  A page tile is loaded at one byte an element and
+// each value is dequantized as __fmul_rn((float)q, scale), rounded to
+// q's dtype T (the reference twin's `_dequant_pages(...).astype(q.dtype)`,
+// which the plain version follows) and stored into the same shared-memory
+// tile; from there both kernels run unchanged.  The bytes a block reads
+// halve; the math does not change.
+//
 // What bounds it on the H100: bytes.  A block reads only the pages up
 // to its frontier, (pos[b] + C - 1) // ps — the TPU kernel's clamped
 // index map (paged_attention.py:142-146) — so the least time is the
@@ -61,19 +70,50 @@ namespace {
 constexpr int kSmemMax = 232448;     // H100 opt-in limit per block
 constexpr int kSmemBudget = 163840;  // what a launch plans to use
 
+// an int8 pool value dequantized and rounded to T, as the plain version
+// rounds its dequantized view to q's dtype
 template <typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ base,
+__device__ __forceinline__ T dequant(int8_t q, float scale) {
+  return ptt::from_f<T>(__fmul_rn(static_cast<float>(q), scale));
+}
+
+// a pool value of type PT (T, or int8 with its page scale) as the float
+// the math uses
+template <typename T, typename PT>
+__device__ __forceinline__ float pool_f(PT v, float scale) {
+  if constexpr (std::is_same<PT, int8_t>::value)
+    return ptt::to_f(dequant<T>(v, scale));
+  else
+    return ptt::to_f(v);
+}
+
+// PT-sized 16-byte vector of a pool row as floats
+template <typename T, typename PT>
+__device__ __forceinline__ void load_pool_vec(const PT* p, float scale,
+                                              float* f) {
+  if constexpr (std::is_same<PT, int8_t>::value) {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+    const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int u = 0; u < 16; ++u) f[u] = ptt::to_f(dequant<T>(e[u], scale));
+  } else {
+    ptt::load_vec(p, f);
+  }
+}
+
+template <typename T, typename PT>
+__device__ __forceinline__ void load_tile(const PT* __restrict__ base,
                                           long long row_stride, int rows,
                                           int d, float* dst, int dst_stride,
-                                          bool vec) {
+                                          bool vec, float scale) {
   if (vec) {
-    constexpr int N = ptt::Vec<T>::N;
+    constexpr int N = ptt::Vec<PT>::N;
     const int per_row = d / N;
     for (int e = threadIdx.x; e < rows * per_row; e += blockDim.x) {
       const int t = e / per_row;
       const int i = (e - t * per_row) * N;
       float f[N];
-      ptt::load_vec(base + t * row_stride + i, f);
+      load_pool_vec<T, PT>(base + t * row_stride + i, scale, f);
 #pragma unroll
       for (int u = 0; u < N; ++u) dst[t * dst_stride + i + u] = f[u];
     }
@@ -81,15 +121,25 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ base,
     for (int e = threadIdx.x; e < rows * d; e += blockDim.x) {
       const int t = e / d;
       const int i = e - t * d;
-      dst[t * dst_stride + i] = ptt::to_f(base[t * row_stride + i]);
+      dst[t * dst_stride + i] =
+          pool_f<T, PT>(base[t * row_stride + i], scale);
     }
   }
 }
 
-template <typename T>
+// the scale of page `page`, layer `layer`, kv head `kvh` ([P, L, n_kv]);
+// 1 (unused) for a pool of q's dtype
+__device__ __forceinline__ float page_scale(const float* __restrict__ sc,
+                                            long long page, int L, int n_kv,
+                                            int layer, int kvh) {
+  return sc == nullptr ? 1.f : sc[(page * L + layer) * n_kv + kvh];
+}
+
+template <typename T, typename PT>
 __global__ void paged_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ kpool,
-    const T* __restrict__ vpool, const int* __restrict__ page_table,
+    const T* __restrict__ q, const PT* __restrict__ kpool,
+    const PT* __restrict__ vpool, const float* __restrict__ kscale,
+    const float* __restrict__ vscale, const int* __restrict__ page_table,
     const int* __restrict__ pos, T* __restrict__ out,
     float* __restrict__ part_acc, float* __restrict__ part_ml, int C, int h,
     int d, int ps, int L, int n_kv, int P_slot, int layer, float scale,
@@ -148,10 +198,12 @@ __global__ void paged_attention_kernel(
 
     for (int j = j_begin; j < j_end; ++j) {
       const long long page = pt[j];
-      load_tile(kpool + page * page_stride + head_off, row_stride, ps, d, Ks,
-                dp, vec);
-      load_tile(vpool + page * page_stride + head_off, row_stride, ps, d, Vs,
-                d, vec);
+      load_tile<T, PT>(kpool + page * page_stride + head_off, row_stride, ps,
+                       d, Ks, dp, vec,
+                       page_scale(kscale, page, L, n_kv, layer, kvh));
+      load_tile<T, PT>(vpool + page * page_stride + head_off, row_stride, ps,
+                       d, Vs, d, vec,
+                       page_scale(vscale, page, L, n_kv, layer, kvh));
       __syncthreads();
       for (int rr = warp; rr < rt; rr += nwarps) {
         const int qpos = p0 + (r0 + rr) / group;
@@ -280,16 +332,17 @@ __device__ __forceinline__ long long q_row(int b, int C, int h, int kvh,
 // memory row-major and its V tile transposed, rows padded by 8 elements,
 // so every B fragment is one conflict-free 32-bit load.  Grid, page
 // split and partial-state layout are those of paged_attention_kernel.
-template <typename T, int D>
+template <typename T, typename PT, int D>
 __global__ void paged_attention_mma_kernel(
-    const T* __restrict__ q, const T* __restrict__ kpool,
-    const T* __restrict__ vpool, const int* __restrict__ page_table,
+    const T* __restrict__ q, const PT* __restrict__ kpool,
+    const PT* __restrict__ vpool, const float* __restrict__ kscale,
+    const float* __restrict__ vscale, const int* __restrict__ page_table,
     const int* __restrict__ pos, T* __restrict__ out,
     float* __restrict__ part_acc, float* __restrict__ part_ml, int C, int h,
     int ps, int L, int n_kv, int P_slot, int layer, float scale,
     int splits) {
   constexpr int KS = D + 8;
-  constexpr int N = ptt::Vec<T>::N;
+  constexpr int N = ptt::Vec<PT>::N;   // pool elements per 16-byte load
   const int VS = ps + 8;
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
@@ -341,20 +394,39 @@ __global__ void paged_attention_mma_kernel(
 
   for (int j = j_begin; j < j_end; ++j) {
     const long long page = pt[j];
-    const T* kb = kpool + page * page_stride + head_off;
-    const T* vb = vpool + page * page_stride + head_off;
+    const PT* kb = kpool + page * page_stride + head_off;
+    const PT* vb = vpool + page * page_stride + head_off;
+    const float ksc = page_scale(kscale, page, L, n_kv, layer, kvh);
+    const float vsc = page_scale(vscale, page, L, n_kv, layer, kvh);
     // consecutive threads take consecutive keys, so the transposed V
     // stores of a warp land in distinct shared-memory words
     for (int e = threadIdx.x; e < ps * (D / N); e += blockDim.x) {
       const int t = e % ps;
       const int i = (e / ps) * N;
-      *reinterpret_cast<uint4*>(Ks + t * KS + i) =
+      const uint4 kv =
           __ldg(reinterpret_cast<const uint4*>(kb + t * row_stride + i));
       const uint4 vv =
           __ldg(reinterpret_cast<const uint4*>(vb + t * row_stride + i));
-      const T* ve = reinterpret_cast<const T*>(&vv);
+      if constexpr (std::is_same<PT, int8_t>::value) {
+        // 16 int8 values: dequantized to T, two 16-byte K stores
+        const int8_t* ke = reinterpret_cast<const int8_t*>(&kv);
+        const int8_t* ve = reinterpret_cast<const int8_t*>(&vv);
+        alignas(16) T kd[16];
 #pragma unroll
-      for (int u = 0; u < N; ++u) Vt[(i + u) * VS + t] = ve[u];
+        for (int u = 0; u < 16; ++u) {
+          kd[u] = dequant<T>(ke[u], ksc);
+          Vt[(i + u) * VS + t] = dequant<T>(ve[u], vsc);
+        }
+        reinterpret_cast<uint4*>(Ks + t * KS + i)[0] =
+            reinterpret_cast<const uint4*>(kd)[0];
+        reinterpret_cast<uint4*>(Ks + t * KS + i)[1] =
+            reinterpret_cast<const uint4*>(kd)[1];
+      } else {
+        *reinterpret_cast<uint4*>(Ks + t * KS + i) = kv;
+        const T* ve = reinterpret_cast<const T*>(&vv);
+#pragma unroll
+        for (int u = 0; u < N; ++u) Vt[(i + u) * VS + t] = ve[u];
+      }
     }
     __syncthreads();
     if (active) {
@@ -466,54 +538,43 @@ __global__ void paged_attention_mma_kernel(
   }
 }
 
-template <typename T, int D>
-int launch_mma(const dim3& grid, int threads, cudaStream_t s, const void* q,
-               const void* kpool, const void* vpool, const void* page_table,
-               const void* pos, void* out, void* part_acc, void* part_ml,
-               int C, int h, int ps, int L, int n_kv, int P_slot, int layer,
-               float scale, int splits) {
-  const size_t smem = sizeof(T) * (static_cast<size_t>(ps) * (D + 8) +
-                                    static_cast<size_t>(D) * (ps + 8));
+// Everything a launch needs besides the element types.
+struct Args {
+  const void* q;
+  const void* kpool;
+  const void* vpool;
+  const float* kscale;  // int8 pools only, else nullptr
+  const float* vscale;
+  const int* page_table;
+  const int* pos;
+  void* out;
+  float* part_acc;
+  float* part_ml;
+  int C, h, d, ps, L, n_kv, P_slot, layer;
+  float scale;
+  int splits;
+};
+
+template <typename T, typename PT, int D>
+int launch_mma(const dim3& grid, int threads, cudaStream_t s, const Args& a) {
+  const size_t smem = sizeof(T) * (static_cast<size_t>(a.ps) * (D + 8) +
+                                    static_cast<size_t>(D) * (a.ps + 8));
   if (smem > static_cast<size_t>(kSmemMax))
     return static_cast<int>(cudaErrorInvalidValue);
   static bool smem_opt_in = false;
   if (!smem_opt_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_mma_kernel<T, D>,
+        paged_attention_mma_kernel<T, PT, D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_opt_in = true;
   }
-  paged_attention_mma_kernel<T, D><<<grid, threads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kpool),
-      static_cast<const T*>(vpool), static_cast<const int*>(page_table),
-      static_cast<const int*>(pos), static_cast<T*>(out),
-      static_cast<float*>(part_acc), static_cast<float*>(part_ml), C, h, ps,
-      L, n_kv, P_slot, layer, scale, splits);
+  paged_attention_mma_kernel<T, PT, D><<<grid, threads, smem, s>>>(
+      static_cast<const T*>(a.q), static_cast<const PT*>(a.kpool),
+      static_cast<const PT*>(a.vpool), a.kscale, a.vscale, a.page_table,
+      a.pos, static_cast<T*>(a.out), a.part_acc, a.part_ml, a.C, a.h, a.ps,
+      a.L, a.n_kv, a.P_slot, a.layer, a.scale, a.splits);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The tensor-core kernel's head widths; other widths, fp32, pages not a
-// multiple of 16 rows and more than 128 query rows take the CUDA-core
-// kernel.
-template <typename T>
-int launch_mma_d(int d, const dim3& grid, int threads, cudaStream_t s,
-                 const void* q, const void* kpool, const void* vpool,
-                 const void* page_table, const void* pos, void* out,
-                 void* part_acc, void* part_ml, int C, int h, int ps, int L,
-                 int n_kv, int P_slot, int layer, float scale, int splits) {
-  switch (d) {
-    case 64:
-      return launch_mma<T, 64>(grid, threads, s, q, kpool, vpool, page_table,
-                               pos, out, part_acc, part_ml, C, h, ps, L, n_kv,
-                               P_slot, layer, scale, splits);
-    case 128:
-      return launch_mma<T, 128>(grid, threads, s, q, kpool, vpool,
-                                page_table, pos, out, part_acc, part_ml, C, h,
-                                ps, L, n_kv, P_slot, layer, scale, splits);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 size_t smem_bytes(int rt, int ps, int d, int nwarps) {
@@ -523,17 +584,83 @@ size_t smem_bytes(int rt, int ps, int d, int nwarps) {
           32 * static_cast<size_t>(nwarps));
 }
 
+// One attention launch (plus the split merge) for queries of type T over
+// pools of type PT (T, or int8 with page scales).  The tensor-core kernel
+// takes bf16/fp16 queries with head_dim 64 or 128, pages of a multiple
+// of 16 rows and at most 128 query rows per block; everything else takes
+// the CUDA-core kernel.
+template <typename T, typename PT>
+int run(int B, cudaStream_t s, const Args& a) {
+  const int R = a.C * (a.h / a.n_kv);
+  const dim3 grid(static_cast<unsigned>(a.n_kv), static_cast<unsigned>(B),
+                  static_cast<unsigned>(a.splits));
+  const dim3 merge_grid(static_cast<unsigned>(a.n_kv),
+                        static_cast<unsigned>(B));
+  const bool tensor_cores =
+      !std::is_same<T, float>::value && (a.d == 64 || a.d == 128) &&
+      a.ps % 16 == 0 && R <= 128 && ptt::aligned16(a.kpool) &&
+      ptt::aligned16(a.vpool) &&
+      (reinterpret_cast<uintptr_t>(a.q) & 3u) == 0;
+  const int threads =
+      tensor_cores ? 32 * max(4, (R + 15) / 16) : (R <= 4 ? 128 : 256);
+  int rc = static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (!std::is_same<T, float>::value) {
+    if (tensor_cores)
+      rc = a.d == 64 ? launch_mma<T, PT, 64>(grid, threads, s, a)
+                     : launch_mma<T, PT, 128>(grid, threads, s, a);
+  }
+  if (!tensor_cores) {
+    const int nwarps = threads / 32;
+    int RT = R;
+    while (RT > 1 && smem_bytes(RT, a.ps, a.d, nwarps) > kSmemBudget)
+      RT = (RT + 1) / 2;
+    const size_t smem = smem_bytes(RT, a.ps, a.d, nwarps);
+    if (smem > static_cast<size_t>(kSmemMax))
+      return static_cast<int>(cudaErrorInvalidValue);
+    static bool smem_opt_in = false;
+    if (!smem_opt_in) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          paged_attention_kernel<T, PT>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      smem_opt_in = true;
+    }
+    constexpr int N = ptt::Vec<PT>::N;
+    const bool vec = (a.d % N == 0) && ptt::aligned16(a.kpool) &&
+                     ptt::aligned16(a.vpool);
+    paged_attention_kernel<T, PT><<<grid, threads, smem, s>>>(
+        static_cast<const T*>(a.q), static_cast<const PT*>(a.kpool),
+        static_cast<const PT*>(a.vpool), a.kscale, a.vscale, a.page_table,
+        a.pos, static_cast<T*>(a.out), a.part_acc, a.part_ml, a.C, a.h, a.d,
+        a.ps, a.L, a.n_kv, a.P_slot, a.layer, a.scale, RT, a.splits, vec);
+    rc = static_cast<int>(cudaGetLastError());
+  }
+  if (rc != 0) return rc;
+  if (a.splits > 1)
+    paged_attention_merge<T><<<merge_grid, threads, 0, s>>>(
+        a.part_acc, a.part_ml, static_cast<T*>(a.out), a.C, a.h, a.d,
+        a.n_kv, a.splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// pool codes: a pool of q's dtype, or int8 with scales
+constexpr int kPoolSame = 0;
+constexpr int kPoolInt8 = 3;
+
 // q [B, C, h, d]; kpool/vpool [P, ps, L, n_kv, d]; page_table [B, P_slot]
-// int32; pos [B] int32; out [B, C, h, d].  All contiguous, q/pools/out
-// of one dtype.  splits > 1 divides each slot's live pages among that
-// many blocks (grid z) whose partial states go to the fp32 scratch
-// part_acc [B, n_kv, splits, C*h/n_kv, d] and part_ml [..., 2], merged
-// by a second launch; splits == 1 writes `out` directly and takes no
-// scratch.
-extern "C" int ptt_paged_attention(int device, int dtype, const void* q,
-                                   const void* kpool, const void* vpool,
+// int32; pos [B] int32; out [B, C, h, d].  All contiguous.  pool ==
+// kPoolSame: pools of q's dtype, k_scale/v_scale unused; pool ==
+// kPoolInt8: int8 pools with k_scale/v_scale [P, L, n_kv] fp32.  splits
+// > 1 divides each slot's live pages among that many blocks (grid z)
+// whose partial states go to the fp32 scratch part_acc [B, n_kv, splits,
+// C*h/n_kv, d] and part_ml [..., 2], merged by a second launch; splits
+// == 1 writes `out` directly and takes no scratch.
+extern "C" int ptt_paged_attention(int device, int dtype, int pool,
+                                   const void* q, const void* kpool,
+                                   const void* vpool, const void* k_scale,
+                                   const void* v_scale,
                                    const void* page_table, const void* pos,
                                    void* out, void* part_acc, void* part_ml,
                                    int B, int C, int h, int d, int ps, int L,
@@ -544,60 +671,21 @@ extern "C" int ptt_paged_attention(int device, int dtype, const void* q,
   if (B <= 0 || B > 65535 || C <= 0 || h <= 0 || n_kv <= 0 || h % n_kv ||
       d <= 0 || ps <= 0 || L <= 0 || P_slot <= 0 || layer < 0 ||
       layer >= L || splits <= 0 || splits > 65535 ||
-      (splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
+      (splits > 1 && (part_acc == nullptr || part_ml == nullptr)) ||
+      (pool != kPoolSame && pool != kPoolInt8) ||
+      (pool == kPoolInt8 && (k_scale == nullptr || v_scale == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int R = C * (h / n_kv);
+  const bool int8 = pool == kPoolInt8;
+  const Args a{q, kpool, vpool,
+               int8 ? static_cast<const float*>(k_scale) : nullptr,
+               int8 ? static_cast<const float*>(v_scale) : nullptr,
+               static_cast<const int*>(page_table),
+               static_cast<const int*>(pos), out,
+               static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+               C, h, d, ps, L, n_kv, P_slot, layer, scale, splits};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(n_kv), static_cast<unsigned>(B),
-                  static_cast<unsigned>(splits));
-  const dim3 merge_grid(static_cast<unsigned>(n_kv), static_cast<unsigned>(B));
-  const bool tensor_cores =
-      dtype != ptt::kF32 && (d == 64 || d == 128) && ps % 16 == 0 &&
-      R <= 128 && ptt::aligned16(kpool) && ptt::aligned16(vpool) &&
-      (reinterpret_cast<uintptr_t>(q) & 3u) == 0;
-  const int threads =
-      tensor_cores ? 32 * max(4, (R + 15) / 16) : (R <= 4 ? 128 : 256);
   PTT_DISPATCH(dtype, T, {
-    int rc = static_cast<int>(cudaErrorInvalidValue);
-    if constexpr (!std::is_same<T, float>::value) {
-      if (tensor_cores)
-        rc = launch_mma_d<T>(d, grid, threads, s, q, kpool, vpool,
-                             page_table, pos, out, part_acc, part_ml, C, h,
-                             ps, L, n_kv, P_slot, layer, scale, splits);
-    }
-    if (!tensor_cores) {
-      const int nwarps = threads / 32;
-      int RT = R;
-      while (RT > 1 && smem_bytes(RT, ps, d, nwarps) > kSmemBudget)
-        RT = (RT + 1) / 2;
-      const size_t smem = smem_bytes(RT, ps, d, nwarps);
-      if (smem > static_cast<size_t>(kSmemMax))
-        return static_cast<int>(cudaErrorInvalidValue);
-      static bool smem_opt_in = false;
-      if (!smem_opt_in) {
-        err = cudaFuncSetAttribute(paged_attention_kernel<T>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   kSmemMax);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        smem_opt_in = true;
-      }
-      constexpr int N = ptt::Vec<T>::N;
-      const bool vec = (d % N == 0) && ptt::aligned16(kpool) &&
-                       ptt::aligned16(vpool);
-      paged_attention_kernel<T><<<grid, threads, smem, s>>>(
-          static_cast<const T*>(q), static_cast<const T*>(kpool),
-          static_cast<const T*>(vpool), static_cast<const int*>(page_table),
-          static_cast<const int*>(pos), static_cast<T*>(out),
-          static_cast<float*>(part_acc), static_cast<float*>(part_ml), C, h,
-          d, ps, L, n_kv, P_slot, layer, scale, RT, splits, vec);
-      rc = static_cast<int>(cudaGetLastError());
-    }
-    if (rc != 0) return rc;
-    if (splits > 1)
-      paged_attention_merge<T><<<merge_grid, threads, 0, s>>>(
-          static_cast<const float*>(part_acc),
-          static_cast<const float*>(part_ml), static_cast<T*>(out), C, h, d,
-          n_kv, splits);
+    return int8 ? run<T, int8_t>(B, s, a) : run<T, T>(B, s, a);
   });
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,7 +3,9 @@
 Counterpart of `paddle_tpu/framework/flags.py`: the same flag names and
 defaults, the same `FLAGS_<name>` environment pickup at import, and
 `get_flag`/`set_flags` with the reference's semantics.  Defined here:
-the three paged-KV flags (reference :179-190), the training fusions
+the three paged-KV flags (reference :179-190), the weight-only
+quantization flags `weight_only_dtype` and `weight_only_group_size`
+(:216-226), the training fusions
 `fused_ce` and `bf16_adamw_moments` (:150-161) and the fused-AdamW
 dispatch flags `use_fused_adamw` and `multi_tensor_adamw`
 (`paddle_tpu/optimizer/jit_update.py:42-56`).  The reference's
@@ -63,8 +65,10 @@ def get_flag(name: str, default=None):
 # serving tier's KV pool layout and precision
 define_flag("kv_cache_dtype", "auto",
             "storage dtype of the serving paged KV pool: 'auto' (the "
-            "model compute dtype), 'bfloat16', 'float16' or 'float32'. "
-            "'int8' is recognised but not ported yet (raises)")
+            "model compute dtype), 'bfloat16', 'float16', 'float32' or "
+            "'int8' (per-page per-head fp32 scales beside the pool; pages "
+            "requantize against their running amax as rows land, and "
+            "paged attention dequantizes inside the kernel)")
 define_flag("kv_page_size", 16,
             "rows (token positions) per KV page in the serving paged "
             "pool; prefix sharing operates at page granularity")
@@ -72,6 +76,22 @@ define_flag("kv_pool_pages", 0,
             "total pages in the serving KV pool (page 0 is a reserved "
             "null page); 0 sizes the pool to dense-equivalent capacity "
             "(every slot fully backed)")
+
+# weight-only quantization of the decode matmuls (quantization/
+# weight_only.py, ops/quant_matmul.py): off by default, as in the
+# reference
+define_flag("weight_only_dtype", "none",
+            "weight-only quantization for the DECODE path: 'int8' "
+            "(per-output-channel scales) or 'int4' (group-wise packed, "
+            "two nibbles per byte, FLAGS_weight_only_group_size rows "
+            "per scale group).  A ContinuousBatcher constructed under "
+            "this flag packs the model's linear weights in place "
+            "(quantization.weight_only.quantize_model) — decode HBM "
+            "traffic per token drops ~2x/~4x.  'none' disables")
+define_flag("weight_only_group_size", 64,
+            "rows (input-channel positions) per int4 scale group in "
+            "the weight-only packed layout; must divide half the "
+            "input dimension of every quantized weight")
 
 # training-step fusions (optimizer/jit_update.py, nn/functional/loss.py,
 # models/llama.py): both off by default, as in the reference

@@ -22,7 +22,11 @@ weights and requests give the same greedy tokens:
     pages maps them and skips their prefill; a mid-page divergence
     copies the matched page once (copy-on-write);
   * a pool smaller than total demand evicts cached prefix pages
-    LRU-first and defers admissions — every request still completes.
+    LRU-first and defers admissions — every request still completes;
+  * weight-only quantization (`weight_only_dtype`, reference :250-259)
+    packs the model's decode matmuls in place before the cache is built,
+    and an int8 KV pool (`kv_dtype="int8"`) carries per-page per-head
+    scales that every cache copy moves with the pages.
 
 How the reference's compiled scan becomes PyTorch: the `lax.scan` of K
 steps is a Python loop of K steps over device tensors; the argmax, the
@@ -32,11 +36,10 @@ prompt buffer) are updated IN PLACE where the reference donates them;
 and each chunk makes exactly ONE device-to-host transfer (tokens plus
 the state the host schedules on), as the reference's `_run_chunk` does.
 
-Left out of this slice (later work, see ROADMAP.md): SLO classes,
+Left out of the port so far (later work, see ROADMAP.md): SLO classes,
 deadlines and shedding; fault points, the watchdog and drain; streaming
 `on_token`; speculative decoding; prefill/decode roles and hand-off;
-the router and autoscaler; telemetry; weight-only quantization; int8
-KV.  Decoding is greedy.
+the router and autoscaler; telemetry.  Decoding is greedy.
 """
 from __future__ import annotations
 
@@ -50,6 +53,8 @@ import torch
 
 from ..framework.device import module_device, resolve_device
 from ..framework.flags import get_flag
+from ..models.llama import _resolve_kv_dtype
+from ..quantization.weight_only import quantize_model
 from .paged_kv import PageAllocator
 
 __all__ = ["ContinuousBatcher", "Request"]
@@ -84,6 +89,10 @@ class ContinuousBatcher:
     None reads FLAGS_kv_page_size / FLAGS_kv_pool_pages /
     FLAGS_kv_cache_dtype (num_pages 0 = dense-equivalent capacity).
     prefix_sharing: map resident prefix pages (paged only; default on).
+    weight_only_dtype: "int8" | "int4" packs the model's decode matmuls
+    in place (quantization.weight_only.quantize_model, group size from
+    FLAGS_weight_only_group_size); None reads FLAGS_weight_only_dtype;
+    "none" leaves the model as it is.
     device: None means CUDA (raises without one); the model must live
     on the resolved device.
     """
@@ -97,6 +106,7 @@ class ContinuousBatcher:
                  num_pages: Optional[int] = None,
                  kv_dtype: Optional[str] = None,
                  prefix_sharing: Optional[bool] = None,
+                 weight_only_dtype: Optional[str] = None,
                  device=None):
         if not hasattr(model, "forward_cached"):
             raise TypeError("ContinuousBatcher needs a decode-capable "
@@ -105,6 +115,10 @@ class ContinuousBatcher:
         if module_device(model) != self.device:
             raise ValueError(f"model lives on {module_device(model)}, the "
                              f"batcher was asked for {self.device}")
+        # pack the decode weights in place before the cache is built
+        wo = weight_only_dtype if weight_only_dtype is not None \
+            else get_flag("weight_only_dtype", "none")
+        quantize_model(model, wo)
         if kv_layout is None:
             kv_layout = "paged" if hasattr(model, "forward_cached_paged") \
                 else "dense"
@@ -249,13 +263,33 @@ class ContinuousBatcher:
         return live + done
 
     def kv_cache_bytes(self) -> int:
-        """Device bytes of the KV cache (pool + page table, or the dense
-        ring buffers)."""
+        """Device bytes of the KV cache (pool + int8 scales + page
+        table, or the dense ring buffers)."""
         if self.kv_layout == "paged":
-            bufs = [self._cache["k"], self._cache["v"], self._page_table]
+            bufs = list(self._cache.values()) + [self._page_table]
         else:
             bufs = [t for kv in self._cache for t in kv]
         return int(sum(t.numel() * t.element_size() for t in bufs))
+
+    @classmethod
+    def paged_kv_bytes(cls, model, max_batch_size, max_len,
+                       prefill_chunk: int = 32, page_size=None,
+                       num_pages=None, kv_dtype=None) -> int:
+        """Device bytes a paged batcher of this geometry would hold
+        (pool + scales + page table) — shape arithmetic, no allocation.
+        Equals kv_cache_bytes() of a real instance."""
+        cfg = model.config
+        B = int(max_batch_size)
+        prefill_chunk = max(1, min(int(prefill_chunk), int(max_len)))
+        ps, p_slot, n_pages = cls._paged_geometry(
+            B, int(max_len), prefill_chunk, page_size, num_pages)
+        dt, quant = _resolve_kv_dtype(cfg, kv_dtype)
+        pool = 2 * n_pages * ps * cfg.num_hidden_layers \
+            * cfg.num_key_value_heads * cfg.head_dim * dt.itemsize
+        scales = (2 * n_pages * cfg.num_hidden_layers
+                  * cfg.num_key_value_heads * 4) if quant else 0
+        table = B * p_slot * 4
+        return pool + scales + table
 
     def stats(self) -> Dict[str, object]:
         """Scheduler counters: chunks by kind, model forward steps,
@@ -287,6 +321,8 @@ class ContinuousBatcher:
             "requests_completed": self._completed,
             "queued": self.queued,
         }
+        wo = getattr(self.model, "_weight_only", None)
+        out["weight_only"] = wo["dtype"] if wo else "none"
         if self.kv_layout == "paged":
             out.update(
                 kv_page_size=self.page_size,
@@ -386,10 +422,11 @@ class ContinuousBatcher:
                 if plan.cow is not None:
                     # copy-on-write at the divergence boundary: clone
                     # the partially matched page into the slot's first
-                    # private page, all layers; admit() pinned the
-                    # source until this copy — unpin it now
+                    # private page, all layers, with every cache entry
+                    # (an int8 pool's page scales too); admit() pinned
+                    # the source until this copy — unpin it now
                     src, dst = plan.cow
-                    for buf_ in (self._cache["k"], self._cache["v"]):
+                    for buf_ in self._cache.values():
                         buf_[dst].copy_(buf_[src])
                     self._alloc.release_page(src)
                 start = plan.shared_tokens

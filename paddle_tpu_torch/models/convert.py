@@ -6,6 +6,15 @@ into the port's parameters of the same names.  Both packages keep the
 [in, out] layout (`x @ w`), so nothing is transposed.  A missing, extra
 or mis-shaped name raises before any parameter is written.
 
+Weight-only packed models carry over too: a model that
+`quantization.quantize_model` packed holds int8 parameters under the
+original names plus `<name>_scale` siblings, as the reference's does.
+Quantize the port model at the same configuration first; its packed
+parameters then take the reference's int8 arrays as they are (an int8
+parameter takes only an int8 array, and an int8 array loads only into
+one), and
+`numpy_state_dict` hands int8 parameters out as int8.
+
 `load_numpy_opt_state(step, {name: {key: ndarray}}, step_count)` does
 the same for a train step's optimizer state: the reference
 `jit.TrainStep._opt_states` (moment1 / moment2 / ef / master per
@@ -45,6 +54,13 @@ def load_numpy_state_dict(model: torch.nn.Module,
         if shape != tuple(p.shape):
             raise ValueError(f"{name}: shape {shape} != parameter shape "
                              f"{tuple(p.shape)}")
+        packed = np.asarray(state[name]).dtype == np.int8
+        if packed != (p.dtype == torch.int8):
+            raise ValueError(
+                f"{name}: a {np.asarray(state[name]).dtype} array cannot "
+                f"load into a {p.dtype} parameter (a weight-only packed "
+                f"parameter takes the packed int8 values, and only it; "
+                f"quantize both models at the same configuration)")
     with torch.no_grad():
         for name, p in params.items():
             p.copy_(_to_tensor(state[name]).to(device=p.device,
@@ -52,10 +68,11 @@ def load_numpy_state_dict(model: torch.nn.Module,
 
 
 def numpy_state_dict(model: torch.nn.Module):
-    """{name: float32 ndarray} of every parameter — the inverse view,
-    for round-trip checks."""
-    return {n: p.detach().float().cpu().numpy()
-            for n, p in model.named_parameters()}
+    """{name: ndarray} of every parameter — float32, or int8 for a
+    weight-only packed parameter — the inverse view, for round-trip
+    checks and carrying a model to another device."""
+    return {n: (p.detach() if p.dtype == torch.int8 else p.detach().float())
+            .cpu().numpy() for n, p in model.named_parameters()}
 
 
 def load_numpy_opt_state(step, states: Mapping[str, Mapping[str, object]],

@@ -45,7 +45,16 @@ parity tests load the same numpy weights into both).
 The KV state (dense ring buffers or the paged pool) is updated IN
 PLACE: the reference's pure functions return new buffers that the
 compiled program donates back; here `forward_cached(_paged)` writes
-into the caller's tensors and returns the same objects.
+into the caller's tensors and returns the same objects.  An int8 paged
+pool (`kv_dtype="int8"`, reference :573-582) carries per-page per-head
+scales; its rows land through the quantizing page write and attention
+dequantizes in the kernel.
+
+Weight-only quantization (quantization/weight_only.py) packs the
+projections, the MLP and an untied lm head in place; every matmul of
+those weights goes through `_wo_mm` (reference :43-56), which runs
+`ops.quant_matmul` on a packed layer and the plain `x @ w.to(x.dtype)`
+otherwise.  A quantized model is serving-only: `forward` raises.
 """
 from __future__ import annotations
 
@@ -63,6 +72,18 @@ from ..framework.flags import get_flag
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
            "llama_tiny_config", "llama_7b_config"]
+
+
+def _wo_mm(layer, name, x):
+    """`x @ W` for weight `name` of `layer`: through ops.quant_matmul
+    when quantize_model packed the layer (the packed weight and its
+    `<name>_scale` sibling), else the plain `x @ w.to(x.dtype)`."""
+    w = getattr(layer, name)
+    wo = getattr(layer, "_wo_dtype", None)
+    if wo is None:
+        return x @ w.to(x.dtype)
+    return ops.quant_matmul(x, w, getattr(layer, name + "_scale"), wo,
+                            layer._wo_group)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -176,11 +197,11 @@ class LlamaAttention(nn.Module):
         the paths differ only in where K/V land and how they attend."""
         cfg = self.config
         b, s, _ = x.shape
-        q = (x @ self.q_proj.to(x.dtype)).reshape(
+        q = _wo_mm(self, "q_proj", x).reshape(
             b, s, cfg.num_attention_heads, cfg.head_dim)
-        k = (x @ self.k_proj.to(x.dtype)).reshape(
+        k = _wo_mm(self, "k_proj", x).reshape(
             b, s, cfg.num_key_value_heads, cfg.head_dim)
-        v = (x @ self.v_proj.to(x.dtype)).reshape(
+        v = _wo_mm(self, "v_proj", x).reshape(
             b, s, cfg.num_key_value_heads, cfg.head_dim)
         q, k = ops.apply_rope(q, k, cos, sin)
         return q, k, v
@@ -192,7 +213,7 @@ class LlamaAttention(nn.Module):
 
     def output_proj(self, attn):
         b, s = attn.shape[:2]
-        return attn.reshape(b, s, -1) @ self.o_proj.to(attn.dtype)
+        return _wo_mm(self, "o_proj", attn.reshape(b, s, -1))
 
     def forward(self, x, cos, sin):
         return self.output_proj(self.core_attention(
@@ -201,23 +222,27 @@ class LlamaAttention(nn.Module):
     def forward_cached(self, x, cos, sin, k_cache, v_cache, pos):
         """Dense decode attention: write this step's K/V into the ring
         buffers at `pos` (in place), attend against the whole buffer."""
-        b, s, _ = x.shape
         q, k, v = self.qkv_rope(x, cos, sin)
         ops.dense_kv_update(k_cache, v_cache, pos, k, v)
-        out = ops.cached_attention(q, k_cache, v_cache, pos)
-        return out.reshape(b, s, -1) @ self.o_proj.to(x.dtype)
+        return self.output_proj(ops.cached_attention(q, k_cache, v_cache,
+                                                     pos))
 
     def forward_cached_paged(self, x, cos, sin, cache, page_table, pos,
-                             layer, rows):
-        """Paged decode attention: K/V land in the shared page pool at
-        `rows` (ops.paged_write_rows of the slots' page tables, in
-        place); attention walks the pages."""
-        b, s, _ = x.shape
+                             layer, where):
+        """Paged decode attention: K/V land in the shared page pool, in
+        place — at the flat rows `where` (ops.paged_write_rows) for a
+        pool of the compute dtype, or through the quantizing page write
+        over the window `where` (ops.paged_write_window) for an int8
+        pool; attention walks the pages."""
         q, k, v = self.qkv_rope(x, cos, sin)
-        ops.paged_kv_write(cache["k"], cache["v"], rows, k, v, layer)
-        out = ops.paged_attention(q, cache["k"], cache["v"], page_table,
-                                  pos, layer)
-        return out.reshape(b, s, -1) @ self.o_proj.to(x.dtype)
+        ks, vs = cache.get("k_scale"), cache.get("v_scale")
+        if ks is None:
+            ops.paged_kv_write(cache["k"], cache["v"], where, k, v, layer)
+        else:
+            ops.paged_kv_write_int8(cache["k"], cache["v"], ks, vs, where,
+                                    k, v, layer)
+        return self.output_proj(ops.paged_attention(
+            q, cache["k"], cache["v"], page_table, pos, layer, ks, vs))
 
 
 class LlamaMLP(nn.Module):
@@ -231,9 +256,9 @@ class LlamaMLP(nn.Module):
                                 gen)
 
     def forward(self, x):
-        cd = x.dtype
-        return ops.swiglu(x @ self.gate_proj.to(cd),
-                          x @ self.up_proj.to(cd)) @ self.down_proj.to(cd)
+        return _wo_mm(self, "down_proj",
+                      ops.swiglu(_wo_mm(self, "gate_proj", x),
+                                 _wo_mm(self, "up_proj", x)))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -292,10 +317,10 @@ class LlamaDecoderLayer(nn.Module):
             h, cos, sin, k_cache, v_cache, pos))
 
     def forward_cached_paged(self, x, cos, sin, cache, page_table, pos,
-                             layer, rows):
+                             layer, where):
         return self._block_cached(
             x, lambda h: self.self_attn.forward_cached_paged(
-                h, cos, sin, cache, page_table, pos, layer, rows))
+                h, cos, sin, cache, page_table, pos, layer, where))
 
 
 class LlamaModel(nn.Module):
@@ -354,17 +379,24 @@ class LlamaModel(nn.Module):
         """ONE page pool per K and V, [num_pages, page_size, layers,
         n_kv, head_dim], shared by every serving slot through per-slot
         page tables.  Page 0 is the reserved null page (unmapped table
-        entries point there; reads of its rows are position-masked)."""
+        entries point there; reads of its rows are position-masked).
+        kv_dtype None reads FLAGS_kv_cache_dtype; "int8" adds per-page
+        per-head fp32 scales k_scale/v_scale [num_pages, layers, n_kv],
+        filled with ones so a zero page dequantizes to zeros."""
         cfg = self.config
         dt, quant = _resolve_kv_dtype(cfg, kv_dtype)
-        if quant:
-            raise NotImplementedError("int8 paged KV pools are not ported "
-                                      "yet")
         shape = (num_pages, page_size, len(self.layers),
                  cfg.num_key_value_heads, cfg.head_dim)
         dev = self.embed_tokens.device
-        return {"k": torch.zeros(shape, dtype=dt, device=dev),
-                "v": torch.zeros(shape, dtype=dt, device=dev)}
+        cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                 "v": torch.zeros(shape, dtype=dt, device=dev)}
+        if quant:
+            sshape = shape[:1] + shape[2:4]
+            cache["k_scale"] = torch.ones(sshape, dtype=torch.float32,
+                                          device=dev)
+            cache["v_scale"] = torch.ones(sshape, dtype=torch.float32,
+                                          device=dev)
+        return cache
 
     def forward_cached_paged(self, input_ids, cache, page_table, pos):
         """input_ids [b, s]; cache from init_paged_cache (updated in
@@ -372,11 +404,13 @@ class LlamaModel(nn.Module):
         (hidden [b, s, h], cache)."""
         x, cos, sin = self._embed_rope(input_ids, pos)
         # where this step's K/V rows land: the same for every layer
-        rows = ops.paged_write_rows(page_table, pos, input_ids.shape[1],
-                                    cache["k"].shape[1])
+        plan = ops.paged_write_window if "k_scale" in cache \
+            else ops.paged_write_rows
+        where = plan(page_table, pos, input_ids.shape[1],
+                     cache["k"].shape[1])
         for li, layer in enumerate(self.layers):
             x = layer.forward_cached_paged(x, cos, sin, cache, page_table,
-                                           pos, li, rows)
+                                           pos, li, where)
         return self.norm(x), cache
 
     def forward_cached(self, input_ids, cache, pos):
@@ -418,7 +452,16 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, input_ids):
         """input_ids [b, s] → logits [b, s, V] in the compute dtype; under
         FLAGS_fused_ce in training mode, the final hidden states [b, s,
-        h] (compute_loss then folds the lm head into the loss)."""
+        h] (compute_loss then folds the lm head into the loss).  A
+        weight-only quantized model is serving-only and raises."""
+        wo = getattr(self, "_weight_only", None)
+        if wo is not None:
+            raise RuntimeError(
+                f"this model is weight-only quantized ({wo['dtype']}, group "
+                f"{wo['group_size']}) and so serving-only: its packed "
+                f"weights serve the decode paths (forward_cached, "
+                f"forward_cached_paged, ContinuousBatcher); train an "
+                f"unquantized model")
         x = self.llama(input_ids)
         if get_flag("fused_ce") and self.training:
             return x
@@ -448,9 +491,12 @@ class LlamaForCausalLM(nn.Module):
         return self.llama.init_paged_cache(num_pages, page_size, kv_dtype)
 
     def _lm_logits(self, x):
+        """Tied embeddings stay unquantized (the embedding is gathered
+        elsewhere); an untied head rides `_wo_mm` like every other
+        decode matmul."""
         if self.config.tie_word_embeddings:
             return x @ self.llama.embed_tokens.t().to(x.dtype)
-        return x @ self.lm_head.to(x.dtype)
+        return _wo_mm(self, "lm_head", x)
 
     @torch.no_grad()
     def forward_cached_paged(self, input_ids, cache, page_table, pos):

@@ -52,8 +52,9 @@ _SIGNATURES = {
                          _P),
     "ptt_rope": (_I, _I, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _LL, _I,
                  _P),
-    "ptt_paged_attention": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "ptt_paged_attention": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                            _I, _P),
     "ptt_flash_fwd": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _F, _I, _P),
     "ptt_flash_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -61,6 +62,8 @@ _SIGNATURES = {
     "ptt_fused_adamw": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _LL, _F, _F,
                         _F, _F, _F, _F, _F, _F, _F, _I, _P),
     "ptt_ce_rows": (_I, _I, _P, _P, _P, _P, _P, _LL, _I, _P),
+    "ptt_quant_matmul": (_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _P),
 }
 
 _lib = None

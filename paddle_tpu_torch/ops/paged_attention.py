@@ -3,79 +3,108 @@
 
 Replaces the TPU kernel
 `paddle_tpu/ops/pallas/paged_attention.py::paged_attention` (:108,
-`_kernel` :53) for bf16/fp16/fp32 pools.  The plain version is the
+`_kernel` :53, its int8 branch :77-80).  The plain version is the
 reference's twin `xla_paged_attention` (ops/__init__.py:244): gather
-each slot's logical KV view through the page table, then the dense
-`cached_attention` math.  The kernel walks only the pages up to each
-slot's frontier and never materialises that view; bf16/fp16 pools with
-head_dim 64 or 128 run on tensor cores, everything else on CUDA cores
-(the choice is made in the C launcher from dtype and shape).
+each slot's logical KV view through the page table (int8 pools
+dequantized with their per-page per-head scales, `_dequant_pages`
+:154, and rounded to q's dtype), then the dense `cached_attention`
+math.  The kernel walks only the pages up to each slot's frontier and
+never materialises that view; an int8 page tile is loaded at a byte an
+element and dequantized in shared memory, rounded to q's dtype as the
+plain version rounds it.  bf16/fp16 queries with head_dim 64 or 128
+run on tensor cores, everything else on CUDA cores (the choice is made
+in the C launcher from dtype and shape).
 
-Layout (models/llama.py::init_paged_cache): pools [P, ps, L, n_kv, d];
+Layout (models/llama.py::init_paged_cache): pools [P, ps, L, n_kv, d]
+of q's dtype, or int8 with scales k_scale/v_scale [P, L, n_kv] fp32;
 page_table [B, P_slot] int32 with entry 0 the reserved null page;
 pos [B] int32; query lane c of slot b attends rows <= pos[b] + c.
 
 `paged_attention` takes the plain version for CPU tensors and launches
-the kernel for CUDA tensors, or raises — there is no fallback.  int8
-pools are not ported yet and raise NotImplementedError.
+the kernel for CUDA tensors, or raises — there is no fallback.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .attention import cached_attention
+from .attention import cached_attention, dequant_pages
 
-__all__ = ["paged_attention", "plain_paged_attention", "launches"]
+__all__ = ["paged_attention", "plain_paged_attention", "launches",
+           "variant_launches"]
 
-# kernel launches since the last reset (chip_smoke.py zeroes and reads it)
+# kernel launches since the last reset (chip_smoke.py zeroes and reads
+# them), in total and by pool: "fp" pools of q's dtype, "int8" pools
+# dequantized in the kernel
 launches = {"paged_attention": 0}
+variant_launches = {"fp": 0, "int8": 0}
+
+# pool codes of the C entry point: a pool of q's dtype, or int8
+_POOL_SAME, _POOL_INT8 = 0, 3
 
 
-def _check_args(q, k_pool):
+def _check_args(q, k_pool, k_scale, v_scale):
     n_kv = k_pool.shape[3]
     if q.shape[2] % n_kv:
         raise ValueError(f"q heads {q.shape[2]} not a multiple of kv heads {n_kv}")
-    if k_pool.dtype == torch.int8:
-        raise NotImplementedError("int8 paged KV pools are not ported yet")
+    if k_pool.dtype == torch.int8 and (k_scale is None or v_scale is None):
+        raise ValueError("int8 KV pool needs k_scale/v_scale")
 
 
 def plain_paged_attention(q, k_pool, v_pool, page_table, pos, layer,
-                          scale=None):
+                          k_scale=None, v_scale=None, scale=None):
     """q [B, C, h, d] → [B, C, h, d] in q.dtype."""
-    _check_args(q, k_pool)
+    _check_args(q, k_pool, k_scale, v_scale)
     B = q.shape[0]
     _, ps, _, n_kv, hd = k_pool.shape
     P_slot = page_table.shape[1]
     idx = page_table.to(torch.int64)
+    quant = k_pool.dtype == torch.int8
 
-    def gather(pool):
-        return pool[:, :, layer][idx].reshape(B, P_slot * ps, n_kv, hd)
+    def gather(pool, scales):
+        lg = pool[:, :, layer][idx]
+        if quant:
+            lg = dequant_pages(lg, scales[:, layer][idx]).to(q.dtype)
+        return lg.reshape(B, P_slot * ps, n_kv, hd)
 
-    return cached_attention(q, gather(k_pool), gather(v_pool), pos, scale)
+    return cached_attention(q, gather(k_pool, k_scale),
+                            gather(v_pool, v_scale), pos, scale)
 
 
-def paged_attention(q, k_pool, v_pool, page_table, pos, layer, scale=None):
-    _check_args(q, k_pool)
+def paged_attention(q, k_pool, v_pool, page_table, pos, layer,
+                    k_scale=None, v_scale=None, scale=None):
+    _check_args(q, k_pool, k_scale, v_scale)
     if q.device.type == "cpu":
         return plain_paged_attention(q, k_pool, v_pool, page_table, pos,
-                                     layer, scale)
-    return _launch(q, k_pool, v_pool, page_table, pos, layer, scale)
+                                     layer, k_scale, v_scale, scale)
+    return _launch(q, k_pool, v_pool, page_table, pos, layer, k_scale,
+                   v_scale, scale)
 
 
-def _launch(q, k_pool, v_pool, page_table, pos, layer, scale):
+def _launch(q, k_pool, v_pool, page_table, pos, layer, k_scale, v_scale,
+            scale):
     req = _build.require
-    dev = _build.cuda_device_index(q, k_pool, v_pool, page_table, pos)
+    quant = k_pool.dtype == torch.int8
+    scales = (k_scale, v_scale) if quant else ()
+    dev = _build.cuda_device_index(q, k_pool, v_pool, page_table, pos,
+                                   *scales)
     code = _build.dtype_code(q.dtype)
     req(q.ndim == 4 and k_pool.ndim == 5,
         "paged_attention kernel takes q [B, C, h, d] and pools "
         "[P, ps, L, n_kv, d]", q, k_pool)
     B, C, h, d = q.shape
     _, ps, L, n_kv, dk = k_pool.shape
+    pool_dtype = torch.int8 if quant else q.dtype
     req(v_pool.shape == k_pool.shape and dk == d
-        and k_pool.dtype == q.dtype and v_pool.dtype == q.dtype,
+        and k_pool.dtype == pool_dtype and v_pool.dtype == pool_dtype,
         "paged_attention kernel takes K/V pools of one shape, q's head_dim "
-        "and q's dtype", q, k_pool, v_pool)
+        "and q's dtype (or int8 with scales)", q, k_pool, v_pool)
+    if quant:
+        req(all(s.dtype == torch.float32 and s.shape == (k_pool.shape[0], L,
+                                                          n_kv)
+                and s.is_contiguous() for s in scales),
+            "paged_attention kernel takes int8 pool scales [P, L, n_kv] "
+            "fp32, contiguous", k_pool, *scales)
     req(page_table.dtype == torch.int32 and pos.dtype == torch.int32
         and page_table.ndim == 2 and page_table.shape[0] == B
         and pos.shape == (B,),
@@ -102,7 +131,10 @@ def _launch(q, k_pool, v_pool, page_table, pos, layer, scale):
         part_ml = torch.empty((B, n_kv, splits, R, 2), dtype=torch.float32,
                               device=q.device)
     rc = _build.library().ptt_paged_attention(
-        dev, code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        dev, code, _POOL_INT8 if quant else _POOL_SAME, q.data_ptr(),
+        k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if quant else None,
+        v_scale.data_ptr() if quant else None,
         page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
         None if part_acc is None else part_acc.data_ptr(),
         None if part_ml is None else part_ml.data_ptr(), B, C, h, d, ps, L,
@@ -110,6 +142,7 @@ def _launch(q, k_pool, v_pool, page_table, pos, layer, scale):
         _build.stream_of(q.device))
     _build.check(rc, "paged_attention")
     launches["paged_attention"] += 1
+    variant_launches["int8" if quant else "fp"] += 1
     return out
 
 

@@ -109,18 +109,33 @@ def test_batcher_and_generate_without_device_raise(no_cuda):
     lambda t: ops.apply_rope(t(1, 2, 2, 4), t(1, 2, 2, 4), t(2, 4), t(2, 4)),
     lambda t: ops.paged_attention(t(1, 1, 2, 4), t(3, 2, 1, 2, 4),
                                   t(3, 2, 1, 2, 4),
-                                  torch.zeros((1, 2), dtype=torch.int32,
-                                              device="meta"),
-                                  torch.zeros((1,), dtype=torch.int32,
-                                              device="meta"), 0),
-], ids=["rms_norm", "rope", "paged_attention"])
-def test_non_cpu_tensor_never_takes_the_plain_version(call):
+                                  t(1, 2, dtype=torch.int32),
+                                  t(1, dtype=torch.int32), 0),
+    lambda t: ops.paged_attention(t(1, 1, 2, 4),
+                                  t(3, 2, 1, 2, 4, dtype=torch.int8),
+                                  t(3, 2, 1, 2, 4, dtype=torch.int8),
+                                  t(1, 2, dtype=torch.int32),
+                                  t(1, dtype=torch.int32), 0, t(3, 1, 2),
+                                  t(3, 1, 2)),
+    lambda t: ops.quant_matmul(t(2, 32), t(32, 16, dtype=torch.int8),
+                               t(16), "int8"),
+    lambda t: ops.quant_matmul(t(2, 32), t(16, 16, dtype=torch.int8),
+                               t(2, 16), "int4", 8),
+], ids=["rms_norm", "rope", "paged_attention", "paged_attention_int8",
+        "quant_matmul_int8", "quant_matmul_int4"])
+def test_non_cpu_tensor_never_takes_the_plain_version(call, monkeypatch):
     """A tensor off the CPU goes to the kernel path, which refuses
     anything that is not a CUDA tensor — it never computes a result
     with the plain version."""
+    def never(*a, **k):
+        raise AssertionError("a plain version ran for a non-CPU tensor")
+    for mod, fn in (("paged_attention", "plain_paged_attention"),
+                    ("quant_matmul", "plain_quant_matmul")):
+        monkeypatch.setattr(ops.kernel_module(mod), fn, never)
     before = ops.launch_counts()
     with pytest.raises(ValueError, match="CUDA tensors"):
-        call(lambda *s: torch.zeros(s, device="meta"))
+        call(lambda *s, dtype=torch.float32: torch.zeros(s, dtype=dtype,
+                                                         device="meta"))
     assert ops.launch_counts() == before
 
 
@@ -213,7 +228,8 @@ def test_build_compiles_each_source_then_links(fake_nvcc, monkeypatch):
     assert lib.parent == fake_nvcc and lib.exists()
     assert _build.build_info["built"]
     for name in ("rms_norm.cu", "rope.cu", "paged_attention.cu",
-                 "flash_attention.cu", "fused_adamw.cu", "cross_entropy.cu"):
+                 "flash_attention.cu", "fused_adamw.cu", "cross_entropy.cu",
+                 "quant_matmul.cu"):
         assert f"== {name} (rc 0)" in _build.build_info["log"]
     assert not list(fake_nvcc.glob("work_*"))      # scratch cleaned up
     _build.build_info["built"] = False
@@ -233,7 +249,7 @@ def test_build_key_follows_the_sources():
     assert {s.name for s in srcs} == {"rms_norm.cu", "rope.cu",
                                       "paged_attention.cu",
                                       "flash_attention.cu", "fused_adamw.cu",
-                                      "cross_entropy.cu"}
+                                      "cross_entropy.cu", "quant_matmul.cu"}
     assert _build._digest(srcs + headers) == _build._digest(srcs + headers)
     assert _build._digest(srcs + headers) != _build._digest(srcs)
 
@@ -247,9 +263,3 @@ def test_kv_flags_match_reference_defaults():
         assert tflags.get_flag("FLAGS_kv_page_size") == 4
     finally:
         tflags.set_flags({"FLAGS_kv_page_size": 16})
-
-
-def test_int8_pool_not_ported():
-    m = LlamaForCausalLM(llama_tiny_config(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        m.init_paged_cache(4, 8, kv_dtype="int8")

@@ -178,12 +178,3 @@ def test_paged_attention_rejects_bad_gqa():
         tops.paged_attention(torch.from_numpy(q), torch.from_numpy(kp),
                              torch.from_numpy(vp), torch.from_numpy(pt),
                              torch.from_numpy(pos), 0)
-
-
-def test_int8_pool_not_ported():
-    rng = np.random.RandomState(2)
-    q, kp, vp, pt, pos = _paged_inputs(rng, 4, 1, 2, 2)
-    k8 = torch.zeros(kp.shape, dtype=torch.int8)
-    with pytest.raises(NotImplementedError):
-        tops.paged_attention(torch.from_numpy(q), k8, k8,
-                             torch.from_numpy(pt), torch.from_numpy(pos), 0)

@@ -1,0 +1,390 @@
+"""Weight-only quantization in paddle_tpu_torch against paddle_tpu, on
+the CPU: the int4 packing, `quantize_weight`, the quant_matmul plain
+version (what a CPU tensor takes) against the reference's jnp twin and
+its Pallas kernel in interpret mode, `quantize_model`, the byte counts,
+the flags, and quantized Llama decode logits — with the packed weights
+carried over from a `paddle_tpu` model through `models.convert`, and
+packed by the port itself from the same fp32 weights.
+
+Inputs are made from a seed with numpy and handed to both packages.
+Tolerances: integer codes, packed bytes and scales are compared for
+equality; matmul outputs at 1e-5 in fp32 (the two packages sum the same
+fp32 products in different orders) and within one bf16 ulp of the
+output in bf16 (the same fp32 sum, rounded once to bf16 on both sides);
+decode logits at 1e-4 (fp32, several layers of reordered sums) —
+except with an int8 KV pool, where requantizing a page turns that fp32
+noise (~1e-7 of a K/V value) into an occasional one-step code flip: the
+pools' codes are pinned (at most 2 differ, each by one step, scales
+within 2^-20 of each other) and the logits held at 2^-8 of the largest
+logit (one flipped code moved them by 1.8e-3 of a 3.8 logit scale).
+"""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu import ops as jops
+from paddle_tpu.framework import flags as jflags
+from paddle_tpu.models.llama import LlamaForCausalLM as JLlama
+from paddle_tpu.models.llama import llama_tiny_config as j_tiny
+from paddle_tpu.ops.pallas.quant_matmul import quant_matmul as pallas_qm
+from paddle_tpu.quantization import weight_only as jwo
+
+import paddle_tpu_torch.ops as tops
+from paddle_tpu_torch.framework import flags as tflags
+from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny_config,
+                                     load_numpy_state_dict, numpy_state_dict)
+from paddle_tpu_torch.quantization import weight_only as two
+
+CFG = dict(dtype="float32", num_hidden_layers=2, num_key_value_heads=2)
+FORMATS = [("int8", 64), ("int4", 16), ("int4", 64)]
+
+
+def _np(a):
+    return np.asarray(a.astype(jnp.float32) if a.dtype == jnp.bfloat16
+                      else a)
+
+
+def _torch_of(w, dtype):
+    t = torch.from_numpy(w)
+    return t.to(torch.bfloat16) if dtype == "bfloat16" else t
+
+
+def _jax_of(w, dtype):
+    a = jnp.asarray(w)
+    return a.astype(jnp.bfloat16) if dtype == "bfloat16" else a
+
+
+def test_pack_unpack_dequant_match_reference():
+    rng = np.random.RandomState(0)
+    q = rng.randint(-8, 8, (64, 48)).astype(np.int32)
+    packed = tops.pack_int4(torch.from_numpy(q))
+    np.testing.assert_array_equal(packed.numpy(),
+                                  np.asarray(jops.pack_int4(q)))
+    np.testing.assert_array_equal(tops.unpack_int4(packed).numpy(), q)
+    s4 = rng.rand(64 // 16, 48).astype(np.float32)
+    np.testing.assert_array_equal(
+        tops.dequant_weight(packed, torch.from_numpy(s4), "int4", 16).numpy(),
+        np.asarray(jops.dequant_weight(jnp.asarray(packed.numpy()),
+                                       jnp.asarray(s4), "int4", 16)))
+    q8 = rng.randint(-127, 128, (32, 48)).astype(np.int8)
+    s8 = rng.rand(48).astype(np.float32)
+    np.testing.assert_array_equal(
+        tops.dequant_weight(torch.from_numpy(q8), torch.from_numpy(s8),
+                            "int8").numpy(),
+        np.asarray(jops.dequant_weight(jnp.asarray(q8), jnp.asarray(s8),
+                                       "int8")))
+    with pytest.raises(ValueError, match="even K"):
+        tops.pack_int4(torch.zeros((3, 4), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fmt,group", FORMATS)
+def test_quantize_weight_bit_identical(fmt, group, dtype):
+    """Codes (packed bytes) and scales equal the reference's exactly:
+    both compute the fp32 absmax, a true fp32 division and round half
+    to even, so no code may differ."""
+    rng = np.random.RandomState(len(fmt) + group)
+    w = (rng.randn(256, 96) * 0.05).astype(np.float32)
+    w[:, 3] = 0.0                       # an all-zero column: the 1e-8 floor
+    pj, sj = jwo.quantize_weight(_jax_of(w, dtype), fmt, group)
+    pt, st = two.quantize_weight(_torch_of(w, dtype), fmt, group)
+    assert pt.dtype == torch.int8 and st.dtype == _torch_of(w, dtype).dtype
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+    np.testing.assert_array_equal(st.float().numpy(), _np(sj))
+    np.testing.assert_array_equal(
+        two.dequantize_weight(pt, st, fmt, group).numpy(),
+        np.asarray(jwo.dequantize_weight(pj, sj, fmt, group)))
+
+
+@pytest.mark.parametrize("lead", [(6,), (2, 3)], ids=["2d", "3d"])
+@pytest.mark.parametrize("fmt,group", FORMATS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_quant_matmul_matches_twin_and_pallas(fmt, group, dtype, lead):
+    rng = np.random.RandomState(group + len(lead))
+    K, N = 128, 96
+    w = (rng.randn(K, N) / np.sqrt(K)).astype(np.float32)
+    x = rng.randn(*lead, K).astype(np.float32)
+    qj, sj = jwo.quantize_weight(_jax_of(w, dtype), fmt, group)
+    qt, st = two.quantize_weight(_torch_of(w, dtype), fmt, group)
+    xj, xt = _jax_of(x, dtype), _torch_of(x, dtype)
+    port = tops.quant_matmul(xt, qt, st, fmt, group)
+    assert port.shape == lead + (N,) and port.dtype == xt.dtype
+    port = port.float().numpy()
+    for ref in (jops.xla_quant_matmul(xj, qj, sj, fmt, group),
+                pallas_qm(xj, qj, sj, fmt, group, interpret=True)):
+        ref = _np(ref)
+        if dtype == "float32":
+            np.testing.assert_allclose(port, ref, atol=1e-5, rtol=1e-5)
+        else:
+            # one bf16 ulp of the output (2^-8 of it, at least 2^-133)
+            ulp = np.maximum(np.abs(ref), 2.0 ** -126) * 2.0 ** -7
+            assert (np.abs(port - ref) <= ulp).all()
+    np.testing.assert_array_equal(
+        port, tops.plain_quant_matmul(xt, qt, st, fmt, group).float().numpy())
+
+
+@pytest.mark.parametrize("case", ["unknown", "int4_no_group",
+                                  "group_not_dividing", "packed_rows"])
+def test_argument_errors_as_reference(case):
+    rng = np.random.RandomState(1)
+    w = rng.randn(64, 32).astype(np.float32)
+    q4, s4 = two.quantize_weight(torch.from_numpy(w), "int4", 16)
+    x = rng.randn(3, 64).astype(np.float32)
+    args = {"unknown": (x, q4, s4, "int2", 16),
+            "int4_no_group": (x, q4, s4, "int4", None),
+            "group_not_dividing": (x, q4, s4, "int4", 24),
+            "packed_rows": (x[:, :32], q4, s4, "int4", 16)}[case]
+    xt = torch.from_numpy(args[0])
+    with pytest.raises(ValueError):
+        tops.quant_matmul(xt, *args[1:])
+    with pytest.raises(ValueError):
+        tops.plain_quant_matmul(xt, *args[1:])
+    if case in ("unknown", "int4_no_group"):
+        with pytest.raises(ValueError):
+            jops.quant_matmul(jnp.asarray(args[0]),
+                              jnp.asarray(q4.numpy()),
+                              jnp.asarray(s4.numpy()), *args[3:])
+    with pytest.raises(ValueError, match="divide K/2"):
+        two.quantize_weight(torch.from_numpy(w), "int4", 24)
+    with pytest.raises(ValueError, match="2-D"):
+        two.quantize_weight(torch.zeros(4), "int8")
+
+
+def _numpy_weights(jmodel, seed):
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name, p in jmodel.state_dict().items():
+        shape = tuple(p.shape)
+        if len(shape) == 1:
+            out[name] = (1.0 + 0.1 * rng.randn(*shape)).astype(np.float32)
+        else:
+            out[name] = (rng.randn(*shape) / np.sqrt(shape[0])) \
+                .astype(np.float32)
+    return out
+
+
+def _pair(seed=3):
+    jm = JLlama(j_tiny(**CFG))
+    weights = _numpy_weights(jm, seed)
+    jm.set_state_dict(weights)
+    tm = LlamaForCausalLM(llama_tiny_config(**CFG), device="cpu")
+    load_numpy_state_dict(tm, weights)
+    return jm, tm, weights
+
+
+def _jax_state(jm):
+    return {n: np.asarray(p.value) if p.value.dtype != jnp.bfloat16
+            else np.asarray(p.value).astype(ml_dtypes.bfloat16)
+            for n, p in jm.named_parameters()}
+
+
+def test_quantize_model_idempotent_locked_and_named_as_reference():
+    jm, tm, _ = _pair()
+    jwo.quantize_model(jm, "int4", 32)
+    assert two.quantize_model(tm, "int4", 32) is tm
+    assert tm._weight_only == jm._weight_only == {"dtype": "int4",
+                                                  "group_size": 32}
+    # the same parameter names, shapes and dtypes as the reference's
+    tsd = dict(tm.named_parameters())
+    jsd = _jax_state(jm)
+    assert sorted(tsd) == sorted(jsd)
+    for n, p in tsd.items():
+        assert tuple(p.shape) == jsd[n].shape, n
+        assert (p.dtype == torch.int8) == (jsd[n].dtype == np.int8), n
+        assert not p.requires_grad or p.dtype != torch.int8
+    n_scales = sum(n.endswith("_scale") for n in tsd)
+    assert n_scales == 7 * 2 + 1          # 7 per layer + the lm head
+    before = {n: p.clone() for n, p in tm.named_parameters()}
+    two.quantize_model(tm, "int4", 32)    # same configuration: untouched
+    for n, p in tm.named_parameters():
+        assert torch.equal(p, before[n]), n
+    with pytest.raises(ValueError, match="already weight-only"):
+        two.quantize_model(tm, "int8", 32)
+    with pytest.raises(ValueError, match="already weight-only"):
+        jwo.quantize_model(jm, "int8", 32)
+    with pytest.raises(ValueError, match="unknown weight_only_dtype"):
+        two.quantize_model(LlamaForCausalLM(llama_tiny_config(**CFG),
+                                            device="cpu"), "int3")
+    assert two.quantize_model(torch.nn.Linear(2, 2), "none") is not None
+    with pytest.raises(ValueError, match="no weight-only"):
+        two.quantize_model(torch.nn.Linear(2, 2), "int8")
+
+
+@pytest.mark.parametrize("fmt,group", [("none", None)] + FORMATS)
+def test_weight_pool_and_packed_bytes_match_reference(fmt, group):
+    jm, tm, _ = _pair()
+    assert two.weight_pool_bytes(tm) == jwo.weight_pool_bytes(jm)
+    want = jwo.packed_bytes(jm, fmt, group)
+    assert two.packed_bytes(tm, fmt, group) == want
+    if fmt != "none":
+        jwo.quantize_model(jm, fmt, group)
+        two.quantize_model(tm, fmt, group)
+        assert two.weight_pool_bytes(tm) == jwo.weight_pool_bytes(jm) == want
+        with pytest.raises(ValueError, match="unquantized"):
+            two.packed_bytes(tm, fmt, group)
+
+
+def test_weight_only_flags_match_reference():
+    for name in ("weight_only_dtype", "weight_only_group_size",
+                 "kv_cache_dtype"):
+        assert tflags.get_flag(name) == jflags.get_flag(name), name
+        assert tflags._registry[name]["default"] \
+            == jflags._registry[name]["default"], name
+    assert tflags.get_flag("weight_only_dtype") == "none"
+    assert tflags.get_flag("weight_only_group_size") == 64
+
+
+def test_flag_resolves_quantization():
+    tm = LlamaForCausalLM(llama_tiny_config(**CFG), device="cpu")
+    tflags.set_flags({"FLAGS_weight_only_dtype": "int4",
+                      "FLAGS_weight_only_group_size": 16})
+    try:
+        two.quantize_model(tm)
+    finally:
+        tflags.set_flags({"FLAGS_weight_only_dtype": "none",
+                          "FLAGS_weight_only_group_size": 64})
+    assert tm._weight_only == {"dtype": "int4", "group_size": 16}
+    assert tm.llama.layers[0].mlp.down_proj.shape == (384 // 2, 128)
+
+
+def test_quantized_training_forward_raises():
+    tm = LlamaForCausalLM(llama_tiny_config(**CFG), device="cpu")
+    ids = torch.ones((1, 4), dtype=torch.int32)
+    tm(ids)                                   # unquantized: fine
+    two.quantize_model(tm, "int8")
+    with pytest.raises(RuntimeError, match="serving"):
+        tm(ids)
+    # the decode path serves it
+    lg, _ = tm.forward_cached(ids, tm.init_cache(1, 8), 0)
+    assert lg.shape == (1, 4, 512) and torch.isfinite(lg).all()
+
+
+def test_convert_keeps_packed_dtypes():
+    jm, tm, weights = _pair()
+    two.quantize_model(tm, "int8")
+    sd = numpy_state_dict(tm)
+    assert sd["lm_head"].dtype == np.int8
+    assert sd["lm_head_scale"].dtype == np.float32
+    tm2 = two.quantize_model(
+        LlamaForCausalLM(llama_tiny_config(**CFG), device="cpu"), "int8")
+    load_numpy_state_dict(tm2, sd)
+    for n, p in tm2.named_parameters():
+        assert torch.equal(p, dict(tm.named_parameters())[n]), n
+    # a float weight cannot load into a packed parameter, nor packed
+    # bytes into a float one
+    with pytest.raises(ValueError, match="packed"):
+        load_numpy_state_dict(tm2, dict(sd, lm_head=sd["lm_head"]
+                                        .astype(np.float32)))
+    fresh = LlamaForCausalLM(llama_tiny_config(**CFG), device="cpu")
+    bad = dict(weights)
+    bad["lm_head"] = sd["lm_head"]
+    with pytest.raises(ValueError, match="packed"):
+        load_numpy_state_dict(fresh, bad)
+
+
+def _decode_logits_jax(jm, ids, kv_dtype, paged):
+    B, s = ids.shape
+    if not paged:
+        cache = jm.init_cache(B, 32)
+        lg, cache = jm.forward_cached(jnp.asarray(ids), cache, 0)
+        outs = [lg]
+        pos = s
+        for t in range(3):
+            lg, cache = jm.forward_cached(jnp.asarray(ids[:, t:t + 1]),
+                                          cache, pos + t)
+            outs.append(lg)
+        return [_np(o) for o in outs], None
+    ps, P_slot = 8, 4
+    pt = np.arange(1, 1 + B * P_slot, dtype=np.int32).reshape(B, P_slot)
+    cache = jm.init_paged_cache(1 + B * P_slot, ps, kv_dtype)
+    pos = np.zeros((B,), np.int32)
+    lg, cache = jm.forward_cached_paged(jnp.asarray(ids), cache,
+                                        jnp.asarray(pt), jnp.asarray(pos))
+    outs = [lg]
+    for t in range(3):
+        lg, cache = jm.forward_cached_paged(
+            jnp.asarray(ids[:, t:t + 1]), cache, jnp.asarray(pt),
+            jnp.asarray(pos + s + t))
+        outs.append(lg)
+    return [_np(o) for o in outs], {k: _np(v) for k, v in cache.items()}
+
+
+@torch.inference_mode()
+def _decode_logits_port(tm, ids, kv_dtype, paged):
+    B, s = ids.shape
+    t_ids = torch.from_numpy(ids)
+    if not paged:
+        cache = tm.init_cache(B, 32)
+        lg, cache = tm.forward_cached(t_ids, cache, 0)
+        outs = [lg]
+        for t in range(3):
+            lg, cache = tm.forward_cached(t_ids[:, t:t + 1], cache, s + t)
+            outs.append(lg)
+        return [o.numpy() for o in outs], None
+    ps, P_slot = 8, 4
+    pt = torch.arange(1, 1 + B * P_slot, dtype=torch.int32).reshape(B,
+                                                                    P_slot)
+    cache = tm.init_paged_cache(1 + B * P_slot, ps, kv_dtype)
+    pos = torch.zeros((B,), dtype=torch.int32)
+    lg, cache = tm.forward_cached_paged(t_ids, cache, pt, pos)
+    outs = [lg]
+    for t in range(3):
+        lg, cache = tm.forward_cached_paged(t_ids[:, t:t + 1], cache, pt,
+                                            pos + s + t)
+        outs.append(lg)
+    return [o.numpy() for o in outs], {k: v.numpy() for k, v in cache.items()}
+
+
+@pytest.mark.parametrize("carry", ["convert", "port_quantizes"])
+@pytest.mark.parametrize("kv", ["auto", "int8"])
+@pytest.mark.parametrize("fmt,group", [("int8", 64), ("int4", 32)])
+def test_quantized_decode_logits_match_reference(fmt, group, kv, carry):
+    """Prefill then three decode steps, dense (forward_cached) and paged
+    (forward_cached_paged), quantized weights with an fp32 or int8 KV
+    pool.  carry="convert": the reference packs, its state dict loads
+    into a port model quantized at the same configuration;
+    "port_quantizes": each package packs the same fp32 weights."""
+    jm, tm, _ = _pair(seed=11)
+    jwo.quantize_model(jm, fmt, group)
+    if carry == "convert":
+        fresh = LlamaForCausalLM(llama_tiny_config(**CFG), device="cpu")
+        two.quantize_model(fresh, fmt, group)
+        load_numpy_state_dict(fresh, _jax_state(jm))
+        tm = fresh
+    else:
+        two.quantize_model(tm, fmt, group)
+    for n, p in tm.named_parameters():
+        if p.dtype == torch.int8:
+            np.testing.assert_array_equal(p.numpy(), _jax_state(jm)[n])
+    ids = np.random.RandomState(5).randint(1, 512, (2, 12)).astype(np.int32)
+    for paged in (False, True):
+        if kv == "int8" and not paged:
+            continue                         # int8 KV is a paged pool
+        refs, rcache = _decode_logits_jax(jm, ids, kv, paged)
+        ports, pcache = _decode_logits_port(tm, ids, kv, paged)
+        tol = dict(atol=1e-4, rtol=1e-4)
+        if kv == "int8":
+            for k in ("k", "v"):
+                diff = np.abs(pcache[k].astype(np.int32)
+                              - rcache[k].astype(np.int32))
+                assert diff.max() <= 1 and (diff > 0).sum() <= 2, k
+                np.testing.assert_allclose(pcache[k + "_scale"],
+                                           rcache[k + "_scale"],
+                                           rtol=2.0 ** -20, atol=0)
+            tol = dict(atol=2.0 ** -8 * np.abs(refs[0]).max(), rtol=0)
+        for r, p in zip(refs, ports):
+            np.testing.assert_allclose(p, r, **tol)
+
+
+@pytest.mark.parametrize("M,K,N,want", [
+    (8, 4096, 4096, 16),       # decode: 32 column blocks, K split 16 ways
+    (8, 4096, 32000, 3),       # the lm head: 250 column blocks already
+    (256, 4096, 4096, 2),      # capped: partials may not outgrow the weight
+    (3, 200, 48, 4),           # never more splits than K tiles
+    (1, 64, 16, 1),
+])
+def test_quant_matmul_split_count(M, K, N, want):
+    qm = tops.kernel_module("quant_matmul")
+    assert qm._splits(M, K, N, K * N) == want

@@ -165,3 +165,65 @@ def test_submit_validates(models):
         bat.submit(np.zeros((0,), np.int32), 4)
     with pytest.raises(ValueError, match="max_len"):
         bat.submit(np.ones((90,), np.int32), 10)
+
+
+def _quantized_pair(seed):
+    jm = JLlama(j_tiny(**CFG))
+    weights = _numpy_weights(jm, seed=seed)
+    jm.set_state_dict(weights)
+    tm = LlamaForCausalLM(llama_tiny_config(**CFG), device="cpu")
+    load_numpy_state_dict(tm, weights)
+    return jm, tm
+
+
+@pytest.mark.parametrize("kv_dtype", ["auto", "int8"])
+@pytest.mark.parametrize("wo", ["int8", "int4"])
+def test_quantized_serving_tokens_equal(wo, kv_dtype):
+    """Weight-only int8/int4 weights with an fp32 or int8 KV pool: each
+    batcher packs its own model from the same fp32 weights and serves a
+    staggered workload with a shared prefix and a mid-page divergence
+    (the copy-on-write clone, which must carry an int8 page's scales);
+    the greedy tokens equal the reference's, request for request."""
+    jm, tm = _quantized_pair(seed=7)
+    rng = np.random.RandomState(8)
+    system = rng.randint(1, 512, 20).astype(np.int32)   # 2.5 pages of 8
+    tails = [rng.randint(1, 512, L).astype(np.int32) for L in (6, 11, 3, 9)]
+    prompts = [np.concatenate([system, t]) for t in tails] + \
+        [rng.randint(1, 512, 13).astype(np.int32)]
+    new = [5, 6, 7, 4, 6]
+    kw = dict(max_batch_size=2, weight_only_dtype=wo, kv_dtype=kv_dtype,
+              **GEOM)
+    jout, jst = _serve(JBatcher(jm, **kw), prompts, new, (1, 2))
+    bat = ContinuousBatcher(tm, device="cpu", **kw)
+    tout, tst = _serve(bat, prompts, new, (1, 2))
+    for t, j, n in zip(tout, jout, new):
+        np.testing.assert_array_equal(t, j)
+        assert len(t) == n
+    assert tst["weight_only"] == jst["weight_only"] == wo
+    assert tst["cow_copies"] > 0
+    assert tst["prefix_hit_tokens"] == jst["prefix_hit_tokens"] > 0
+    assert tst["kv_bytes"] == bat.kv_cache_bytes() \
+        == JBatcher.paged_kv_bytes(jm, 2, GEOM["max_len"],
+                                   GEOM["prefill_chunk"], GEOM["page_size"],
+                                   kv_dtype=kv_dtype)
+    assert tm._weight_only == jm._weight_only
+
+
+def test_weight_only_flag_quantizes_in_the_batcher():
+    """FLAGS_weight_only_dtype (None argument) packs the model; "none"
+    leaves it alone and stats() says so."""
+    from paddle_tpu_torch.framework.flags import set_flags
+    _, tm = _quantized_pair(seed=9)
+    plain = ContinuousBatcher(tm, max_batch_size=1, device="cpu", **GEOM)
+    assert plain.stats()["weight_only"] == "none"
+    assert getattr(tm, "_weight_only", None) is None
+    set_flags({"FLAGS_weight_only_dtype": "int4",
+               "FLAGS_weight_only_group_size": 32})
+    try:
+        bat = ContinuousBatcher(tm, max_batch_size=1, device="cpu", **GEOM)
+    finally:
+        set_flags({"FLAGS_weight_only_dtype": "none",
+                   "FLAGS_weight_only_group_size": 64})
+    assert tm._weight_only == {"dtype": "int4", "group_size": 32}
+    rid = bat.submit(np.arange(1, 9, dtype=np.int32), 4)
+    assert len(bat.run()[rid]) == 4 and bat.stats()["weight_only"] == "int4"

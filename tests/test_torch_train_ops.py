@@ -382,9 +382,14 @@ def test_launch_counters_cover_every_entry_point():
         "rms_norm", "rms_norm_bwd", "fused_add_rms_norm",
         "fused_add_rms_norm_bwd", "rope", "rope_bwd", "paged_attention",
         "flash_attention", "flash_attention_bwd", "fused_adamw",
-        "cross_entropy"}
+        "cross_entropy", "quant_matmul"}
     fam = tops.kernel_module("fused_adamw")
     fam.variant_launches["master_ef"] += 1
+    variant_mods = [fam, tops.kernel_module("paged_attention"),
+                    tops.kernel_module("quant_matmul")]
+    variant_mods[1].variant_launches["int8"] += 1
+    variant_mods[2].variant_launches["int4"] += 1
     tops.reset_launch_counts()
     assert set(tops.launch_counts().values()) == {0}
-    assert set(fam.variant_launches.values()) == {0}
+    for mod in variant_mods:
+        assert set(mod.variant_launches.values()) == {0}
