@@ -37,7 +37,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   6. train kernels  each training kernel, forward and backward, against
              its plain version at the training path's shapes in bf16
              (x [8192, 2560]; q [4, 2048, 20, 128], kv [4, 2048, 4, 128]
-             causal); the fused AdamW in its four variants (fp32 params
+             causal); flash attention also at FLASH_EDGE_CASES (ragged s,
+             sq != sk, d 64, fp16, MHA and group 8, B 1) and at
+             Llama-2-7B's attention, each beside SDPA; the fused AdamW
+             in its four variants (fp32 params
              or bf16 params + fp32 master, each with and without the ef
              residual; bf16 moments) at [2560, 6912], [2560] and [2563];
              the cross-entropy rows at [1024, 8192] with ignored rows:
@@ -785,54 +788,159 @@ def _rms_bwd_tolerances(torch, x, w, g, dx_ref, dw_ref, eps):
     return dx_tol, dw_tol
 
 
-def _flash_tolerances(torch, ops, fa, q, k, v, out, lse, dout, refs, scale):
+def _flash_tolerances(torch, ops, fa, q, k, v, out, lse, dout, refs, scale,
+                      causal=True):
     """Per-element tolerances of the flash kernels (out, dq, dk, dv)
     against plain_flash_fwd / plain_flash_bwd, from the rounding model.
+    q [b, sq, h, d], k/v [b, sk, hk, d]: any query-head group, sq != sk
+    when not causal, the causal mask top-left as the kernels'.
 
     Each output is a sum of weight x operand terms: P.V (out), dS.K
     (dq), dS^T.Q and P^T.dO summed over the query-head group (dk, dv).
-    Each side rounds every weight (p or ds) to bf16 once, by at most
-    2^-8 of it, and rounds each output once.  So per element:
-      2^-7 |plain|             an output rounding that flips;
-      2^-4 sqrt(sum w^2 x^2)   the weight roundings: independent and of
+    Each side rounds every weight (p or ds) to the operand dtype once
+    and rounds each output once.  In that dtype a rounding moves x by
+    at most r(x) = max(u |x|, e): u = 2^-8 and e = 2^-134 for bf16,
+    u = 2^-11 and e = 2^-25 (half the subnormal step) for fp16, whose
+    weights reach its subnormals at long rows (a 0 weight, a masked
+    key's, rounds exactly).  So per element:
+      2 r(plain)               an output rounding that flips (2^-7
+                               |plain| for bf16, 2^-10 for fp16);
+      16 sqrt(sum r(w)^2 x^2)  the weight roundings: independent and of
                                mean zero, so by Hoeffding each side's sum
-                               exceeds 8 x 2^-8 sqrt(sum w^2 x^2) with
+                               exceeds 8 sqrt(sum r(w)^2 x^2) with
                                probability < 3e-14 (< 1e-5 over all
-                               1e8 compared elements);
+                               1e8 compared elements); 2^-4 sqrt(sum w^2
+                               x^2) for bf16, 2^-7 for fp16;
       2^-12 sum |w| |x|        fp32: scores, hence p, that differ by
                                ~2^-13 relative, and sums in another order;
       dq, dk: dP = dO.v^T      an fp32 dot of 128 terms (<= 2^-17 of
                                ||dO_i|| ||v_j|| per side) that delta can
                                cancel; it enters ds unrounded.
-    Weights of masked keys are 0 on both sides."""
-    b, s, h, d = q.shape
-    hk = k.shape[2]
+    Weights of masked keys are 0 on both sides.
+
+    Returns (tolerance, variance) per output.  The variance bounds the
+    mean square of the same rounding errors: each is at most r in size,
+    so its variance at most r^2 / 3 a side, (2/3)(r(plain)^2 + sum
+    r(w)^2 x^2) for both (fp32 differences, ~2^-20 relative, left out).
+    16 r of slack a term is more than the 8x between the two dtypes' u,
+    so the per-element tolerance alone passes fp16 weights rounded at
+    bf16; their mean square error is ~11x this variance, an honest
+    kernel's below it."""
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
     grp = h // hk
-    P = torch.exp(fa._masked_scores(q, k, True, scale) - lse[..., None])
+    P = torch.exp(fa._masked_scores(q, k, causal, scale) - lse[..., None])
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
     dS = (ops.gqa_scores(dout, v) - delta[..., None]).mul_(P).mul_(scale)
-    dn = dout.float().norm(dim=-1).transpose(1, 2)             # [b, h, s]
-    vn = v.float().norm(dim=-1).transpose(1, 2)                # [b, hk, s]
+    dn = dout.float().norm(dim=-1).transpose(1, 2)             # [b, h, sq]
+    vn = v.float().norm(dim=-1).transpose(1, 2)                # [b, hk, sk]
     slack = (2.0 ** -16 * scale) * P * dn[..., None] \
         * vn.repeat_interleave(grp, dim=1)[:, :, None, :]
 
-    def rows(w, x):                # sum over keys: [b, s, h, d]
+    def rows(w, x):                # sum over keys: [b, sq, h, d]
         return ops.gqa_weighted_v(w, x).transpose(1, 2)
 
-    def keys(w, x):                # sum over the group's rows: [b, s, hk, d]
-        return torch.einsum("bhgqk,bqhgd->bkhd", w.reshape(b, hk, grp, s, s),
-                            x.reshape(b, s, hk, grp, d))
+    def keys(w, x):                # sum over the group's rows: [b, sk, hk, d]
+        return torch.einsum("bhgqk,bqhgd->bkhd",
+                            w.reshape(b, hk, grp, sq, sk),
+                            x.reshape(b, sq, hk, grp, d))
+
+    u, e = (2.0 ** -11, 2.0 ** -25) if q.dtype == torch.float16 \
+        else (2.0 ** -8, 2.0 ** -134)
+
+    def r(x):                      # the most one rounding moves x
+        return x.float().abs().mul_(u).clamp_min_(e)
 
     def tol(ref, total, w, x, extra=0.0):
         xf = x.float()
-        return (2.0 ** -7 * ref.float().abs()
-                + 2.0 ** -4 * total(w * w, xf * xf).sqrt()
-                + 2.0 ** -12 * total(w.abs(), xf.abs()) + extra)
+        rw2 = total(r(w).masked_fill_(w == 0, 0.0).square_(),  # 0 is exact
+                    xf * xf)
+        return (2.0 * r(ref) + 16.0 * rw2.sqrt()
+                + 2.0 ** -12 * total(w.abs(), xf.abs()) + extra,
+                (2.0 / 3.0) * (r(ref).square_() + rw2) + extra ** 2)
 
     return [tol(refs[0], rows, P, v),
             tol(refs[1], rows, dS, k, rows(slack, k.float().abs())),
             tol(refs[2], keys, dS, q, keys(slack, q.float().abs())),
             tol(refs[3], keys, P, dout)]
+
+
+# flash attention shapes of phase 6 beside the training shape: the edges
+# of the kernels' tiling (ragged s, sq != sk without the causal mask,
+# d = 64, fp16, MHA and group 8, B = 1) and Llama-2-7B's attention
+FLASH_EDGE_CASES = [
+    dict(case="ragged s=1000", b=2, sq=1000, sk=1000, h=8, hk=2, d=128),
+    dict(case="ragged s=77, d=64, fp16", b=3, sq=77, sk=77, h=4, hk=1, d=64,
+         dtype="float16"),
+    dict(case="non-causal sq=300 sk=1000, group 8", b=2, sq=300, sk=1000,
+         h=16, hk=2, d=128, causal=False),
+    dict(case="non-causal sq=1000 sk=77, d=64, MHA", b=1, sq=1000, sk=77,
+         h=4, hk=4, d=64, causal=False),
+    dict(case="d=64, MHA, B=1", b=1, sq=2048, sk=2048, h=16, hk=16, d=64),
+    dict(case="fp16, group 8", b=2, sq=1024, sk=1024, h=32, hk=4, d=128,
+         dtype="float16"),
+    dict(case="llama-2-7b", b=1, sq=4096, sk=4096, h=32, hk=32, d=128),
+]
+
+
+def _flash_case(torch, ops, fa, randn, add, case, b, sq, sk, h, hk, d,
+                causal=True, dtype="bfloat16"):
+    """Flash attention forward and backward at one shape: every element
+    against the plain versions within `_flash_tolerances`, the kernels'
+    time beside the plain versions' and SDPA's."""
+    dt = getattr(torch, dtype)
+    q, k, v, do = randn(b, sq, h, d, dtype=dt), randn(b, sk, hk, d, dtype=dt), \
+        randn(b, sk, hk, d, dtype=dt), randn(b, sq, h, d, dtype=dt)
+    sc = d ** -0.5
+    out, lse = fa._launch_fwd(q, k, v, causal, sc)
+    p_out, p_lse = ops.plain_flash_fwd(q, k, v, causal, sc)
+    grads = fa._launch_bwd(q, k, v, out, lse, do, causal, sc)
+    refs = ops.plain_flash_bwd(q, k, v, out, lse, do, causal, sc)
+    tols, var = zip(*_flash_tolerances(torch, ops, fa, q, k, v, out, lse,
+                                       do, [p_out, *refs], sc, causal))
+    # mean square error over the rounding model's variance: <= 1
+    msq = [((o.float() - p.float()).square_() / s2).mean().item()
+           for o, p, s2 in zip([out, *grads], [p_out, *refs], var)]
+    del var
+    check(max(msq) <= 1.0, f"flash attention ({case}): mean square errors "
+          f"{msq} of out, dq, dk, dv exceed the rounding model's variance")
+    torch.cuda.synchronize()
+    # causal: half the (row, key) pairs
+    fwd_flops = 4 * b * h * (sq * sk // 2 if causal else sq * sk) * d
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    extra = dict(case=case, kv_heads=hk, sk=sk, causal=causal, dtype=dtype)
+    # lse = m + log l: fp32 scores, exp and sums in another order move
+    # it by a few ulps of m and of log l (each |.| < ~10), ~1e-6; an
+    # entry near 0 keeps that absolute error, so 1e-5 (1 + |lse|)
+    fwd = add("flash_attention", [b, sq, h, d], [out, lse], [p_out, p_lse],
+              [tols[0], 1e-5 * (1.0 + p_lse.abs())],
+              time_ms(torch, lambda: fa._launch_fwd(q, k, v, causal, sc)),
+              time_ms(torch, lambda: ops.plain_flash_fwd(q, k, v, causal, sc),
+                      reps=5),
+              time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                          enable_gqa=True)),
+              "scaled_dot_product_attention(is_causal, enable_gqa)",
+              (2 * q.numel() + 2 * k.numel()) * q.element_size()
+              + lse.numel() * 4, fwd_flops, msq_share=msq[:1], **extra)
+    del p_out, p_lse
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (qt, kt, vt))
+    lib_out = sdpa(qr, kr, vr, is_causal=causal, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    bwd = add("flash_attention_bwd", [b, sq, h, d], list(grads), list(refs),
+              tols[1:],
+              time_ms(torch, lambda: fa._launch_bwd(q, k, v, out, lse, do,
+                                                    causal, sc)),
+              time_ms(torch, lambda: ops.plain_flash_bwd(
+                  q, k, v, out, lse, do, causal, sc), reps=5),
+              time_ms(torch, _grad_timer(torch, lib_out, (qr, kr, vr), dot)),
+              "scaled_dot_product_attention backward (is_causal, enable_gqa)",
+              (4 * q.numel() + 4 * k.numel()) * q.element_size()
+              + 2 * lse.numel() * 4, 5 * fwd_flops // 2, msq_share=msq[1:],
+              **extra)
+    log(f"[train-kernels] flash {case}: kernel / SDPA forward "
+        f"{fwd['ms'] / fwd['library_ms']:.2f}x, backward "
+        f"{bwd['ms'] / bwd['library_ms']:.2f}x")
 
 
 def phase_train_kernels(torch, ops, dev):
@@ -843,11 +951,13 @@ def phase_train_kernels(torch, ops, dev):
     g = torch.Generator(device=dev)
     g.manual_seed(4321)
     bf16 = torch.bfloat16
-    # the plain versions' bf16 GEMMs accumulate in fp32 throughout, as the
-    # tolerances below assume
+    # the plain versions' bf16 and fp16 GEMMs accumulate in fp32
+    # throughout, as the tolerances below assume
     mm = torch.backends.cuda.matmul
-    reduced = mm.allow_bf16_reduced_precision_reduction
+    reduced = (mm.allow_bf16_reduced_precision_reduction,
+               mm.allow_fp16_reduced_precision_reduction)
     mm.allow_bf16_reduced_precision_reduction = False
+    mm.allow_fp16_reduced_precision_reduction = False
 
     def randn(*shape, dtype=bf16):
         return torch.randn(shape, generator=g, device=dev,
@@ -953,61 +1063,29 @@ def phase_train_kernels(torch, ops, dev):
         None, None, nbytes, flops)
     del q, kk, refs
 
-    # -- flash attention forward and backward, causal GQA --------------------
-    q, k, v, do = randn(b, s, h, d), randn(b, s, hk, d), randn(b, s, hk, d), \
-        randn(b, s, h, d)
-    sc = d ** -0.5
-    out, lse = fa._launch_fwd(q, k, v, True, sc)
-    p_out, p_lse = ops.plain_flash_fwd(q, k, v, True, sc)
-    grads = fa._launch_bwd(q, k, v, out, lse, do, True, sc)
-    refs = ops.plain_flash_bwd(q, k, v, out, lse, do, True, sc)
-    tols = _flash_tolerances(torch, ops, fa, q, k, v, out, lse, do,
-                             [p_out, *refs], sc)
-    torch.cuda.synchronize()
-    fwd_flops = 4 * b * h * s * s * d // 2          # causal: half the pairs
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    sdpa = F.scaled_dot_product_attention
-    # lse = m + log l: fp32 scores, exp and sums in another order move
-    # it by a few ulps of m and of log l (each |.| < ~10), ~1e-6; an
-    # entry near 0 keeps that absolute error, so 1e-5 (1 + |lse|)
-    add("flash_attention", [b, s, h, d], [out, lse], [p_out, p_lse],
-        [tols[0], 1e-5 * (1.0 + p_lse.abs())],
-        time_ms(torch, lambda: fa._launch_fwd(q, k, v, True, sc)),
-        time_ms(torch, lambda: ops.plain_flash_fwd(q, k, v, True, sc),
-                reps=5),
-        time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
-                                    enable_gqa=True)),
-        "scaled_dot_product_attention(is_causal, enable_gqa)",
-        (3 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4, fwd_flops,
-        kv_heads=hk, causal=True)
-    del p_out, p_lse
-    qr, kr, vr = (t.clone().requires_grad_(True) for t in (qt, kt, vt))
-    lib_out = sdpa(qr, kr, vr, is_causal=True, enable_gqa=True)
-    dot = do.transpose(1, 2).contiguous()
-    add("flash_attention_bwd", [b, s, h, d], list(grads), list(refs),
-        tols[1:],
-        time_ms(torch, lambda: fa._launch_bwd(q, k, v, out, lse, do, True,
-                                              sc)),
-        time_ms(torch, lambda: ops.plain_flash_bwd(q, k, v, out, lse, do,
-                                                   True, sc), reps=5),
-        time_ms(torch, _grad_timer(torch, lib_out, (qr, kr, vr), dot)),
-        "scaled_dot_product_attention backward (is_causal, enable_gqa)",
-        (4 * q.numel() + 4 * k.numel()) * 2 + 2 * lse.numel() * 4,
-        5 * fwd_flops // 2, kv_heads=hk, causal=True)
-    del q, k, v, do, out, lse, grads, refs, tols, qr, kr, vr, lib_out
-    torch.cuda.empty_cache()
+    # -- flash attention forward and backward: the training shape (causal
+    # GQA, the head case of the kernels line), then the edge shapes -------
+    for case in [dict(case="train", b=b, sq=s, sk=s, h=h, hk=hk, d=d),
+                 *FLASH_EDGE_CASES]:
+        _flash_case(torch, ops, fa, randn, add, **case)
+        torch.cuda.empty_cache()
     _adamw_kernel_cases(torch, ops, g, add)
     _ce_kernel_case(torch, ops, g, add)
     torch.cuda.empty_cache()
-    mm.allow_bf16_reduced_precision_reduction = reduced
+    (mm.allow_bf16_reduced_precision_reduction,
+     mm.allow_fp16_reduced_precision_reduction) = reduced
     for name, cases in res.items():
         for c in cases:
             ms = {k: c[k] if c[k] is None else round(c[k], 4)
                   for k in ("ms", "plain_ms", "library_ms")}
+            msq = (f", mean square / variance {c['msq_share']}"
+                   if "msq_share" in c else "")
             log(f"[train-kernels] {name} {c['shape']}"
-                f"{' ' + c['variant'] if 'variant' in c else ''}: err "
+                f"{' ' + c['variant'] if 'variant' in c else ''}"
+                f"{' (' + c['case'] + ')' if 'case' in c else ''}: err "
                 f"{c['errs']}, share of the per-element tolerance "
-                f"{c['shares']}, median tol / median |plain| {c['tight']}; "
+                f"{c['shares']}, median tol / median |plain| {c['tight']}"
+                f"{msq}; "
                 f"kernel {ms['ms']} ms, plain {ms['plain_ms']} ms, library "
                 f"{ms['library_ms']} ms, bound {c['bound_ms']:.5f} ms "
                 f"({c['bound_by']})")
@@ -1415,14 +1493,15 @@ def main():
     info = _build.build_info
     log(f"[build] {time.perf_counter() - t0:.1f} s "
         f"({'compiled' if info['built'] else 'cached'}) {info['path']}")
-    # per source file, and only the kernels that spill (ptxas -v prints
-    # registers, stack and spills for every kernel instantiated)
+    # per source file, and only the kernels that spill or whose wgmma
+    # products ptxas serialized (ptxas -v prints registers, stack and
+    # spills for every kernel instantiated)
     lines = info["log"].splitlines()
     log(f"[build] {sum('Compiling entry function' in x for x in lines)} "
         f"kernels compiled")
     for prev, line in zip([""] + lines, lines):
-        if line.startswith("==") or ("spill" in line and
-                                     " 0 bytes spill stores" not in line):
+        if line.startswith("==") or "Performance Loss" in line or (
+                "spill" in line and " 0 bytes spill stores" not in line):
             log("[build] " + (prev.strip() + " | " if "spill" in line
                               else "") + line.strip())
 

@@ -15,45 +15,73 @@
 // What bounds it on the H100: operations.  At the training shape
 // (q [4, 2048, 20, 128], kv [4, 2048, 4, 128], bf16, causal) the forward
 // does 4*b*h*s^2*d/2 = 8.6e10 FLOP, 0.087 ms at 989 TFLOP/s, against
-// ~0.03 ms for its bytes; the backward ~2.5x the forward.
+// ~0.03 ms for its bytes; the backward 2.5x the forward (five products
+// of the same size), and these kernels issue seven (S and dP are
+// recomputed by both backward kernels so that no sum crosses blocks).
 //
 // Design.  The TPU's sequential grid over K blocks becomes a loop inside
 // the block; no state crosses blocks, so there are no atomics and the
 // result is deterministic.
-//   * bf16/fp16, head_dim 64 or 128: tensor cores (mma.sync m16n8k16,
-//     fp32 accumulate) in the FlashAttention-2 register layout.  Each
-//     warp owns 16 rows; the S fragments become the A operand of the
-//     next product without leaving registers.
-//       fwd: one block per (64 query rows, q head, batch), walking the
-//            live 64-key tiles with an online softmax.
-//       dq:  one block per (64 query rows, q head, batch), walking the
-//            live 32-key tiles.
-//       dkv: one block per (64 keys, kv head, batch); it walks every
-//            query head of its GQA group and the live 32-row query tiles,
-//            accumulating dk and dv in registers (the TPU kernel's
-//            accumulation over t = (g, qi), :717-741).
+//   * bf16/fp16, head_dim 64 or 128: Hopper warp specialisation.  A
+//     block is three warpgroups.  Warpgroup 0 gives up its registers
+//     (setmaxnreg) and one thread of it streams the tiles with TMA
+//     (4-D tensor maps over [B, s, heads, d], boxes of 64 columns with
+//     128-byte swizzle, rows past s zero-filled) into a ring of shared-
+//     memory stages guarded by full/empty mbarriers.  Warpgroups 1 and
+//     2 each own 64 rows and run the products as wgmma: QK^T-like
+//     products from shared memory with both operands K-major, the
+//     second product of each step with its A operand (p or ds, rounded
+//     to the operand type) straight from the accumulator registers and
+//     B read in place as an MN-major operand (V, K, Q or dO: no
+//     transposes).  Softmax in base 2 (scale * log2 e folded into one
+//     multiply, one MUFU ex2 an element); lse converted to natural-log
+//     units once.  The causal and ragged-edge masks run only on the
+//     tiles they cut.
+//       fwd: one block per (128 query rows, q head, batch), walking the
+//            live 128-key tiles through a 2-stage K/V ring (K and V
+//            stages freed on barriers of their own).  Tile j's QK^T and
+//            tile j-1's PV are in flight together and tile j's softmax
+//            runs under the PV; the two warpgroups take turns to issue
+//            (named barriers), so one's softmax also runs under the
+//            other's products.
+//       dq:  one block per (128 query rows, q head, batch); its
+//            prologue computes delta = rowsum(dO.O) in fp32 for its rows
+//            and writes it for dkv; it walks the live 64-key tiles:
+//            S = QK^T, dP = dO.V^T, dQ += dS.K.
+//       dkv: one block per (128 keys, kv head, batch); it walks every
+//            query head of its GQA group and the live 64-row query
+//            tiles (a 3-stage ring of Q, dO, lse and delta; lse and
+//            delta through 1-D tensor maps), with S^T = K.Q^T,
+//            dP^T = V.dO^T, dV += P^T.dO and dK += dS^T.Q, the dK and dV
+//            accumulators in registers over the whole walk (the TPU
+//            kernel's accumulation over t = (g, qi), :717-741).
+//     Causal grids launch heaviest first: the last query tiles (fwd,
+//     dq) and the first key tiles (dkv) get the lowest block indices.
+//     What is left between these kernels and the card: the forward's
+//     exp and softmax instructions per product (it reaches ~1/3 of the
+//     tensor peak where the backward, with more products per exp,
+//     reaches ~1/2), each block's unhidden prologue (Q and the first K
+//     tile) and epilogue, and in the backward no overlap of a tile's
+//     elementwise work with the next tile's products; dkv has one block
+//     per 128 keys and kv head, too few to fill the card at short
+//     sequences and few kv heads.
 //   * fp32: the same three walks on CUDA cores (one lane per key, the
-//     warp reduces with shuffles).
+//     warp reduces with shuffles), delta from a small kernel of its own.
 //   * ragged edges: rows past sq and keys past sk are masked in the
 //     kernel (the TPU kernel needs a power-of-two block dividing s).
-// wgmma, TMA / cp.async pipelining and causal load balancing are later
-// work.
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+using namespace ptt::sm90;
+
 constexpr float kNegInf = -1e30f;    // flash_attention.py NEG_INF
 constexpr int kSmemMax = 232448;     // H100 opt-in limit per block
-
-template <typename T>
-__device__ __forceinline__ uint32_t ld_pair(const T* lo, const T* hi) {
-  unsigned short a, b;
-  memcpy(&a, lo, 2);
-  memcpy(&b, hi, 2);
-  return static_cast<uint32_t>(a) | (static_cast<uint32_t>(b) << 16);
-}
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
@@ -61,24 +89,7 @@ __device__ __forceinline__ float round_to(float x) {
 }
 
 // Copy rows [r0, r0 + rows) of a [*, stride]-strided matrix of width D
-// into shared memory [rows][ld] (T), zero past `limit` rows.
-template <typename T, int D>
-__device__ __forceinline__ void tile_to_smem(const T* __restrict__ base,
-                                             long long stride, int r0,
-                                             int rows, int limit, T* dst,
-                                             int ld) {
-  constexpr int N = ptt::Vec<T>::N;
-  for (int e = threadIdx.x; e < rows * (D / N); e += blockDim.x) {
-    const int t = e / (D / N);
-    const int i = (e - t * (D / N)) * N;
-    uint4 val = {0u, 0u, 0u, 0u};
-    if (r0 + t < limit)
-      val = __ldg(reinterpret_cast<const uint4*>(base + (r0 + t) * stride + i));
-    *reinterpret_cast<uint4*>(dst + t * ld + i) = val;
-  }
-}
-
-// the same into fp32 shared memory
+// into fp32 shared memory [rows][ld], zero past `limit` rows.
 template <typename T, int D>
 __device__ __forceinline__ void tile_to_smem_f(const T* __restrict__ base,
                                                long long stride, int r0,
@@ -104,392 +115,601 @@ __device__ __forceinline__ int live_key_tiles(int q0, int rows, int sq,
 // ---------------------------------------------------------------------------
 // tensor-core kernels (bf16 / fp16)
 // ---------------------------------------------------------------------------
+constexpr int kThreads = 384;     // warpgroup 0 loads, 1 and 2 compute
+constexpr int kConsumers = 256;   // arrivals that free a ring stage
+
+// the first 1024-byte boundary at or after p (a swizzled tile's alignment)
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// A operand of the kk-th k step from accumulators s in the wgmma layout
+template <typename T>
+__device__ __forceinline__ void to_a(const float* s, int kk, uint32_t* a) {
+  a[0] = ptt::pack2<T>(s[8 * kk], s[8 * kk + 1]);
+  a[1] = ptt::pack2<T>(s[8 * kk + 2], s[8 * kk + 3]);
+  a[2] = ptt::pack2<T>(s[8 * kk + 4], s[8 * kk + 5]);
+  a[3] = ptt::pack2<T>(s[8 * kk + 6], s[8 * kk + 7]);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Store rows r0 and r0 + 8 of a warpgroup's [64, D] accumulators to a
+// [*, D] matrix of row stride `stride` (rows at or past `limit` skipped).
 template <typename T, int D>
-__global__ void __launch_bounds__(128) flash_fwd_mma(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, float* __restrict__ lse, int sq, int sk, int h,
+__device__ __forceinline__ void store_rows(const float* acc, T* base,
+                                           long long stride, int r0,
+                                           int limit, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r >= limit) continue;
+    T* row = base + r * stride + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) =
+          ptt::pack2<T>(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+  }
+}
+
+template <int D>
+struct FwdCfg {
+  static constexpr int BQ = 128, BK = 128, NS = 2;
+  static constexpr int kQ = BQ * D * 2, kKV = BK * D * 2;
+  static constexpr int kBars = kQ + 2 * NS * kKV;
+  static constexpr size_t kSmem = kBars + 8 * (1 + 4 * NS) + 1024;
+};
+
+// Online softmax of one key tile for the rows r0 and r0 + 8 of a thread:
+// s holds the raw scores q.k (the wgmma accumulator layout) and becomes
+// p = exp2(s * scale log2 e - m) in place; m and l are the running max
+// (base-2 units) and sum; returns the factors that rescale the rows'
+// earlier output.
+template <int BK>
+__device__ __forceinline__ float2 softmax_tile(float* s, float& m0, float& m1,
+                                               float& l0, float& l1, int k0,
+                                               int sk, int r0, int t,
+                                               float sc2, bool edge,
+                                               int causal) {
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e] * sc2;
+      if (edge) {     // masks only on the tiles they cut
+        const int key = k0 + 8 * j + 2 * t + (e & 1);
+        if (key >= sk || (causal && key > r0 + 8 * (e >> 1))) x = -INFINITY;
+      }
+      s[4 * j + e] = x;
+      if (e < 2)
+        mx0 = fmaxf(mx0, x);
+      else
+        mx1 = fmaxf(mx1, x);
+    }
+  const float n0 = fmaxf(m0, quad_max(mx0));
+  const float n1 = fmaxf(m1, quad_max(mx1));
+  // a row with every key so far masked keeps p = 0 (no inf - inf)
+  const float b0 = n0 == -INFINITY ? 0.f : n0;
+  const float b1 = n1 == -INFINITY ? 0.f : n1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2_ftz(s[4 * j + e] - (e < 2 ? b0 : b1));
+      s[4 * j + e] = p;
+      if (e < 2)
+        ps0 += p;
+      else
+        ps1 += p;
+    }
+  const float a0 = exp2_ftz(m0 - b0), a1 = exp2_ftz(m1 - b1);
+  l0 = l0 * a0 + ps0;
+  l1 = l1 * a1 + ps1;
+  m0 = n0;
+  m1 = n1;
+  return make_float2(a0, a1);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma(
+    const __grid_constant__ CUtensorMap mq,
+    const __grid_constant__ CUtensorMap mk,
+    const __grid_constant__ CUtensorMap mv, T* __restrict__ out,
+    float* __restrict__ lse, int sq, int sk, int h, int hk, float scale,
+    int causal) {
+  using C = FwdCfg<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, NS = C::NS;
+  extern __shared__ __align__(1024) uint8_t fa_tiles[];
+  uint8_t* const sQ = align1024(fa_tiles);
+  uint8_t* const sK = sQ + C::kQ;           // NS stages
+  uint8_t* const sV = sK + NS * C::kKV;     // NS stages
+  uint64_t* const q_full = reinterpret_cast<uint64_t*>(sQ + C::kBars);
+  uint64_t* const k_full = q_full + 1;
+  uint64_t* const v_full = k_full + NS;
+  uint64_t* const k_empty = v_full + NS;
+  uint64_t* const v_empty = k_empty + NS;
+  const int hq = blockIdx.x, b = blockIdx.y;
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * BQ;
+  const int kvh = hq / (h / hk);
+  const int n_kt = live_key_tiles(q0, BQ, sq, sk, BK, causal);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(k_full + i, 1);
+      mbar_init(v_full + i, 1);
+      mbar_init(k_empty + i, kConsumers);
+      mbar_init(v_empty + i, kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // -- producer: K and V stages freed on their own barriers --------------
+    reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, C::kQ);
+      for (int c = 0; c < D / 64; ++c)
+        tma_load_4d(sQ + c * BQ * 128, &mq, q_full, c * 64, hq, q0, b);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int st = kt % NS;
+        const uint32_t free = ((kt / NS) & 1) ^ 1;
+        mbar_wait(k_empty + st, free);
+        mbar_expect_tx(k_full + st, C::kKV);
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(sK + st * C::kKV + c * BK * 128, &mk, k_full + st,
+                      c * 64, kvh, kt * BK, b);
+        mbar_wait(v_empty + st, free);
+        mbar_expect_tx(v_full + st, C::kKV);
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(sV + st * C::kKV + c * BK * 128, &mv, v_full + st,
+                      c * 64, kvh, kt * BK, b);
+      }
+    }
+  } else {
+    // -- consumers: 64 query rows each.  Tile kt's QK^T and tile kt-1's PV
+    // are in flight together; the softmax of tile kt runs under the PV.
+    reg_alloc<240>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const int rw = q0 + cw * 64;                // this warpgroup's first row
+    const int r0 = rw + warp * 16 + g;
+    const float sc2 = scale * kLog2e;
+    const uint32_t aq = smem_u32(sQ) + cw * 64 * 128;
+    const uint32_t ak = smem_u32(sK), av = smem_u32(sV);
+    float o[D / 2], s[BK / 2];
+    uint32_t pf[BK / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    // the two warpgroups take turns to issue their products (warpgroup 0
+    // first), so one's softmax runs under the other's products
+    const int my_turn = 1 + cw, their_turn = 2 - cw;
+    if (cw == 1) named_arrive(1);
+    mbar_wait(q_full, 0);
+    // tile 0: scores and softmax alone
+    mbar_wait(k_full, 0);
+    named_sync(my_turn);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<T, BK>::ss(s, kdesc(aq, BQ, kk), kdesc(ak, BK, kk), kk);
+    wgmma_commit();
+    named_arrive(their_turn);
+    wgmma_wait<0>();
+    fence_regs<BK / 2>(s);
+    mbar_arrive(k_empty);
+    softmax_tile<BK>(s, m0, m1, l0, l1, 0, sk, r0, t, sc2,
+                     (causal && BK - 1 > rw) || BK > sk, causal);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) to_a<T>(s, kk, pf[kk]);
+    // tile kt's scores and tile kt-1's P.V in flight together
+    for (int kt = 1; kt < n_kt; ++kt) {
+      const int st = kt % NS, sp = (kt - 1) % NS;
+      const int k0 = kt * BK;
+      mbar_wait(k_full + st, (kt / NS) & 1);
+      mbar_wait(v_full + sp, ((kt - 1) / NS) & 1);
+      named_sync(my_turn);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<T, BK>::ss(s, kdesc(aq, BQ, kk),
+                         kdesc(ak + st * C::kKV, BK, kk), kk);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        Wgmma<T, D>::rs(o, pf[kk], mdesc(av + sp * C::kKV, BK, kk), 1);
+      wgmma_commit();
+      named_arrive(their_turn);
+      wgmma_wait<1>();
+      fence_regs<BK / 2>(s);
+      mbar_arrive(k_empty + st);
+      const float2 a = softmax_tile<BK>(
+          s, m0, m1, l0, l1, k0, sk, r0, t, sc2,
+          (causal && k0 + BK - 1 > rw) || k0 + BK > sk, causal);
+      wgmma_wait<0>();
+      fence_regs<D / 2>(o);
+      mbar_arrive(v_empty + sp);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= a.x;
+        o[4 * j + 1] *= a.x;
+        o[4 * j + 2] *= a.y;
+        o[4 * j + 3] *= a.y;
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) to_a<T>(s, kk, pf[kk]);
+    }
+    // the last tile's P.V
+    const int sl = (n_kt - 1) % NS;
+    mbar_wait(v_full + sl, ((n_kt - 1) / NS) & 1);
+    named_sync(my_turn);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      Wgmma<T, D>::rs(o, pf[kk], mdesc(av + sl * C::kKV, BK, kk), 1);
+    wgmma_commit();
+    if (cw == 0) named_arrive(their_turn);   // warpgroup 1 issues last
+    wgmma_wait<0>();
+    fence_regs<D / 2>(o);
+    mbar_arrive(v_empty + sl);
+    l0 = fmaxf(quad_sum(l0), 1e-30f);
+    l1 = fmaxf(quad_sum(l1), 1e-30f);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] /= l0;
+      o[4 * j + 1] /= l0;
+      o[4 * j + 2] /= l1;
+      o[4 * j + 3] /= l1;
+    }
+    const long long qstr = static_cast<long long>(h) * D;
+    store_rows<T, D>(o, out + (static_cast<long long>(b) * sq * h + hq) * D,
+                     qstr, r0, sq, t);
+    float* lrow = lse + (static_cast<long long>(b) * h + hq) * sq;
+    if (t == 0 && r0 < sq) lrow[r0] = (m0 + log2f(l0)) * kLn2;
+    if (t == 0 && r0 + 8 < sq) lrow[r0 + 8] = (m1 + log2f(l1)) * kLn2;
+  }
+}
+
+template <int D>
+struct DqCfg {
+  static constexpr int BQ = 128, BK = 64, NS = 2;
+  static constexpr int kQ = BQ * D * 2, kKV = BK * D * 2;
+  static constexpr int kBars = 2 * kQ + 2 * NS * kKV;
+  static constexpr size_t kSmem = kBars + 8 * (1 + 2 * NS) + 1024;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_dq_wgmma(
+    const __grid_constant__ CUtensorMap mq,
+    const __grid_constant__ CUtensorMap mdo,
+    const __grid_constant__ CUtensorMap mk,
+    const __grid_constant__ CUtensorMap mv, const T* __restrict__ out,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    float* __restrict__ delta, T* __restrict__ dq, int sq, int sk, int h,
     int hk, float scale, int causal) {
-  constexpr int BQ = 64, BK = 64, KS = D + 8, VS = BK + 8;
-  constexpr int N = ptt::Vec<T>::N;
-  __shared__ uint4 smem[(BK * KS + D * VS) * sizeof(T) / 16];
-  T* Ks = reinterpret_cast<T*>(smem);   // [BK][D + 8]
-  T* Vt = Ks + BK * KS;                 // [D][BK + 8], V transposed
-  const int q0 = blockIdx.x * BQ, hq = blockIdx.y, b = blockIdx.z;
+  using C = DqCfg<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, NS = C::NS;
+  extern __shared__ __align__(1024) uint8_t fa_tiles[];
+  uint8_t* const sQ = align1024(fa_tiles);
+  uint8_t* const sO = sQ + C::kQ;           // dO
+  uint8_t* const sK = sO + C::kQ;           // NS stages of K, then of V
+  uint8_t* const sV = sK + NS * C::kKV;
+  uint64_t* const q_full = reinterpret_cast<uint64_t*>(sQ + C::kBars);
+  uint64_t* const full = q_full + 1;
+  uint64_t* const empty = full + NS;
+  const int hq = blockIdx.x, b = blockIdx.y;
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * BQ;
   const int kvh = hq / (h / hk);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const long long qstr = static_cast<long long>(h) * D;
-  const long long kstr = static_cast<long long>(hk) * D;
-  const T* qb = q + (static_cast<long long>(b) * sq * h + hq) * D;
-  const T* kb = k + (static_cast<long long>(b) * sk * hk + kvh) * D;
-  const T* vb = v + (static_cast<long long>(b) * sk * hk + kvh) * D;
-  const int ra = q0 + warp * 16 + g, rb = ra + 8;
-  const bool active = q0 + warp * 16 < sq;
-
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-#pragma unroll
-    for (int reg = 0; reg < 4; ++reg) {
-      const int r = (reg & 1) ? rb : ra;
-      const int col = ks * 16 + 2 * t4 + ((reg & 2) ? 8 : 0);
-      qf[ks][reg] = r < sq ? ptt::ld32(qb + r * qstr + col) : 0u;
-    }
-  float o[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-    o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-  float ma = kNegInf, mb = kNegInf, la = 0.f, lb = 0.f;
-
   const int n_kt = live_key_tiles(q0, BQ, sq, sk, BK, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    tile_to_smem<T, D>(kb, kstr, k0, BK, sk, Ks, KS);
-    // consecutive threads take consecutive keys, so the transposed
-    // stores of a warp land in distinct shared-memory words
-    for (int e = threadIdx.x; e < BK * (D / N); e += blockDim.x) {
-      const int t = e % BK;
-      const int i = (e / BK) * N;
-      uint4 vv = {0u, 0u, 0u, 0u};
-      if (k0 + t < sk)
-        vv = __ldg(reinterpret_cast<const uint4*>(vb + (k0 + t) * kstr + i));
-      const T* ve = reinterpret_cast<const T*>(&vv);
-#pragma unroll
-      for (int u = 0; u < N; ++u) Vt[(i + u) * VS + t] = ve[u];
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kConsumers);
     }
-    __syncthreads();
-    if (active) {
-      float s[BK / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt)
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)
-#pragma unroll
-        for (int nt = 0; nt < BK / 8; ++nt) {
-          const T* kr = Ks + (nt * 8 + g) * KS + ks * 16 + 2 * t4;
-          const uint32_t bf[2] = {ptt::ld32(kr), ptt::ld32(kr + 8)};
-          ptt::mma_16816<T>(s[nt], qf[ks], bf);
-        }
-      float mxa = -INFINITY, mxb = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + nt * 8 + 2 * t4 + (e & 1);
-          const int row = e < 2 ? ra : rb;
-          const bool ok = key < sk && (!causal || key <= row);
-          s[nt][e] = ok ? s[nt][e] * scale : -INFINITY;
-          if (e < 2)
-            mxa = fmaxf(mxa, s[nt][e]);
-          else
-            mxb = fmaxf(mxb, s[nt][e]);
-        }
-      // the four lanes of a quad hold one row's scores
-#pragma unroll
-      for (int x = 1; x <= 2; x <<= 1) {
-        mxa = fmaxf(mxa, __shfl_xor_sync(0xffffffffu, mxa, x));
-        mxb = fmaxf(mxb, __shfl_xor_sync(0xffffffffu, mxb, x));
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * C::kQ);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(sQ + c * BQ * 128, &mq, q_full, c * 64, hq, q0, b);
+        tma_load_4d(sO + c * BQ * 128, &mdo, q_full, c * 64, hq, q0, b);
       }
-      const float na = fmaxf(ma, mxa), nb = fmaxf(mb, mxb);
-      float sa = 0.f, sb = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = s[nt][e];
-          const float p = x == -INFINITY ? 0.f : expf(x - (e < 2 ? na : nb));
-          s[nt][e] = p;
-          if (e < 2)
-            sa += p;
-          else
-            sb += p;
-        }
-#pragma unroll
-      for (int x = 1; x <= 2; x <<= 1) {
-        sa += __shfl_xor_sync(0xffffffffu, sa, x);
-        sb += __shfl_xor_sync(0xffffffffu, sb, x);
-      }
-      const float aa = expf(ma - na), ab = expf(mb - nb);
-      la = la * aa + sa;
-      lb = lb * ab + sb;
-      ma = na;
-      mb = nb;
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt) {
-        o[nt][0] *= aa;
-        o[nt][1] *= aa;
-        o[nt][2] *= ab;
-        o[nt][3] *= ab;
-      }
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) {
-        const uint32_t pf[4] = {ptt::pack2<T>(s[2 * j][0], s[2 * j][1]),
-                                ptt::pack2<T>(s[2 * j][2], s[2 * j][3]),
-                                ptt::pack2<T>(s[2 * j + 1][0], s[2 * j + 1][1]),
-                                ptt::pack2<T>(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-        for (int nt = 0; nt < D / 8; ++nt) {
-          const T* vr = Vt + (nt * 8 + g) * VS + j * 16 + 2 * t4;
-          const uint32_t bf[2] = {ptt::ld32(vr), ptt::ld32(vr + 8)};
-          ptt::mma_16816<T>(o[nt], pf, bf);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int st = kt % NS;
+        mbar_wait(empty + st, ((kt / NS) & 1) ^ 1);
+        mbar_expect_tx(full + st, 2 * C::kKV);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(sK + st * C::kKV + c * BK * 128, &mk, full + st, c * 64,
+                      kvh, kt * BK, b);
+          tma_load_4d(sV + st * C::kKV + c * BK * 128, &mv, full + st, c * 64,
+                      kvh, kt * BK, b);
         }
       }
     }
-    __syncthreads();
-  }
-  if (!active) return;
-  T* ob = out + (static_cast<long long>(b) * sq * h + hq) * D;
-  float* lrow = lse + (static_cast<long long>(b) * h + hq) * sq;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = half ? rb : ra;
-    if (r >= sq) continue;
-    const float l = fmaxf(half ? lb : la, 1e-30f);
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<uint32_t*>(ob + r * qstr + nt * 8 + 2 * t4) =
-          ptt::pack2<T>(o[nt][2 * half] / l, o[nt][2 * half + 1] / l);
-    if (t4 == 0) lrow[r] = (half ? mb : ma) + logf(l);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(128) flash_dq_mma(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int sq, int sk,
-    int h, int hk, float scale, int causal) {
-  constexpr int BQ = 64, BK = 32, KS = D + 8;
-  __shared__ uint4 smem[2 * BK * KS * sizeof(T) / 16];
-  T* Ks = reinterpret_cast<T*>(smem);   // [BK][D + 8]
-  T* Vs = Ks + BK * KS;                 // [BK][D + 8]
-  const int q0 = blockIdx.x * BQ, hq = blockIdx.y, b = blockIdx.z;
-  const int kvh = hq / (h / hk);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const long long qstr = static_cast<long long>(h) * D;
-  const long long kstr = static_cast<long long>(hk) * D;
-  const long long qoff = (static_cast<long long>(b) * sq * h + hq) * D;
-  const T* kb = k + (static_cast<long long>(b) * sk * hk + kvh) * D;
-  const T* vb = v + (static_cast<long long>(b) * sk * hk + kvh) * D;
-  const long long soff = (static_cast<long long>(b) * h + hq) * sq;
-  const int ra = q0 + warp * 16 + g, rb = ra + 8;
-  const bool active = q0 + warp * 16 < sq;
-
-  uint32_t qf[D / 16][4], of[D / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-#pragma unroll
-    for (int reg = 0; reg < 4; ++reg) {
-      const int r = (reg & 1) ? rb : ra;
-      const long long at = qoff + r * qstr + ks * 16 + 2 * t4 + ((reg & 2) ? 8 : 0);
-      qf[ks][reg] = r < sq ? ptt::ld32(q + at) : 0u;
-      of[ks][reg] = r < sq ? ptt::ld32(dout + at) : 0u;
-    }
-  const float lsa = ra < sq ? lse[soff + ra] : 0.f;
-  const float lsb = rb < sq ? lse[soff + rb] : 0.f;
-  const float dla = ra < sq ? delta[soff + ra] : 0.f;
-  const float dlb = rb < sq ? delta[soff + rb] : 0.f;
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-
-  const int n_kt = live_key_tiles(q0, BQ, sq, sk, BK, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    tile_to_smem<T, D>(kb, kstr, k0, BK, sk, Ks, KS);
-    tile_to_smem<T, D>(vb, kstr, k0, BK, sk, Vs, KS);
-    __syncthreads();
-    if (active) {
-      float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)
-#pragma unroll
-        for (int nt = 0; nt < BK / 8; ++nt) {
-          const T* kr = Ks + (nt * 8 + g) * KS + ks * 16 + 2 * t4;
-          const uint32_t kf[2] = {ptt::ld32(kr), ptt::ld32(kr + 8)};
-          ptt::mma_16816<T>(s[nt], qf[ks], kf);
-          const T* vr = Vs + (nt * 8 + g) * KS + ks * 16 + 2 * t4;
-          const uint32_t vf[2] = {ptt::ld32(vr), ptt::ld32(vr + 8)};
-          ptt::mma_16816<T>(dp[nt], of[ks], vf);
-        }
-      // s becomes ds = p * (dp - delta) * scale
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + nt * 8 + 2 * t4 + (e & 1);
-          const int row = e < 2 ? ra : rb;
-          const bool ok = row < sq && key < sk && (!causal || key <= row);
-          const float p = ok ? expf(s[nt][e] * scale - (e < 2 ? lsa : lsb)) : 0.f;
-          s[nt][e] = p * (dp[nt][e] - (e < 2 ? dla : dlb)) * scale;
-        }
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) {
-        const uint32_t af[4] = {ptt::pack2<T>(s[2 * j][0], s[2 * j][1]),
-                                ptt::pack2<T>(s[2 * j][2], s[2 * j][3]),
-                                ptt::pack2<T>(s[2 * j + 1][0], s[2 * j + 1][1]),
-                                ptt::pack2<T>(s[2 * j + 1][2], s[2 * j + 1][3])};
-        const T* k_lo = Ks + (j * 16 + 2 * t4) * KS + g;
-#pragma unroll
-        for (int nt = 0; nt < D / 8; ++nt) {
-          const T* kc = k_lo + nt * 8;
-          const uint32_t bf[2] = {ld_pair(kc, kc + KS),
-                                  ld_pair(kc + 8 * KS, kc + 9 * KS)};
-          ptt::mma_16816<T>(acc[nt], af, bf);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (!active) return;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = half ? rb : ra;
-    if (r >= sq) continue;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<uint32_t*>(dq + qoff + r * qstr + nt * 8 + 2 * t4) =
-          ptt::pack2<T>(acc[nt][2 * half], acc[nt][2 * half + 1]);
-  }
-}
-
-template <typename T, int D>
-constexpr size_t dkv_mma_smem() {
-  return sizeof(T) * (2 * 64 + 2 * 32) * (D + 8) + 2 * 32 * sizeof(float);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(128) flash_dkv_mma(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    int sq, int sk, int h, int hk, float scale, int causal) {
-  constexpr int BKV = 64, BQ = 32, KS = D + 8;
-  extern __shared__ uint4 fa_smem[];
-  T* Ks = reinterpret_cast<T*>(fa_smem);   // [BKV][D + 8]
-  T* Vs = Ks + BKV * KS;                     // [BKV][D + 8]
-  T* Qs = Vs + BKV * KS;                     // [BQ][D + 8]
-  T* Os = Qs + BQ * KS;                      // [BQ][D + 8], dO
-  float* Ls = reinterpret_cast<float*>(Os + BQ * KS);   // [BQ] lse
-  float* Ds = Ls + BQ;                                  // [BQ] delta
-  const int k0 = blockIdx.x * BKV, kvh = blockIdx.y, b = blockIdx.z;
-  const int group = h / hk;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const long long qstr = static_cast<long long>(h) * D;
-  const long long kstr = static_cast<long long>(hk) * D;
-  const long long koff = (static_cast<long long>(b) * sk * hk + kvh) * D;
-  tile_to_smem<T, D>(k + koff, kstr, k0, BKV, sk, Ks, KS);
-  tile_to_smem<T, D>(v + koff, kstr, k0, BKV, sk, Vs, KS);
-  const int kw = k0 + warp * 16;             // this warp's first key
-  const int ka = kw + g, kb = ka + 8;
-  const T* kr = Ks + (warp * 16 + g) * KS + 2 * t4;
-  const T* vr = Vs + (warp * 16 + g) * KS + 2 * t4;
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.f;
-
-  const int qt0 = causal ? k0 / BQ : 0;
-  const int n_qt = (sq + BQ - 1) / BQ;
-  for (int gi = 0; gi < group; ++gi) {
-    const int hq = kvh * group + gi;
+  } else {
+    reg_alloc<240>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const int rw = q0 + cw * 64;
+    const int r0 = rw + warp * 16 + g;
+    const float sc2 = scale * kLog2e;
+    const long long qstr = static_cast<long long>(h) * D;
     const long long qoff = (static_cast<long long>(b) * sq * h + hq) * D;
     const long long soff = (static_cast<long long>(b) * h + hq) * sq;
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();   // the previous tile's readers are done
-      tile_to_smem<T, D>(q + qoff, qstr, q0, BQ, sq, Qs, KS);
-      tile_to_smem<T, D>(dout + qoff, qstr, q0, BQ, sq, Os, KS);
-      for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
-        Ls[i] = q0 + i < sq ? lse[soff + q0 + i] : 0.f;
-        Ds[i] = q0 + i < sq ? delta[soff + q0 + i] : 0.f;
-      }
-      __syncthreads();
-      if (kw >= sk || (causal && kw > q0 + BQ - 1)) continue;
-      float st[BQ / 8][4], dpt[BQ / 8][4];   // S^T and dP^T: keys x rows
+    // delta = rowsum(dO . O) in fp32: the four threads of a quad split
+    // the row; lse in base-2 units
+    float dl[2], l2[2];
 #pragma unroll
-      for (int nt = 0; nt < BQ / 8; ++nt)
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half;
+      float acc = 0.f;
+      if (r < sq) {
+        const long long at = qoff + r * qstr + t * (D / 4);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
+        for (int u = 0; u < D / 4; u += ptt::Vec<T>::N) {
+          float x[ptt::Vec<T>::N], y[ptt::Vec<T>::N];
+          ptt::load_vec<T>(dout + at + u, x);
+          ptt::load_vec<T>(out + at + u, y);
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        const int c = ks * 16;
-        const uint32_t ak[4] = {ptt::ld32(kr + c), ptt::ld32(kr + 8 * KS + c),
-                                ptt::ld32(kr + c + 8),
-                                ptt::ld32(kr + 8 * KS + c + 8)};
-        const uint32_t av[4] = {ptt::ld32(vr + c), ptt::ld32(vr + 8 * KS + c),
-                                ptt::ld32(vr + c + 8),
-                                ptt::ld32(vr + 8 * KS + c + 8)};
-#pragma unroll
-        for (int nt = 0; nt < BQ / 8; ++nt) {
-          const T* qr = Qs + (nt * 8 + g) * KS + c + 2 * t4;
-          const uint32_t bq[2] = {ptt::ld32(qr), ptt::ld32(qr + 8)};
-          ptt::mma_16816<T>(st[nt], ak, bq);
-          const T* orr = Os + (nt * 8 + g) * KS + c + 2 * t4;
-          const uint32_t bo[2] = {ptt::ld32(orr), ptt::ld32(orr + 8)};
-          ptt::mma_16816<T>(dpt[nt], av, bo);
+          for (int i = 0; i < ptt::Vec<T>::N; ++i) acc = fmaf(x[i], y[i], acc);
         }
       }
-      // st becomes p, dpt becomes ds
+      dl[half] = quad_sum(acc);
+      if (t == 0 && r < sq) delta[soff + r] = dl[half];
+      l2[half] = r < sq ? lse[soff + r] * kLog2e : 0.f;
+    }
+    const uint32_t aq = smem_u32(sQ) + cw * 64 * 128;
+    const uint32_t ao = smem_u32(sO) + cw * 64 * 128;
+    const uint32_t ak = smem_u32(sK), av = smem_u32(sV);
+    float acc[D / 2];
 #pragma unroll
-      for (int nt = 0; nt < BQ / 8; ++nt)
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    mbar_wait(q_full, 0);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int st = kt % NS;
+      const int k0 = kt * BK;
+      float s[BK / 2], dp[BK / 2];
+      mbar_wait(full + st, (kt / NS) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<T, BK>::ss(s, kdesc(aq, BQ, kk),
+                         kdesc(ak + st * C::kKV, BK, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<T, BK>::ss(dp, kdesc(ao, BQ, kk),
+                         kdesc(av + st * C::kKV, BK, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<BK / 2>(s);
+      fence_regs<BK / 2>(dp);
+      // s becomes ds = p * (dp - delta) * scale
+      const bool edge = (causal && k0 + BK - 1 > rw) || k0 + BK > sk;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int key = e < 2 ? ka : kb;
-          const int qi = nt * 8 + 2 * t4 + (e & 1);
-          const int row = q0 + qi;
-          const bool ok = row < sq && key < sk && (!causal || row >= key);
-          const float p = ok ? expf(st[nt][e] * scale - Ls[qi]) : 0.f;
-          st[nt][e] = p;
-          dpt[nt][e] = p * (dpt[nt][e] - Ds[qi]) * scale;
+          const int half = e >> 1;
+          float p = exp2_ftz(s[4 * j + e] * sc2 - l2[half]);
+          if (edge) {
+            const int key = k0 + 8 * j + 2 * t + (e & 1);
+            if (key >= sk || (causal && key > r0 + 8 * half)) p = 0.f;
+          }
+          s[4 * j + e] = p * (dp[4 * j + e] - dl[half]) * scale;
         }
+      uint32_t df[BK / 16][4];
 #pragma unroll
-      for (int j = 0; j < BQ / 16; ++j) {
-        const uint32_t pf[4] = {ptt::pack2<T>(st[2 * j][0], st[2 * j][1]),
-                                ptt::pack2<T>(st[2 * j][2], st[2 * j][3]),
-                                ptt::pack2<T>(st[2 * j + 1][0], st[2 * j + 1][1]),
-                                ptt::pack2<T>(st[2 * j + 1][2], st[2 * j + 1][3])};
-        const uint32_t sf[4] = {ptt::pack2<T>(dpt[2 * j][0], dpt[2 * j][1]),
-                                ptt::pack2<T>(dpt[2 * j][2], dpt[2 * j][3]),
-                                ptt::pack2<T>(dpt[2 * j + 1][0], dpt[2 * j + 1][1]),
-                                ptt::pack2<T>(dpt[2 * j + 1][2], dpt[2 * j + 1][3])};
-        const int r0 = (j * 16 + 2 * t4) * KS + g;
+      for (int kk = 0; kk < BK / 16; ++kk) to_a<T>(s, kk, df[kk]);
+      wgmma_fence();
 #pragma unroll
-        for (int nt = 0; nt < D / 8; ++nt) {
-          const T* oc = Os + r0 + nt * 8;
-          const uint32_t bo[2] = {ld_pair(oc, oc + KS),
-                                  ld_pair(oc + 8 * KS, oc + 9 * KS)};
-          ptt::mma_16816<T>(dva[nt], pf, bo);
-          const T* qc = Qs + r0 + nt * 8;
-          const uint32_t bq[2] = {ld_pair(qc, qc + KS),
-                                  ld_pair(qc + 8 * KS, qc + 9 * KS)};
-          ptt::mma_16816<T>(dka[nt], sf, bq);
+      for (int kk = 0; kk < BK / 16; ++kk)
+        Wgmma<T, D>::rs(acc, df[kk], mdesc(ak + st * C::kKV, BK, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<D / 2>(acc);
+      mbar_arrive(empty + st);
+    }
+    store_rows<T, D>(acc, dq + qoff, qstr, r0, sq, t);
+  }
+}
+
+template <int D>
+struct DkvCfg {
+  static constexpr int BKV = 128, BQ = 64, NS = 3;
+  // lse and delta boxes: a TMA box starts 16-byte aligned, so a row's
+  // 64 values are read from the multiple of 4 at or below their start,
+  // 4 more; each stage's slot is 128-byte aligned
+  static constexpr int kVecBox = BQ + 4;
+  static constexpr int kKV = BKV * D * 2, kQ = BQ * D * 2, kVec = 384;
+  static constexpr int kBars = 2 * kKV + 2 * NS * kQ + 2 * NS * kVec;
+  static constexpr size_t kSmem = kBars + 8 * (1 + 2 * NS) + 1024;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_dkv_wgmma(
+    const __grid_constant__ CUtensorMap mk,
+    const __grid_constant__ CUtensorMap mv,
+    const __grid_constant__ CUtensorMap mq,
+    const __grid_constant__ CUtensorMap mdo,
+    const __grid_constant__ CUtensorMap ml,
+    const __grid_constant__ CUtensorMap md, T* __restrict__ dk,
+    T* __restrict__ dv, int sq, int sk, int h, int hk, float scale,
+    int causal) {
+  using C = DkvCfg<D>;
+  constexpr int BKV = C::BKV, BQ = C::BQ, NS = C::NS;
+  extern __shared__ __align__(1024) uint8_t fa_tiles[];
+  uint8_t* const sK = align1024(fa_tiles);
+  uint8_t* const sV = sK + C::kKV;
+  uint8_t* const sQ = sV + C::kKV;          // NS stages of Q, then of dO
+  uint8_t* const sO = sQ + NS * C::kQ;
+  float* const sL = reinterpret_cast<float*>(sO + NS * C::kQ);   // lse
+  float* const sD = sL + NS * C::kVec / 4;                       // delta
+  uint64_t* const kv_full = reinterpret_cast<uint64_t*>(sK + C::kBars);
+  uint64_t* const full = kv_full + 1;
+  uint64_t* const empty = full + NS;
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * BKV;        // causal: the heaviest tile first
+  const int group = h / hk;
+  const int qt0 = causal ? k0 / BQ : 0;
+  const int n_qt = (sq + BQ - 1) / BQ;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * C::kKV);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(sK + c * BKV * 128, &mk, kv_full, c * 64, kvh, k0, b);
+        tma_load_4d(sV + c * BKV * 128, &mv, kv_full, c * 64, kvh, k0, b);
+      }
+      int it = 0;
+      for (int gi = 0; gi < group; ++gi) {
+        const int hq = kvh * group + gi;
+        const int lrow = (b * h + hq) * sq;
+        for (int qt = qt0; qt < n_qt; ++qt, ++it) {
+          const int st = it % NS;
+          mbar_wait(empty + st, ((it / NS) & 1) ^ 1);
+          mbar_expect_tx(full + st, 2 * C::kQ + 2 * C::kVecBox * 4);
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load_4d(sQ + st * C::kQ + c * BQ * 128, &mq, full + st,
+                        c * 64, hq, qt * BQ, b);
+            tma_load_4d(sO + st * C::kQ + c * BQ * 128, &mdo, full + st,
+                        c * 64, hq, qt * BQ, b);
+          }
+          const int at = (lrow + qt * BQ) & ~3;
+          tma_load_1d(sL + st * C::kVec / 4, &ml, full + st, at);
+          tma_load_1d(sD + st * C::kVec / 4, &md, full + st, at);
         }
       }
     }
-  }
+  } else {
+    reg_alloc<240>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const int kw = k0 + cw * 64;                // this warpgroup's first key
+    const int kr0 = kw + warp * 16 + g;
+    const float sc2 = scale * kLog2e;
+    const uint32_t ak = smem_u32(sK) + cw * 64 * 128;
+    const uint32_t av = smem_u32(sV) + cw * 64 * 128;
+    const uint32_t aq = smem_u32(sQ), ao = smem_u32(sO);
+    float dka[D / 2], dva[D / 2];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int key = half ? kb : ka;
-    if (key >= sk) continue;
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    mbar_wait(kv_full, 0);
+    int it = 0;
+    for (int gi = 0; gi < group; ++gi) {
+      const int lrow = (b * h + kvh * group + gi) * sq;
+      for (int qt = qt0; qt < n_qt; ++qt, ++it) {
+        const int st = it % NS;
+        const int q0 = qt * BQ;
+        mbar_wait(full + st, (it / NS) & 1);
+        if (!causal || q0 + BQ - 1 >= kw) {   // some row sees some key
+          float s[BQ / 2], dp[BQ / 2];        // S^T and dP^T: keys x rows
+          wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      const long long at = koff + key * kstr + nt * 8 + 2 * t4;
-      *reinterpret_cast<uint32_t*>(dk + at) =
-          ptt::pack2<T>(dka[nt][2 * half], dka[nt][2 * half + 1]);
-      *reinterpret_cast<uint32_t*>(dv + at) =
-          ptt::pack2<T>(dva[nt][2 * half], dva[nt][2 * half + 1]);
+          for (int kk = 0; kk < D / 16; ++kk)
+            Wgmma<T, BQ>::ss(s, kdesc(ak, BKV, kk),
+                             kdesc(aq + st * C::kQ, BQ, kk), kk);
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            Wgmma<T, BQ>::ss(dp, kdesc(av, BKV, kk),
+                             kdesc(ao + st * C::kQ, BQ, kk), kk);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs<BQ / 2>(s);
+          fence_regs<BQ / 2>(dp);
+          // s becomes p, dp becomes ds
+          const bool edge = (causal && q0 < kw + 63) || q0 + BQ > sq;
+          const int off = (lrow + q0) & 3;     // the box's aligned start
+          const float* L = sL + st * C::kVec / 4 + off + 2 * t;
+          const float* Dl = sD + st * C::kVec / 4 + off + 2 * t;
+#pragma unroll
+          for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float lc = L[8 * j + (e & 1)];
+              const float dc = Dl[8 * j + (e & 1)];
+              float p = exp2_ftz(s[4 * j + e] * sc2 - lc * kLog2e);
+              if (edge) {
+                const int row = q0 + 8 * j + 2 * t + (e & 1);
+                const int key = kr0 + 8 * (e >> 1);
+                if (row >= sq || (causal && row < key)) p = 0.f;
+              }
+              s[4 * j + e] = p;
+              dp[4 * j + e] = p * (dp[4 * j + e] - dc) * scale;
+            }
+          }
+          uint32_t pf[BQ / 16][4], df[BQ / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk) {
+            to_a<T>(s, kk, pf[kk]);
+            to_a<T>(dp, kk, df[kk]);
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk)
+            Wgmma<T, D>::rs(dva, pf[kk], mdesc(ao + st * C::kQ, BQ, kk), 1);
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk)
+            Wgmma<T, D>::rs(dka, df[kk], mdesc(aq + st * C::kQ, BQ, kk), 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs<D / 2>(dka);
+          fence_regs<D / 2>(dva);
+        }
+        mbar_arrive(empty + st);
+      }
     }
+    const long long kstr = static_cast<long long>(hk) * D;
+    const long long koff = (static_cast<long long>(b) * sk * hk + kvh) * D;
+    store_rows<T, D>(dka, dk + koff, kstr, kr0, sk, t);
+    store_rows<T, D>(dva, dv + koff, kstr, kr0, sk, t);
   }
+}
+
+// delta = rowsum(dO . O) [B, h, sq] for the fp32 path, one thread a row
+template <typename T, int D>
+__global__ void __launch_bounds__(256) flash_delta_simt(
+    const T* __restrict__ out, const T* __restrict__ dout,
+    float* __restrict__ delta, int B, int sq, int h) {
+  const long long i = blockIdx.x * 256ll + threadIdx.x;   // over [B, sq, h]
+  if (i >= static_cast<long long>(B) * sq * h) return;
+  const int hq = static_cast<int>(i % h);
+  const long long bs = i / h;
+  const int r = static_cast<int>(bs % sq), b = static_cast<int>(bs / sq);
+  float acc = 0.f;
+  for (int d = 0; d < D; ++d)
+    acc = fmaf(ptt::to_f(dout[i * D + d]), ptt::to_f(out[i * D + d]), acc);
+  delta[(static_cast<long long>(b) * h + hq) * sq + r] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -746,6 +966,8 @@ struct Shape {
   int causal;
 };
 
+int blocks(int n, int rows) { return (n + rows - 1) / rows; }
+
 template <typename T, int D>
 int fwd(const Shape& s, const void* q, const void* k, const void* v,
         void* out, void* lse, cudaStream_t st) {
@@ -759,62 +981,95 @@ int fwd(const Shape& s, const void* q, const void* k, const void* v,
         static_cast<const T*>(v), static_cast<T*>(out),
         static_cast<float*>(lse), s.sq, s.sk, s.h, s.hk, s.scale, s.causal);
   } else {
-    const dim3 grid((s.sq + 63) / 64, s.h, s.B);
-    flash_fwd_mma<T, D><<<grid, 128, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out),
-        static_cast<float*>(lse), s.sq, s.sk, s.h, s.hk, s.scale, s.causal);
+    using C = FwdCfg<D>;
+    static int rc_opt = opt_in(flash_fwd_wgmma<T, D>, C::kSmem);
+    if (rc_opt) return rc_opt;
+    CUtensorMap mq, mk, mv;
+    if (!map_rows16(&mq, q, s.B, s.sq, s.h, D, C::BQ) ||
+        !map_rows16(&mk, k, s.B, s.sk, s.hk, D, C::BK) ||
+        !map_rows16(&mv, v, s.B, s.sk, s.hk, D, C::BK))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid(s.h, s.B, blocks(s.sq, C::BQ));
+    flash_fwd_wgmma<T, D><<<grid, kThreads, C::kSmem, st>>>(
+        mq, mk, mv, static_cast<T*>(out), static_cast<float*>(lse), s.sq,
+        s.sk, s.h, s.hk, s.scale, s.causal);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
 int bwd(const Shape& s, const void* q, const void* k, const void* v,
-        const void* dout, const void* lse, const void* delta, void* dq,
-        void* dk, void* dv, cudaStream_t st) {
+        const void* out, const void* dout, const void* lse, void* delta,
+        void* dq, void* dk, void* dv, cudaStream_t st) {
   const T* q_ = static_cast<const T*>(q);
   const T* k_ = static_cast<const T*>(k);
   const T* v_ = static_cast<const T*>(v);
-  const T* o_ = static_cast<const T*>(dout);
+  const T* o_ = static_cast<const T*>(out);
+  const T* g_ = static_cast<const T*>(dout);
   const float* l_ = static_cast<const float*>(lse);
-  const float* d_ = static_cast<const float*>(delta);
+  float* d_ = static_cast<float*>(delta);
   if constexpr (std::is_same<T, float>::value) {
     const size_t smem_q = dq_simt_smem<D>(), smem_kv = dkv_simt_smem<D>();
     static int rc_q = opt_in(flash_dq_simt<T, D>, smem_q);
     static int rc_kv = opt_in(flash_dkv_simt<T, D>, smem_kv);
     if (rc_q) return rc_q;
     if (rc_kv) return rc_kv;
+    const long long rows = static_cast<long long>(s.B) * s.sq * s.h;
+    flash_delta_simt<T, D><<<static_cast<unsigned>((rows + 255) / 256), 256,
+                             0, st>>>(o_, g_, d_, s.B, s.sq, s.h);
+    int rc = static_cast<int>(cudaGetLastError());
+    if (rc) return rc;
     const dim3 gq((s.sq + kRowsSimt - 1) / kRowsSimt, s.h, s.B);
     flash_dq_simt<T, D><<<gq, 128, smem_q, st>>>(
-        q_, k_, v_, o_, l_, d_, static_cast<T*>(dq), s.sq, s.sk, s.h, s.hk,
+        q_, k_, v_, g_, l_, d_, static_cast<T*>(dq), s.sq, s.sk, s.h, s.hk,
         s.scale, s.causal);
-    const int rc = static_cast<int>(cudaGetLastError());
+    rc = static_cast<int>(cudaGetLastError());
     if (rc) return rc;
     const dim3 gkv((s.sk + 31) / 32, s.hk, s.B);
     flash_dkv_simt<T, D><<<gkv, 128, smem_kv, st>>>(
-        q_, k_, v_, o_, l_, d_, static_cast<T*>(dk), static_cast<T*>(dv),
+        q_, k_, v_, g_, l_, d_, static_cast<T*>(dk), static_cast<T*>(dv),
         s.sq, s.sk, s.h, s.hk, s.scale, s.causal);
   } else {
-    const size_t smem_kv = dkv_mma_smem<T, D>();
-    static int rc_kv = opt_in(flash_dkv_mma<T, D>, smem_kv);
+    using Q = DqCfg<D>;
+    using KV = DkvCfg<D>;
+    static int rc_q = opt_in(flash_dq_wgmma<T, D>, Q::kSmem);
+    static int rc_kv = opt_in(flash_dkv_wgmma<T, D>, KV::kSmem);
+    if (rc_q) return rc_q;
     if (rc_kv) return rc_kv;
-    const dim3 gq((s.sq + 63) / 64, s.h, s.B);
-    flash_dq_mma<T, D><<<gq, 128, 0, st>>>(q_, k_, v_, o_, l_, d_,
-                                           static_cast<T*>(dq), s.sq, s.sk,
-                                           s.h, s.hk, s.scale, s.causal);
+    const long long n = static_cast<long long>(s.B) * s.h * s.sq;
+    CUtensorMap mq, mdo, mk, mv, mk2, mv2, mq2, mdo2, ml, md;
+    if (!map_rows16(&mq, q, s.B, s.sq, s.h, D, Q::BQ) ||
+        !map_rows16(&mdo, dout, s.B, s.sq, s.h, D, Q::BQ) ||
+        !map_rows16(&mk, k, s.B, s.sk, s.hk, D, Q::BK) ||
+        !map_rows16(&mv, v, s.B, s.sk, s.hk, D, Q::BK) ||
+        !map_rows16(&mk2, k, s.B, s.sk, s.hk, D, KV::BKV) ||
+        !map_rows16(&mv2, v, s.B, s.sk, s.hk, D, KV::BKV) ||
+        !map_rows16(&mq2, q, s.B, s.sq, s.h, D, KV::BQ) ||
+        !map_rows16(&mdo2, dout, s.B, s.sq, s.h, D, KV::BQ) ||
+        !map_vec32(&ml, lse, n, KV::kVecBox) ||
+        !map_vec32(&md, delta, n, KV::kVecBox))
+      return static_cast<int>(cudaErrorInvalidValue);
+    flash_dq_wgmma<T, D><<<dim3(s.h, s.B, blocks(s.sq, Q::BQ)), kThreads,
+                           Q::kSmem, st>>>(
+        mq, mdo, mk, mv, o_, g_, l_, d_, static_cast<T*>(dq), s.sq, s.sk,
+        s.h, s.hk, s.scale, s.causal);
     const int rc = static_cast<int>(cudaGetLastError());
     if (rc) return rc;
-    const dim3 gkv((s.sk + 63) / 64, s.hk, s.B);
-    flash_dkv_mma<T, D><<<gkv, 128, smem_kv, st>>>(
-        q_, k_, v_, o_, l_, d_, static_cast<T*>(dk), static_cast<T*>(dv),
+    flash_dkv_wgmma<T, D><<<dim3(s.hk, s.B, blocks(s.sk, KV::BKV)), kThreads,
+                            KV::kSmem, st>>>(
+        mk2, mv2, mq2, mdo2, ml, md, static_cast<T*>(dk), static_cast<T*>(dv),
         s.sq, s.sk, s.h, s.hk, s.scale, s.causal);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// the grids' y and z dimensions and the 32-bit offsets of the lse and
+// delta tensor maps bound the sizes
 bool bad_shape(int B, int sq, int sk, int h, int hk, int d) {
   return B <= 0 || B > 65535 || sq <= 0 || sk <= 0 || h <= 0 || h > 65535 ||
-         hk <= 0 || h % hk || (d != 64 && d != 128);
+         hk <= 0 || h % hk || (d != 64 && d != 128) ||
+         static_cast<long long>(B) * h * sq >= (1ll << 31) ||
+         sq > 65535 * 128 || sk > 65535 * 128;
 }
 
 }  // namespace
@@ -839,26 +1094,31 @@ extern "C" int ptt_flash_fwd(int device, int dtype, const void* q,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dout like q; lse and delta = rowsum(dout * out) [B, h, sq] fp32; dq
-// like q, dk/dv like k.  Two launches: dq, then dk/dv.
+// out and dout like q; lse [B, h, sq] fp32; delta [B, h, sq] fp32 is
+// scratch the first launch fills with rowsum(dout * out); dq like q,
+// dk/dv like k.  bf16/fp16: two launches, dq (with delta), then dk/dv;
+// fp32: delta, dq, dk/dv.
 extern "C" int ptt_flash_bwd(int device, int dtype, const void* q,
-                             const void* k, const void* v, const void* dout,
-                             const void* lse, const void* delta, void* dq,
-                             void* dk, void* dv, int B, int sq, int sk, int h,
-                             int hk, int d, float scale, int causal,
-                             void* stream) {
+                             const void* k, const void* v, const void* out,
+                             const void* dout, const void* lse, void* delta,
+                             void* dq, void* dk, void* dv, int B, int sq,
+                             int sk, int h, int hk, int d, float scale,
+                             int causal, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (bad_shape(B, sq, sk, h, hk, d) || !ptt::aligned16(q) ||
-      !ptt::aligned16(k) || !ptt::aligned16(v) || !ptt::aligned16(dout) ||
-      !ptt::aligned16(dq) || !ptt::aligned16(dk) || !ptt::aligned16(dv))
+      !ptt::aligned16(k) || !ptt::aligned16(v) || !ptt::aligned16(out) ||
+      !ptt::aligned16(dout) || !ptt::aligned16(lse) ||
+      !ptt::aligned16(delta) || !ptt::aligned16(dq) || !ptt::aligned16(dk) ||
+      !ptt::aligned16(dv))
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape s{B, sq, sk, h, hk, scale, causal};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   PTT_DISPATCH(dtype, T, {
-    return d == 64
-               ? bwd<T, 64>(s, q, k, v, dout, lse, delta, dq, dk, dv, st)
-               : bwd<T, 128>(s, q, k, v, dout, lse, delta, dq, dk, dv, st);
+    return d == 64 ? bwd<T, 64>(s, q, k, v, out, dout, lse, delta, dq, dk,
+                                dv, st)
+                   : bwd<T, 128>(s, q, k, v, out, dout, lse, delta, dq, dk,
+                                 dv, st);
   });
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -57,8 +57,8 @@ _SIGNATURES = {
                             _I, _P),
     "ptt_flash_fwd": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _F, _I, _P),
-    "ptt_flash_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                      _I, _I, _I, _I, _F, _I, _P),
+    "ptt_flash_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                      _I, _I, _I, _I, _I, _F, _I, _P),
     "ptt_fused_adamw": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _LL, _F, _F,
                         _F, _F, _F, _F, _F, _F, _F, _I, _P),
     "ptt_ce_rows": (_I, _I, _P, _P, _P, _P, _P, _LL, _I, _P),

@@ -184,13 +184,14 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, scale):
                    and lse.is_contiguous(),
                    "flash_attention kernel: lse must be fp32 [b, h, sq]",
                    lse)
-    # rowsum(dO·O) in fp32, outside the kernels as the TPU wrapper (:686)
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    # rowsum(dO·O) in fp32 (the TPU wrapper's, :686): scratch that the
+    # first kernel of the launch fills for the second
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     rc = _build.library().ptt_flash_bwd(
-        dev, code, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, sq, sk, h, hk, d, scale, int(causal),
+        dev, code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, hk, d, scale, int(causal),
         _build.stream_of(q.device))
     _build.check(rc, "flash_attention_bwd")
     launches["flash_attention_bwd"] += 1

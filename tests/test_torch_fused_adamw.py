@@ -40,6 +40,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_cpu import one_cpu_thread  # noqa: F401 (autouse)
 
 import paddle_tpu
 from paddle_tpu.framework import flags as jflags

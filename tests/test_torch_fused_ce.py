@@ -40,6 +40,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_cpu import one_cpu_thread  # noqa: F401 (autouse)
 
 from paddle_tpu.framework.flags import set_flags as j_set_flags
 from paddle_tpu.framework.tensor import Tensor as JTensor

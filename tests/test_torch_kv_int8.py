@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_cpu import one_cpu_thread  # noqa: F401 (autouse)
 
 from paddle_tpu import ops as jops
 from paddle_tpu.inference import ContinuousBatcher as JBatcher

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_cpu import one_cpu_thread  # noqa: F401 (autouse)
 
 from paddle_tpu.models.llama import LlamaForCausalLM as JLlama
 from paddle_tpu.models.llama import llama_tiny_config as j_tiny

@@ -23,6 +23,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from torch_cpu import one_cpu_thread  # noqa: F401 (autouse)
 
 from paddle_tpu import ops as jops
 from paddle_tpu.framework import flags as jflags

@@ -12,6 +12,7 @@ paged layout must equal the dense one.
 """
 import numpy as np
 import pytest
+from torch_cpu import one_cpu_thread  # noqa: F401 (autouse)
 
 from paddle_tpu.inference import ContinuousBatcher as JBatcher
 from paddle_tpu.models.llama import LlamaForCausalLM as JLlama

@@ -13,7 +13,13 @@ RoPE backward:
     run here with its `_launch*` functions replaced by the plain ones:
     its gradients must equal native autograd of the plain forward, which
     checks the saved tensors, the sin swap and the dw reduction without
-    a card.
+    a card;
+  * the flash wrappers `_launch_fwd` / `_launch_bwd` run against a
+    stand-in for the kernel library: every argument against the C
+    signature, out passed to the backward, delta allocated fp32
+    [b, h, sq] and filled by the (stand-in) kernel, not by PyTorch;
+  * chip_smoke.py's flash check at fp16 passes a weight rounding at
+    another point and refuses one at bf16 (float64 twins).
 
 Inputs are made from a seed with numpy and handed to both packages.
 Tolerances, with their reasons:
@@ -36,11 +42,16 @@ Tolerances, with their reasons:
     P.V and divides after, where the twin rounds the normalised
     weights — every term of the sum carries its own one-ulp difference.
 """
+import ctypes
+import importlib.util
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_cpu import one_cpu_thread  # noqa: F401 (autouse)
 
 import paddle_tpu.ops as jops
 from paddle_tpu.ops.pallas.flash_attention import \
@@ -51,6 +62,7 @@ from paddle_tpu.ops.pallas.rms_norm import rms_norm as pallas_rms_norm
 from paddle_tpu.ops.pallas.rope import rope_apply as pallas_rope_apply
 
 import paddle_tpu_torch.ops as tops
+from paddle_tpu_torch.ops import _build
 
 F32 = dict(atol=1e-5, rtol=1e-5)
 DT = {"float32": (torch.float32, jnp.float32),
@@ -217,6 +229,165 @@ def test_flash_attention(dt, group, d, causal):
             a, c, e, causal=causal), jq, jk, jv)
         for port, ref in zip((lq.grad, lk.grad, lv.grad), vjp_x(_j(do, dt))):
             _close(port, ref, dt, atol=2e-5, rtol=2e-5)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("which", ["out", "dq"])
+def test_flash_tolerances_refuse_a_bf16_rounding_at_fp16(which):
+    """chip_smoke's check of the flash kernels at fp16, on float64 twins
+    of `out` = sum_j p_j v_j and dq = sum_j ds_j k_j: a twin that keeps
+    the weights in fp32 (a rounding at another point, as the kernel's)
+    passes the per-element tolerance and the mean square / variance
+    bound; one that rounds them to bf16 passes the per-element
+    tolerance (8 standard deviations a side exceed the 8x between the
+    unit roundoffs) but fails the mean square bound."""
+    cs = _chip_smoke()
+    fa = tops.kernel_module("flash_attention")
+    rng = np.random.RandomState(7)
+    b, s, h, hk, d, f16 = 2, 200, 4, 2, 64, torch.float16
+    q, k, v, do = (torch.from_numpy(_rand(rng, b, s, n, d)).to(f16)
+                   for n in (h, hk, hk, h))
+    sc = d ** -0.5
+    S = fa._masked_scores(q, k, True, sc)
+    lse = torch.logsumexp(S, -1)
+    P = torch.exp(S - lse[..., None])
+    out, _ = tops.plain_flash_fwd(q, k, v, True, sc)
+    refs = tops.plain_flash_bwd(q, k, v, out, lse, do, True, sc)
+    pairs = cs._flash_tolerances(torch, tops, fa, q, k, v, out, lse, do,
+                                 [out, *refs], sc, True)
+    if which == "out":
+        w, x, ref, (tol, var) = P, v, out, pairs[0]
+    else:
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+        w = P * (tops.gqa_scores(do, v) - delta[..., None]) * sc
+        x, ref, (tol, var) = k, refs[0], pairs[1]
+
+    def twin(dtype):
+        return tops.gqa_weighted_v(w.to(dtype).double(), x.double()) \
+            .transpose(1, 2).to(f16)
+
+    for dtype, msq_ok in ((torch.float32, True), (torch.bfloat16, False)):
+        err = (twin(dtype).double() - ref.double()).abs()
+        assert float((err / tol).max()) <= 1.0, dtype
+        assert (float((err ** 2 / var).mean()) <= 1.0) == msq_ok, dtype
+
+
+def _view(ptr, shape, dtype):
+    """A tensor over the CPU memory at address `ptr`, as a kernel
+    handed that pointer would address it."""
+    n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+    buf = (ctypes.c_char * n).from_address(ptr)
+    return torch.frombuffer(buf, dtype=dtype).view(shape)
+
+
+class _FlashLib:
+    """Stands in for the kernel library's flash entry points: checks
+    each call's arguments against `_build._SIGNATURES`, then fills the
+    memory it was pointed at as the kernels do, with the plain math.
+    The backward computes delta = rowsum(dO·O) itself."""
+
+    CTYPE = {ctypes.c_void_p: int, ctypes.c_int: int, ctypes.c_float: float}
+    DTYPE = {code: dt for dt, code in _build.DTYPE_CODES.items()}
+
+    def __init__(self):
+        self.calls = []
+
+    def _record(self, name, args):
+        sig = _build._SIGNATURES[name]
+        assert len(args) == len(sig), name
+        for i, (a, c) in enumerate(zip(args, sig)):
+            assert type(a) is self.CTYPE[c], (name, i, a, c)
+        self.calls.append((name, args))
+
+    def ptt_flash_fwd(self, *args):
+        self._record("ptt_flash_fwd", args)
+        dev, code, q, k, v, out, lse, b, sq, sk, h, hk, d, scale, causal, \
+            stream = args
+        dt = self.DTYPE[code]
+        o, l = tops.plain_flash_fwd(
+            _view(q, (b, sq, h, d), dt), _view(k, (b, sk, hk, d), dt),
+            _view(v, (b, sk, hk, d), dt), bool(causal), scale)
+        _view(out, (b, sq, h, d), dt).copy_(o)
+        _view(lse, (b, h, sq), torch.float32).copy_(l)
+        return 0
+
+    def ptt_flash_bwd(self, *args):
+        self._record("ptt_flash_bwd", args)
+        dev, code, q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk, h, \
+            hk, d, scale, causal, stream = args
+        dt = self.DTYPE[code]
+        qs, ks = (b, sq, h, d), (b, sk, hk, d)
+        o, g = _view(out, qs, dt), _view(dout, qs, dt)
+        dl = _view(delta, (b, h, sq), torch.float32)
+        assert torch.isnan(dl).all()     # nothing filled it before the kernel
+        dl.copy_((g.float() * o.float()).sum(-1).transpose(1, 2))
+        grads = tops.plain_flash_bwd(
+            _view(q, qs, dt), _view(k, ks, dt), _view(v, ks, dt), o,
+            _view(lse, (b, h, sq), torch.float32), g, bool(causal), scale)
+        for ptr, shape, grad in zip((dq, dk, dv), (qs, ks, ks), grads):
+            _view(ptr, shape, dt).copy_(grad)
+        return 0
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_launch_marshalling(monkeypatch, dt, causal):
+    """`_launch_fwd` and `_launch_bwd` as the card runs them, with the
+    kernel library stood in for: the arguments in the C signature's
+    order and types, out passed to the backward, delta fp32 [b, h, sq]
+    scratch that the kernel fills, outputs shaped and typed as before."""
+    fa = tops.kernel_module("flash_attention")
+    lib = _FlashLib()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "cuda_device_index", lambda *t: 0)
+    monkeypatch.setattr(_build, "stream_of", lambda d: 0)
+    empty, made = torch.empty, []
+
+    def nan_empty(*shape, **kw):        # fresh allocations start as NaN
+        t = empty(*shape, **kw)
+        made.append(t.fill_(float("nan")) if t.is_floating_point() else t)
+        return t
+
+    monkeypatch.setattr(torch, "empty", nan_empty)
+    rng = np.random.RandomState(7)
+    b, s, h, hk, d = 2, 24, 4, 2, 64
+    q, do = _t(_rand(rng, b, s, h, d), dt), _t(_rand(rng, b, s, h, d), dt)
+    k, v = _t(_rand(rng, b, s, hk, d), dt), _t(_rand(rng, b, s, hk, d), dt)
+    before = tops.launch_counts()
+    out, lse = fa._launch_fwd(q, k, v, causal, 0.125)
+    dq, dk, dv = fa._launch_bwd(q, k, v, out, lse, do, causal, 0.125)
+    (fwd, af), (bwd, ab) = lib.calls
+    code = _build.DTYPE_CODES[DT[dt][0]]
+    assert (fwd, bwd) == ("ptt_flash_fwd", "ptt_flash_bwd")
+    assert af == (0, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), lse.data_ptr(), b, s, s, h, hk, d, 0.125,
+                  int(causal), 0)
+    delta, = [t for t in made if t.data_ptr() == ab[8]]
+    assert ab == (0, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), b, s, s, h, hk, d, 0.125, int(causal), 0)
+    assert delta.shape == (b, h, s) and delta.dtype == torch.float32
+    torch.testing.assert_close(
+        delta, (do.float() * out.float()).sum(-1).transpose(1, 2),
+        atol=0, rtol=0)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    for g, x in zip((dq, dk, dv), (q, k, v)):
+        assert g.shape == x.shape and g.dtype == x.dtype
+    want = tops.plain_flash_bwd(q, k, v, out, lse, do, causal, 0.125)
+    for g, w in zip((dq, dk, dv), want):
+        assert torch.equal(g, w)
+    after = tops.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
 
 
 @pytest.mark.parametrize("mask_kind", ["bool", "additive"])
