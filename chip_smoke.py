@@ -18,7 +18,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              and the least time the work could take.  paged_attention
              also on int8 pools (the bf16 pools quantized per page);
              quant_matmul int8 and int4 (group 64) at M = 8 and 256 and
-             every [K, N] of Llama-2-7B's decode matmuls
+             every [K, N] of Llama-2-7B's decode matmuls, then at
+             QM_EDGE_CASES (ragged M, K and N, int4 group 128, fp16 x,
+             bf16 and fp32 scales); each logs the body that ran (M <= 16
+             mma.sync, the rest wgmma, checked), its ratio to the
+             library yardstick and its share of the bound
   4. parity  a 2-layer Llama at full width (hidden 4096, 32 heads, vocab
              32000) in fp32: the card (kernels) against the CPU (plain
              versions) on the same weights — prefill logits, and the
@@ -81,7 +85,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              every decode matmul and the lm head on quant_matmul, the int8
              page write, paged_attention on the int8 pool; launch counts
              per step 225 quant_matmul (int8), 32 paged_attention (int8
-             pool), 65 rms_norm, 32 rope; the decode trace split by kind
+             pool), 65 rms_norm, 32 rope; the decode trace split by
+             kind, and the trace of one admission chunk ([8 slots, 32
+             tokens] a step) by kind, quant_matmul's device ms per
+             admission step among them
   11. serve, int4  the same with weight_only_dtype="int4" (group 64) and
              the bf16 pool.
 
@@ -377,55 +384,134 @@ def _quant_matmul_tolerance(torch, x, w, ref):
     product, rounded once) and sum the exact products x*w in fp32; only
     the order of the sums (the kernel's K tiles, splits and mma
     accumulation against cuBLAS's fp32 GEMM) and the final rounding
-    differ: 2^-7 |plain| for an output rounding that flips, 2^-12
-    sum |x| |w| for fp32 sums of up to 11008 terms in another order
-    (a random walk of rounding errors stays near 2^-17 of it)."""
-    return 2.0 ** -7 * ref.float().abs() + 2.0 ** -12 * (x.float().abs()
-                                                         @ w.float().abs())
+    differ: one ulp of the output dtype for an output rounding that
+    flips (2^-7 |plain| in bf16, 2^-10 in fp16), 2^-12 sum |x| |w| for
+    fp32 sums of up to 11008 terms in another order (a random walk of
+    rounding errors stays near 2^-17 of it)."""
+    ulp = 2.0 ** -7 if ref.dtype == torch.bfloat16 else 2.0 ** -10
+    return ulp * ref.float().abs() + 2.0 ** -12 * (x.float().abs()
+                                                   @ w.float().abs())
+
+
+# edge shapes of the admission body (M > 16): ragged M (one and two
+# 256-row tiles), a ragged last K tile, N not a multiple of its 128-column
+# strips, int4 group 128, fp16 x, bf16 and fp32 scales: (fmt, M, K, N,
+# group, x dtype, scale dtype)
+QM_EDGE_CASES = (
+    ("int8", 17, 4096, 4096, 64, "bfloat16", "bfloat16"),
+    ("int4", 100, 4096, 4096, 64, "bfloat16", "bfloat16"),
+    ("int8", 255, 4096, 11008, 64, "bfloat16", "float32"),
+    ("int4", 300, 4096, 4096, 64, "bfloat16", "bfloat16"),
+    ("int8", 256, 4104, 4096, 64, "bfloat16", "bfloat16"),
+    ("int8", 100, 1000, 1040, 64, "float16", "float32"),
+    ("int4", 256, 4096, 4096, 128, "bfloat16", "float32"),
+    ("int4", 256, 11008, 4096, 64, "float16", "float16"),
+)
+
+
+def _quant_matmul_case(torch, ops, g, fmt, M, K, N, group, xdt, sdt,
+                       w=None):
+    """quant_matmul against plain_quant_matmul at one shape: the weight
+    (seeded random, or `w`) quantized in `sdt`, x in `xdt`; logs the body
+    that ran, the ratio to the library yardstick and the share of the
+    bound."""
+    from paddle_tpu_torch.ops import dequant_weight, plain_quant_matmul
+    from paddle_tpu_torch.quantization import quantize_weight
+    qm = ops.kernel_module("quant_matmul")
+    dev = g.device
+    if w is None:
+        w = torch.randn((K, N), generator=g, device=dev) / K ** 0.5
+    qw, sc = quantize_weight(w.to(sdt), fmt, group)
+    wd = dequant_weight(qw, sc, fmt, group).to(xdt)
+    x = torch.randn((M, K), generator=g, device=dev).to(xdt)
+    args = (x, qw, sc, fmt, group)
+    k = ops.quant_matmul(*args)
+    p = plain_quant_matmul(*args)
+    lib = torch.matmul(x, wd)
+    torch.cuda.synchronize()
+    nbytes = (x.numel() * x.element_size() + qw.numel()
+              + sc.numel() * sc.element_size() + M * N * x.element_size())
+    b_ms, b_by = bound(nbytes, 2 * M * K * N, BF16_FLOP_PER_S)
+    c = dict(
+        shape=[M, K, N], variant=fmt, group=group,
+        dtypes=[str(xdt).split(".")[-1], str(sdt).split(".")[-1]],
+        body="wgmma" if qm._takes_wgmma(x, M, K, fmt, group) else "mma.sync",
+        **_checked([k], [p], [_quant_matmul_tolerance(torch, x, wd, p)]),
+        library_err=(lib.float() - p.float()).abs().max().item(),
+        ms=time_ms(torch, lambda: ops.quant_matmul(*args)),
+        plain_ms=time_ms(torch, lambda: plain_quant_matmul(*args), reps=10),
+        library_ms=time_ms(torch, lambda: torch.matmul(x, wd)),
+        library="torch.matmul on the dequantized weight (dequant "
+                "excluded)",
+        bound_ms=b_ms, bound_by=b_by)
+    c["library_ratio"] = c["ms"] / c["library_ms"]
+    c["bound_share"] = c["bound_ms"] / c["ms"]
+    extra = ""
+    if c["body"] == "wgmma":
+        int4 = fmt == "int4"
+        c["rows_splits"] = qm._schedule(
+            M, K, N, int4,
+            lambda r: qm._cluster_capacity(dev.index or 0, int4, r))
+        # the earlier design, the mma.sync body, on the same inputs
+        c["mma_sync_ms"] = time_ms(torch, lambda: _quant_matmul_mma_sync(
+            torch, qm, *args))
+        extra = (f" (rows, splits) {c['rows_splits']}; the mma.sync body "
+                 f"{c['mma_sync_ms']:.4f} ms")
+    log(f"[kernels] quant_matmul {fmt} {c['shape']} group {group} "
+        f"{c['dtypes']} {c['body']}: {c['ms']:.4f} ms, "
+        f"{c['library_ratio']:.2f}x the library, "
+        f"{c['bound_share']:.3f} of the {b_by} bound{extra}")
+    del qw, sc, wd, x, k, p, lib
+    return c
+
+
+def _quant_matmul_mma_sync(torch, qm, x, qw, sc, fmt, group):
+    """quant_matmul through its mma.sync body (rows 0) whatever the
+    shape: the design the wgmma body replaced at M > 16, for timing."""
+    from paddle_tpu_torch.ops import _build
+    M, K = x.shape
+    N = qw.shape[1]
+    splits = qm._splits(M, K, N, qw.numel())
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    part = torch.empty((splits, M, N), dtype=torch.float32,
+                       device=x.device) if splits > 1 else None
+    rc = _build.library().ptt_quant_matmul(
+        x.device.index or 0, _build.dtype_code(x.dtype),
+        _build.dtype_code(sc.dtype), int(fmt == "int4"),
+        int(group) if fmt == "int4" else 0, x.data_ptr(), qw.data_ptr(),
+        sc.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), M, K, N, splits, 0,
+        _build.stream_of(x.device))
+    _build.check(rc, "quant_matmul")
+    return out
 
 
 def _quant_matmul_cases(torch, ops, g):
     """quant_matmul against plain_quant_matmul, int8 and int4 (group 64)
     bf16 weights from seeded random ones, bf16 x, at M in {8, 256} and
-    every [K, N] of the serving path.  Library yardstick: torch.matmul
-    of x with the already-dequantized bf16 weight (the dequant is left
-    out of its time)."""
-    from paddle_tpu_torch.ops import dequant_weight, plain_quant_matmul
-    from paddle_tpu_torch.quantization import quantize_weight
-    dev = g.device
+    every [K, N] of the serving path, then at QM_EDGE_CASES.  Library
+    yardstick: torch.matmul of x with the already-dequantized weight
+    (the dequant is left out of its time)."""
     bf16 = torch.bfloat16
     out = []
     for fmt in ("int8", "int4"):
         for K, N in QM_SHAPES:
-            w = (torch.randn((K, N), generator=g, device=dev)
+            w = (torch.randn((K, N), generator=g, device=g.device)
                  / K ** 0.5).to(bf16)
-            qw, sc = quantize_weight(w, fmt, QM_GROUP)
-            wd = dequant_weight(qw, sc, fmt, QM_GROUP).to(bf16)
-            del w
             for M in (8, 256):
-                x = torch.randn((M, K), generator=g, device=dev).to(bf16)
-                args = (x, qw, sc, fmt, QM_GROUP)
-                k = ops.quant_matmul(*args)
-                p = plain_quant_matmul(*args)
-                lib = torch.matmul(x, wd)
-                torch.cuda.synchronize()
-                nbytes = (x.numel() * 2 + qw.numel() + sc.numel() * 2
-                          + M * N * 2)
-                b_ms, b_by = bound(nbytes, 2 * M * K * N, BF16_FLOP_PER_S)
-                out.append(dict(
-                    shape=[M, K, N], variant=fmt,
-                    **_checked([k], [p], [_quant_matmul_tolerance(
-                        torch, x, wd, p)]),
-                    library_err=(lib.float() - p.float()).abs().max().item(),
-                    ms=time_ms(torch, lambda: ops.quant_matmul(*args)),
-                    plain_ms=time_ms(torch, lambda: plain_quant_matmul(*args),
-                                     reps=10),
-                    library_ms=time_ms(torch, lambda: torch.matmul(x, wd)),
-                    library="torch.matmul on the dequantized bf16 weight "
-                            "(dequant excluded)",
-                    bound_ms=b_ms, bound_by=b_by))
-                del x, k, p, lib
-            del qw, sc, wd
+                out.append(_quant_matmul_case(torch, ops, g, fmt, M, K, N,
+                                              QM_GROUP, bf16, bf16, w=w))
+            del w
+    for fmt, M, K, N, group, xdt, sdt in QM_EDGE_CASES:
+        out.append(_quant_matmul_case(torch, ops, g, fmt, M, K, N, group,
+                                      getattr(torch, xdt),
+                                      getattr(torch, sdt)))
+    # the decode shapes keep the mma.sync body, the admission chunks (and
+    # every edge shape here) take the wgmma body
+    for c in out:
+        want = "mma.sync" if c["shape"][0] <= 16 else "wgmma"
+        check(c["body"] == want, f"quant_matmul {c['shape']} took the "
+              f"{c['body']} body, not {want}")
     return out
 
 
@@ -657,6 +743,9 @@ def phase_serve(torch, ops, dev, weight_only=None, kv_dtype=None,
     log(f"[{tag}] " + json.dumps(serve))
     trace = decode_trace(torch, model, dev, bat.chunk, kv_dtype)
     log(f"[{tag}-trace] " + json.dumps(trace))
+    if weight_only:
+        trace = admit_trace(torch, model, dev, kv_dtype)
+        log(f"[{tag}-admit-trace] " + json.dumps(trace))
     del bat, model
     torch.cuda.empty_cache()
     return serve, counts, variants
@@ -668,7 +757,6 @@ def decode_trace(torch, model, dev, chunk, kv_dtype=None):
     torch.profiler (device time per kernel name and kind).  busy_share
     is the profiled device time over the unprofiled wall of as many
     steps."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference import ContinuousBatcher
     bat = ContinuousBatcher(model, max_batch_size=8, max_len=1024,
@@ -690,13 +778,20 @@ def decode_trace(torch, model, dev, chunk, kv_dtype=None):
         bat.step()
         bat.step()
         torch.cuda.synchronize()
+    return _trace_record(prof, wall_ms, 2 * chunk)
+
+
+def _trace_record(prof, wall_ms, steps):
+    """A profiled window of `steps` forward steps against the unprofiled
+    wall of as many: device ms per step by kind, events per step, the
+    busy share and the top kernels."""
+    from torch.autograd import DeviceType
     # device-side rows only (kernels, copies): the CPU op rows would
     # count the same kernel time a second time
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    steps = 2 * chunk
     by_kind, events = _by_kind(rows)
     return dict(steps=steps, wall_ms_per_step=wall_ms / steps,
                 device_ms_per_step=busy_ms / steps if rows else None,
@@ -704,6 +799,43 @@ def decode_trace(torch, model, dev, chunk, kv_dtype=None):
                 by_kind_ms_per_step={k: v / steps for k, v in by_kind.items()},
                 events_per_step={k: v / steps for k, v in events.items()},
                 top=[(k[:60], round(ms / steps, 4)) for k, ms, _ in rows[:10]])
+
+
+def admit_trace(torch, model, dev, kv_dtype=None):
+    """Where an admission step's time goes (a quantized model): 8 slots
+    prefilling 512-token prompts, each chunk admit_steps forward steps
+    of [8 slots, 32 tokens] (M = 256 on every projection).  After a
+    first chunk, one chunk is timed without a profiler (wall) and the
+    next one under torch.profiler: device ms per admission step by kind
+    (quant_matmul's among them) and the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.inference import ContinuousBatcher
+    bat = ContinuousBatcher(model, max_batch_size=8, max_len=1024,
+                            prefill_chunk=32, chunk=16, kv_dtype=kv_dtype,
+                            device=dev)
+    rng = np.random.RandomState(98)
+    for _ in range(8):
+        bat.submit(rng.randint(1, model.config.vocab_size, 512), 8)
+    bat.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bat.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        bat.step()
+        torch.cuda.synchronize()
+    st = bat.stats()
+    check(st["admit_chunks"] == 3 and st["decode_chunks"] == 0,
+          f"the admission trace ran {st['admit_chunks']} admission and "
+          f"{st['decode_chunks']} decode chunks, not 3 and 0")
+    rec = _trace_record(prof, wall_ms, bat.admit_steps)
+    rec["quant_matmul_ms_per_step"] = \
+        rec["by_kind_ms_per_step"]["quant_matmul"]
+    del bat
+    torch.cuda.empty_cache()
+    return rec
 
 
 # trace kinds: the first kind whose pattern a kernel's name holds;

@@ -14,6 +14,8 @@
 //   of P.V, whose reduced dimension is the key): LBO = the column
 //   block's size in bytes (next 64 outputs), SBO = 1024 (next 8 rows of
 //   the reduced dimension); the k-th step starts 16 k rows down.
+// A block of a thread-block cluster reaches the other blocks' shared
+// memory through `map_rank` addresses (distributed shared memory).
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums: types only, libcuda is
@@ -98,6 +100,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0) {
   asm volatile(
@@ -105,6 +117,33 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
       : "memory");
+}
+
+// -- clusters ----------------------------------------------------------------
+// every thread of every block of the cluster arrives, then waits; writes
+// to shared memory before it are seen by the cluster's reads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+
+// the address in block `rank`'s shared memory of the variable at this
+// block's shared address `addr`
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// a store to another block's shared memory (posted: it does not wait)
+__device__ __forceinline__ void st_cluster_f4(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
 }
 
 // -- warpgroup registers -----------------------------------------------------
@@ -163,10 +202,11 @@ __device__ __forceinline__ void fence_regs(float* r) {
 // D[64 x N] (+)= A[64 x 16] . B[16 x N] for one warpgroup, fp32
 // accumulators: thread (warp w, lane 4g + t) holds d[4j + e] = D[16w + g
 // + 8 (e >> 1)][8j + 2t + (e & 1)].
-//   ss: A and B from shared memory, both K-major.
-//   rs: A from registers in that accumulator layout (a[0..3] = rows g,
-//       g + 8 at k 2t, 2t + 1; then the same at k 2t + 8, 2t + 9), B
-//       MN-major (the transpose bit set).
+//   ss:  A and B from shared memory, both K-major.
+//   rs:  A from registers in that accumulator layout (a[0..3] = rows g,
+//        g + 8 at k 2t, 2t + 1; then the same at k 2t + 8, 2t + 9), B
+//        MN-major (the transpose bit set).
+//   rsk: A from registers as rs, B K-major.
 // `acc` 0 overwrites D.
 template <typename T, int N>
 struct Wgmma {
@@ -174,15 +214,21 @@ struct Wgmma {
                                             int acc);
   static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
                                             uint64_t b, int acc);
+  static __device__ __forceinline__ void rsk(float* d, const uint32_t* a,
+                                             uint64_t b, int acc);
 };
 
-// The eight specializations differ only in the type, N and where A
-// comes from; the accumulators are operands 0..N/2-1, then A, B and acc.
+// The specializations differ only in the type, N, where A comes from
+// and B's transpose bit; the accumulators are operands 0..N/2-1, then A,
+// B and acc.
 #define PTT_D8(i)                                                        \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define PTT_D32 PTT_D8(0), PTT_D8(8), PTT_D8(16), PTT_D8(24)
 #define PTT_D64 PTT_D32, PTT_D8(32), PTT_D8(40), PTT_D8(48), PTT_D8(56)
+#define PTT_D128                                                         \
+  PTT_D64, PTT_D8(64), PTT_D8(72), PTT_D8(80), PTT_D8(88), PTT_D8(96),   \
+      PTT_D8(104), PTT_D8(112), PTT_D8(120)
 #define PTT_R10(i)                                                       \
   "%" #i "0, %" #i "1, %" #i "2, %" #i "3, %" #i "4, %" #i "5, %" #i "6, " \
   "%" #i "7, %" #i "8, %" #i "9, "
@@ -192,6 +238,11 @@ struct Wgmma {
 #define PTT_REGS64                                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " PTT_R10(1) PTT_R10(2)       \
   PTT_R10(3) PTT_R10(4) PTT_R10(5) "%60, %61, %62, %63}"
+#define PTT_REGS128                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " PTT_R10(1) PTT_R10(2)       \
+  PTT_R10(3) PTT_R10(4) PTT_R10(5) PTT_R10(6) PTT_R10(7) PTT_R10(8)       \
+  PTT_R10(9) PTT_R10(10) PTT_R10(11)                                     \
+  "%120, %121, %122, %123, %124, %125, %126, %127}"
 
 // T, its PTX type, N, the accumulator list and operands; A is operand
 // a0 (ss) or a0..a0+3 (rs)
@@ -215,6 +266,17 @@ struct Wgmma {
                  : D                                                      \
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),    \
                    "r"(acc));                                             \
+  }                                                                       \
+  template <>                                                             \
+  __device__ __forceinline__ void Wgmma<T, N>::rsk(                       \
+      float* d, const uint32_t* a, uint64_t b, int acc) {                 \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #a5 ", 0;\n"         \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "."  \
+                 TY " " REGS ", {%" #a0 ", %" #a1 ", %" #a2 ", %" #a3      \
+                 "}, %" #a4 ", p, 1, 1, 0;\n}\n"                          \
+                 : D                                                      \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),    \
+                   "r"(acc));                                             \
   }
 
 PTT_WGMMA(__nv_bfloat16, "bf16", 64, PTT_REGS32, PTT_D32, 32, 33, 34, 35, 36,
@@ -223,11 +285,17 @@ PTT_WGMMA(__nv_bfloat16, "bf16", 128, PTT_REGS64, PTT_D64, 64, 65, 66, 67, 68,
           69)
 PTT_WGMMA(__half, "f16", 64, PTT_REGS32, PTT_D32, 32, 33, 34, 35, 36, 37)
 PTT_WGMMA(__half, "f16", 128, PTT_REGS64, PTT_D64, 64, 65, 66, 67, 68, 69)
+PTT_WGMMA(__nv_bfloat16, "bf16", 256, PTT_REGS128, PTT_D128, 128, 129, 130,
+          131, 132, 133)
+PTT_WGMMA(__half, "f16", 256, PTT_REGS128, PTT_D128, 128, 129, 130, 131, 132,
+          133)
 
 #undef PTT_WGMMA
+#undef PTT_REGS128
 #undef PTT_REGS64
 #undef PTT_REGS32
 #undef PTT_R10
+#undef PTT_D128
 #undef PTT_D64
 #undef PTT_D32
 #undef PTT_D8
@@ -278,6 +346,30 @@ inline bool map_rows16(CUtensorMap* m, const void* base, int B, int s,
   return enc(m, CU_TENSOR_MAP_DATA_TYPE_UINT16, 4, const_cast<void*>(base),
              dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A row-major [rows, cols] matrix of `elem` bytes an element (1 or 2)
+// and `row_bytes` bytes a row (a multiple of 16), read in boxes of
+// (box_cols, box_rows) with 128-byte swizzle (box_cols * elem == 128);
+// elements past either edge are zero-filled.
+inline bool map_2d(CUtensorMap* m, const void* base, int elem, long long cols,
+                   long long rows, long long row_bytes, int box_cols,
+                   int box_rows) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t step[2] = {1, 1};
+  return enc(m,
+             elem == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                       : CU_TENSOR_MAP_DATA_TYPE_UINT16,
+             2, const_cast<void*>(base), dims, strides, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

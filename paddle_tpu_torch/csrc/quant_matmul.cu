@@ -18,31 +18,85 @@
 // What bounds it on the H100: at decode (M = 8 slots) bytes — the packed
 // weight is everything (int8 K*N bytes, int4 K*N/2 plus the group
 // scales), ~5 us for a 4096 x 4096 int8 weight at 3.35 TB/s; at the
-// admission chunks (M = 256) the bf16 operations come near the ridge.
-// The design keeps the weight at its packed width in device memory and
-// never writes a dequantized copy:
-//   * grid (N/128, M/BM, splits): a block owns 128 output columns and BM
-//     rows, and walks its split's share of the K tiles.  N/128 column
-//     blocks alone are 32 at N = 4096, so K is split (fp32 partials
-//     [splits, M, N], summed by a second launch) until ~4 blocks per SM
-//     exist — the wrapper picks `splits` (ops/quant_matmul.py::_splits).
-//   * a K tile is 64 logical rows.  int8: rows 64t..64t+63.  int4: the
-//     32 packed rows 32t..32t+31, whose low nibbles are logical rows
-//     32t.. and whose high nibbles are rows K/2+32t..; the x tile takes
-//     the same two column ranges, so both formats feed one product.
-//   * each thread loads 16 bytes of a weight row along N (16 int8 or 32
-//     int4 values; a warp reads four 128-byte rows), the next tile's
-//     bytes are in flight in registers while the current tile is
-//     dequantized and multiplied.
-//   * bf16/fp16: the tile is dequantized into shared memory as T, and 8
-//     warps run mma.sync m16n8k16 (fp32 accumulate), each on 16 columns
-//     and all BM rows; BM is 16 (M padded to 16, the decode shape) or 64.
+// admission chunks (M = 256 = 8 slots x 32 tokens) operations: 2 M K N
+// bf16 FLOP, 8.7 us at [4096, 4096] against 5 us of bytes.  The weight
+// stays at its packed width in device memory; no dequantized copy is
+// ever written.  Three bodies, chosen by the caller by shape alone
+// (ops/quant_matmul.py `_takes_wgmma`; `rows` 0 or the wgmma body's row
+// tile):
+//
+//   * wgmma body — bf16/fp16 x with M > 16, K % 8 == 0 (x's rows are
+//     16-byte strides for TMA), x 16-byte aligned, and for int4 a group
+//     that is a multiple of 64.  Built for the admission chunk:
+//       - swap-AB: out^T = W^T x^T.  The dequantized weight is the A
+//         operand of `wgmma ... m64nBMk16` from registers and x^T the B
+//         operand, K-major, straight from x's rows as TMA lays them
+//         (128-byte swizzle); M is wgmma's N: BM = 128 or 256 rows a
+//         block (`rows`), one block row per BM rows of M.  A block owns
+//         a strip of 128 weight columns and all its BM rows, so each
+//         strip is dequantized once per block.
+//       - warp specialisation, three warpgroups: one thread of warpgroup
+//         0 streams the K tiles through TMA into a ring of 4 stages (3
+//         for int4 at BM = 256) on full/empty mbarriers: the x box
+//         [BM, 64] (int4: two boxes, columns 64t.. and K/2 + 64t..) and
+//         the packed weight box [64 rows, 128 columns] (128-byte
+//         swizzle, edges zero-filled).  Warpgroups 1 and 2 own 64
+//         weight columns each: a thread's A rows g and g + 8 are the
+//         ADJACENT columns n, n + 1, so it reads both from one 16-bit
+//         shared load per K row and stores both outputs as one 32-bit
+//         word.
+//       - the dequant stage overlaps the products: a consumer turns tile
+//         i into A fragments in registers (bytes re-biased into fp32
+//         mantissas with PRMT, an exact subtract, __fmul_rn by the
+//         scale, one cvt.rn to a T pair), then issues tile i's wgmmas;
+//         two A buffers keep tile i-1's products in flight while tile
+//         i is dequantized.  int4: one 64-row tile feeds 8 k-steps, the
+//         low nibbles against the first x box, the high against the
+//         second, each half under one group scale row; with scales of
+//         x's dtype the nibbles are biased into T pairs and multiplied
+//         by the scale pair (q * s is exact before that one rounding).
+//       - splits over K as a thread-block cluster of `splits` (1-4)
+//         blocks along grid x, so that N = 4096 still fills the 132
+//         SMs; ops/quant_matmul.py `_schedule` picks (rows, splits)
+//         from a cost model over the clusters the card holds at once
+//         (`ptt_quant_matmul_clusters`).  The blocks reduce in
+//         distributed shared memory: after a cluster barrier each
+//         pushes its fp32 partials of every share of the tile to the
+//         share's owner, and after a second one the owner sums them in
+//         rank order (deterministic), rounds once and stores.  No fp32
+//         partials reach device memory, and it is one launch.
+//     What is left between it and the card: each block reads its x row
+//     tile from L2 once per 128-column strip, and a cluster's reduction
+//     costs several us a wave, so the model avoids splits where the
+//     waves allow; TMA multicast of x across a cluster along N is
+//     untried.
+//   * mma.sync body — every other bf16/fp16 shape, and the decode path
+//     (M <= 16) unchanged:
+//       - grid (N/128, M/BM, splits): a block owns 128 output columns
+//         and BM rows, and walks its split's share of the K tiles.
+//         N/128 column blocks alone are 32 at N = 4096, so K is split
+//         (fp32 partials [splits, M, N], summed by a second launch)
+//         until ~4 blocks per SM exist — the wrapper picks `splits`
+//         (ops/quant_matmul.py::_splits).
+//       - a K tile is 64 logical rows.  int8: rows 64t..64t+63.  int4:
+//         the 32 packed rows 32t..32t+31, whose low nibbles are logical
+//         rows 32t.. and whose high nibbles are rows K/2+32t..; the x
+//         tile takes the same two column ranges, so both formats feed
+//         one product.
+//       - each thread loads 16 bytes of a weight row along N (16 int8 or
+//         32 int4 values; a warp reads four 128-byte rows), the next
+//         tile's bytes are in flight in registers while the current tile
+//         is dequantized and multiplied.
+//       - the tile is dequantized into shared memory as T, and 8 warps
+//         run mma.sync m16n8k16 (fp32 accumulate), each on 16 columns
+//         and all BM rows; BM is 16 (M padded to 16, the decode shape)
+//         or 64.
 //   * fp32 activations: a CUDA-core kernel, one column a thread, 8 rows
-//     a block, the x tile in shared memory.
-// cp.async/TMA pipelines, wgmma and a persistent schedule are later work.
+//     a block, the x tile in shared memory (split over K as above).
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -384,30 +438,563 @@ int launch(cudaStream_t st, const void* x, const void* qw, const void* sc,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// wgmma body (bf16 / fp16 x, the admission chunks)
+// ---------------------------------------------------------------------------
+using namespace ptt::sm90;
+
+constexpr int kWgThreads = 384;    // warpgroup 0 loads, 1 and 2 compute
+constexpr int kWgConsumers = 256;  // consumer threads (a stage's arrivals)
+constexpr int kWgBN = 128;         // weight columns per block
+constexpr int kWgKT = 64;          // packed weight rows per K tile
+constexpr int kMaxSplits = 4;      // blocks of a cluster over K
+// weight formats of the wgmma body: int8; int4 dequantized in fp32; int4
+// with scales of x's dtype, dequantized in T pairs
+enum Fmt { kInt8 = 0, kInt4 = 1, kInt4Pairs = 2 };
+constexpr int kSmemMax = 232448;   // H100 opt-in limit per block
+
+// Bytes of the cluster reduction's landing area in a block's ring: for
+// `splits` blocks, each block's share of the J accumulator groups (four
+// floats a consumer thread) from every rank, at an odd stride of float4s
+// so neighbouring threads fall on other banks; the most over the sizes.
+constexpr int red_bytes(int J) {
+  int most = 0;
+  for (int s = 2; s <= kMaxSplits; ++s) {
+    const int b = s * kWgConsumers * (((J + s - 1) / s) | 1) * 16;
+    most = b > most ? b : most;
+  }
+  return most;
+}
+
+template <bool INT4, int BM>
+struct WgCfg {
+  static constexpr int kXBox = BM * 128;             // [BM, 64] of x
+  static constexpr int kX = (INT4 ? 2 : 1) * kXBox;
+  static constexpr int kW = kWgKT * kWgBN;           // packed weight bytes
+  static constexpr int kStage = kX + kW;
+  static constexpr int NS = (INT4 && BM == 256) ? 3 : 4;
+  static constexpr int kRing = NS * kStage;
+  static_assert(red_bytes(BM / 8) <= kRing,
+                "the cluster reduction reuses the ring");
+  static constexpr size_t kSmem = kRing + 8 * 2 * NS + 1024;
+  static_assert(kSmem <= kSmemMax, "shared memory");
+};
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ uint32_t lds16(const uint8_t* p) {
+  return *reinterpret_cast<const uint16_t*>(p);
+}
+
+// two scales s[i], s[i + 1] (i even) of storage dtype sd as floats
+__device__ __forceinline__ float2 load_scale2(const void* s, long long i,
+                                              int sd) {
+  if (sd == ptt::kF32)
+    return __ldg(reinterpret_cast<const float2*>(
+        static_cast<const float*>(s) + i));
+  const uint32_t u = __ldg(reinterpret_cast<const unsigned int*>(
+      static_cast<const uint16_t*>(s) + i));
+  const uint16_t lo = static_cast<uint16_t>(u), hi = static_cast<uint16_t>(
+                                                     u >> 16);
+  if (sd == ptt::kBF16)
+    return make_float2(__bfloat162float(__ushort_as_bfloat16(lo)),
+                       __bfloat162float(__ushort_as_bfloat16(hi)));
+  return make_float2(__half2float(__ushort_as_half(lo)),
+                     __half2float(__ushort_as_half(hi)));
+}
+
+// (lo, hi) rounded to T as one 32-bit word, lo in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t cvt2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t cvt2<__nv_bfloat16>(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t cvt2<__half>(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// byte i of w, which holds a code plus `bias` (0..255), as the exact
+// float of the code: the byte becomes the low mantissa bits of 2^23
+template <int I>
+__device__ __forceinline__ float code_of(uint32_t w, float bias) {
+  return __int_as_float(static_cast<int>(__byte_perm(w, 0x4B000000u,
+                                                     0x7650 + I))) -
+         (8388608.f + bias);
+}
+
+// T pairs: the bias word whose lanes hold 2^7 (bf16) or 2^10 (fp16), so
+// that OR-ing a nibble m + 8 (0..15) into a lane's mantissa gives the
+// exact value base + m + 8, and the pair (base + 8, base + 8)
+template <typename T>
+struct Pair;
+template <>
+struct Pair<__nv_bfloat16> {
+  using V = __nv_bfloat162;
+  static constexpr uint32_t kBias = 0x43004300u;     // 128, 128
+  static constexpr uint32_t kBase8 = 0x43084308u;    // 136, 136
+};
+template <>
+struct Pair<__half> {
+  using V = __half2;
+  static constexpr uint32_t kBias = 0x64006400u;     // 1024, 1024
+  static constexpr uint32_t kBase8 = 0x64086408u;    // 1032, 1032
+};
+
+template <typename T>
+__device__ __forceinline__ typename Pair<T>::V as_pair(uint32_t u) {
+  return *reinterpret_cast<const typename Pair<T>::V*>(&u);
+}
+
+// Nibbles of bytes 0 and 2 of w (low nibbles, or high ones for HI) as the
+// int4 codes q in a T pair, times the pair s2: the code is exact in T,
+// and q * s (at most 4 + 11 significant bits) is exact before the pair
+// multiply rounds it once, as the fp32 product rounded to T would be.
+template <typename T, bool HI>
+__device__ __forceinline__ uint32_t nib_pair(uint32_t w, uint32_t s2) {
+  const uint32_t m = ((HI ? w >> 4 : w) & 0x000F000Fu) ^ 0x00080008u;
+  const typename Pair<T>::V q = __hsub2(as_pair<T>(m | Pair<T>::kBias),
+                                        as_pair<T>(Pair<T>::kBase8));
+  const typename Pair<T>::V r = __hmul2(q, as_pair<T>(s2));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// One A fragment pair from four biased codes e0..e3 = W[k][n],
+// W[k + 1][n], W[k][n + 1], W[k + 1][n + 1]: rows n (scale s.x) and
+// n + 1 (s.y) at k, k + 1, each weight q * s rounded once to T.
+template <typename T>
+__device__ __forceinline__ void frag_pair(uint32_t w, float bias, float2 s,
+                                          uint32_t& row_n,
+                                          uint32_t& row_n1) {
+  row_n = cvt2<T>(__fmul_rn(code_of<0>(w, bias), s.x),
+                  __fmul_rn(code_of<1>(w, bias), s.x));
+  row_n1 = cvt2<T>(__fmul_rn(code_of<2>(w, bias), s.y),
+                   __fmul_rn(code_of<3>(w, bias), s.y));
+}
+
+// Dequantize one K tile of the packed weight in shared memory (`wt`:
+// [64 rows][128 bytes], 128-byte swizzle) into this thread's A fragments:
+// columns n, n + 1 (rows g, g + 8 of its warp's A slice), K rows 16 kk +
+// {2t, 2t + 1, 2t + 8, 2t + 9}.  off_e / off_o: the swizzled byte offset
+// of the thread's two columns in a row r with r % 8 == 2t / 2t + 1.
+// int8: a[0..3]; int4: a[0..3] from the low nibbles (scales s_lo), a[4..7]
+// from the high ones (s_hi).  kInt4Pairs works in T pairs; the other
+// formats dequantize in fp32.
+template <typename T, int FMT>
+__device__ __forceinline__ void dequant_tile(const uint8_t* wt, int t,
+                                             int off_e, int off_o,
+                                             float2 s_lo, float2 s_hi,
+                                             uint32_t (*a)[4]) {
+  if (FMT == kInt4Pairs) {
+    // (s_n, s_n) and (s_n+1, s_n+1) of each half, exact in T
+    const uint32_t ln = cvt2<T>(s_lo.x, s_lo.x), ln1 = cvt2<T>(s_lo.y, s_lo.y);
+    const uint32_t hn = cvt2<T>(s_hi.x, s_hi.x), hn1 = cvt2<T>(s_hi.y, s_hi.y);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint8_t* r = wt + (16 * kk + 2 * t) * 128;
+      const uint32_t u0 = lds16(r + off_e), u1 = lds16(r + 128 + off_o);
+      const uint32_t u2 = lds16(r + 1024 + off_e);
+      const uint32_t u3 = lds16(r + 1152 + off_o);
+      // bytes 0 and 2: W[k][n], W[k + 1][n] (column n), or column n + 1
+      const uint32_t p0 = __byte_perm(u0, u1, 0x0400);
+      const uint32_t p1 = __byte_perm(u0, u1, 0x0501);
+      const uint32_t p8 = __byte_perm(u2, u3, 0x0400);
+      const uint32_t p9 = __byte_perm(u2, u3, 0x0501);
+      a[kk][0] = nib_pair<T, false>(p0, ln);
+      a[kk][1] = nib_pair<T, false>(p1, ln1);
+      a[kk][2] = nib_pair<T, false>(p8, ln);
+      a[kk][3] = nib_pair<T, false>(p9, ln1);
+      a[kk + 4][0] = nib_pair<T, true>(p0, hn);
+      a[kk + 4][1] = nib_pair<T, true>(p1, hn1);
+      a[kk + 4][2] = nib_pair<T, true>(p8, hn);
+      a[kk + 4][3] = nib_pair<T, true>(p9, hn1);
+    }
+    return;
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint8_t* r = wt + (16 * kk + 2 * t) * 128;
+    const uint32_t u0 = lds16(r + off_e), u1 = lds16(r + 128 + off_o);
+    const uint32_t u2 = lds16(r + 1024 + off_e);
+    const uint32_t u3 = lds16(r + 1152 + off_o);
+    // bytes W[k][n], W[k + 1][n], W[k][n + 1], W[k + 1][n + 1]
+    const uint32_t w0 = __byte_perm(u0, u1, 0x5140);
+    const uint32_t w8 = __byte_perm(u2, u3, 0x5140);
+    if (FMT == kInt4) {
+      // nibble + 8 in each byte: low = ((p & 15) ^ 8), high likewise of
+      // p >> 4 (sign-extension and ^ 8 - 8 agree on a nibble)
+      const uint32_t l0 = (w0 & 0x0F0F0F0Fu) ^ 0x08080808u;
+      const uint32_t l8 = (w8 & 0x0F0F0F0Fu) ^ 0x08080808u;
+      const uint32_t h0 = ((w0 >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+      const uint32_t h8 = ((w8 >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+      frag_pair<T>(l0, 8.f, s_lo, a[kk][0], a[kk][1]);
+      frag_pair<T>(l8, 8.f, s_lo, a[kk][2], a[kk][3]);
+      frag_pair<T>(h0, 8.f, s_hi, a[kk + 4][0], a[kk + 4][1]);
+      frag_pair<T>(h8, 8.f, s_hi, a[kk + 4][2], a[kk + 4][3]);
+    } else {
+      frag_pair<T>(w0 ^ 0x80808080u, 128.f, s_lo, a[kk][0], a[kk][1]);
+      frag_pair<T>(w8 ^ 0x80808080u, 128.f, s_lo, a[kk][2], a[kk][3]);
+    }
+  }
+}
+
+// out[m][n], out[m][n + 1] from D rows (n, n + 1) at column m = 8j + 2t
+// (lo) and m + 1 (hi): v = (D[n][m], D[n][m + 1], D[n + 1][m],
+// D[n + 1][m + 1]), the accumulator order
+template <typename T>
+__device__ __forceinline__ void store_pairs(T* out, long long N, int M,
+                                            int m, int n, bool col_ok,
+                                            float4 v) {
+  if (!col_ok) return;
+  if (m < M)
+    *reinterpret_cast<uint32_t*>(out + m * N + n) = cvt2<T>(v.x, v.z);
+  if (m + 1 < M)
+    *reinterpret_cast<uint32_t*>(out + (m + 1) * N + n) = cvt2<T>(v.y, v.w);
+}
+
+// A consumer thread's walk over its split's K tiles: wait for tile i's
+// stage, dequantize it into A fragments, issue its wgmmas, free it.
+// int8 scales are the thread's two columns' (read once); int4 ones are
+// tile i's two group rows, the next tile's read while this one is
+// dequantized.
+template <typename T, int FMT, int BM>
+struct WgTiles {
+  static constexpr bool INT4 = FMT != kInt8;
+  using C = WgCfg<INT4, BM>;
+  static constexpr int KS = INT4 ? 8 : 4;   // k-steps of 16 a K tile
+  uint8_t* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  const void* sc;
+  int sd, N, group, Kh, t0, n_t, n, t, off_e, off_o;
+  float2 s_lo = make_float2(0.f, 0.f), s_hi = make_float2(0.f, 0.f);
+
+  __device__ __forceinline__ void group_scales(int i) {
+    const int k = (t0 + min(i, n_t - 1)) * kWgKT;
+    s_lo = load_scale2(sc, static_cast<long long>(k / group) * N + n, sd);
+    s_hi = load_scale2(sc, static_cast<long long>((Kh + k) / group) * N + n,
+                       sd);
+  }
+
+  __device__ __forceinline__ void first_scales() {
+    if (INT4)
+      group_scales(0);
+    else
+      s_lo = load_scale2(sc, n, sd);
+  }
+
+  __device__ __forceinline__ void dequant(int i, uint32_t (*a)[4]) {
+    const int st = i % C::NS;
+    const float2 lo = s_lo, hi = s_hi;
+    if (INT4 && n < N) group_scales(i + 1);
+    mbar_wait(full + st, (i / C::NS) & 1);
+    dequant_tile<T, FMT>(ring + st * C::kStage + C::kX, t, off_e, off_o,
+                         lo, hi, a);
+  }
+
+  __device__ __forceinline__ void issue(int i, uint32_t (*a)[4],
+                                        float* acc) {
+    const uint32_t xs = smem_u32(ring + (i % C::NS) * C::kStage);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      Wgmma<T, BM>::rsk(acc, a[kk], kdesc(xs, BM, kk), 1);
+    wgmma_commit();
+  }
+
+  __device__ __forceinline__ void release(int i) {
+    mbar_arrive(empty + i % C::NS);
+  }
+};
+
+template <typename T, int FMT, int BM>
+__global__ void __launch_bounds__(kWgThreads, 1) quant_matmul_wgmma(
+    const __grid_constant__ CUtensorMap mx,
+    const __grid_constant__ CUtensorMap mw, const void* __restrict__ sc,
+    int sd, T* __restrict__ out, int M, int K, int N, int group, int n_k,
+    int per) {
+  constexpr bool INT4 = FMT != kInt8;
+  using C = WgCfg<INT4, BM>;
+  constexpr int NS = C::NS;
+  constexpr int KS = WgTiles<T, FMT, BM>::KS;
+  extern __shared__ __align__(1024) uint8_t qm_tiles[];
+  uint8_t* const ring = align1024(qm_tiles);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(ring + C::kRing);
+  uint64_t* const empty = full + NS;
+  const int splits = gridDim.x, rank = blockIdx.x;
+  const int n0 = blockIdx.y * kWgBN, m0 = blockIdx.z * BM;
+  const int t0 = rank * per;
+  const int n_t = max(0, min(n_k, t0 + per) - t0);
+  const int Kh = K / 2;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kWgConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // -- producer --------------------------------------------------------
+    reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < n_t; ++i) {
+        const int st = i % NS;
+        mbar_wait(empty + st, ((i / NS) & 1) ^ 1);
+        mbar_expect_tx(full + st, C::kStage);
+        uint8_t* const s = ring + st * C::kStage;
+        const int k = (t0 + i) * kWgKT;
+        tma_load_2d(s, &mx, full + st, k, m0);
+        if (INT4) tma_load_2d(s + C::kXBox, &mx, full + st, Kh + k, m0);
+        tma_load_2d(s + C::kX, &mw, full + st, n0, k);
+      }
+    }
+    if (splits > 1) {       // the consumers' two cluster barriers
+      cluster_sync();
+      cluster_sync();
+    }
+  } else {
+    // -- consumers: 64 weight columns each, all BM rows ---------------------
+    reg_alloc<240>();
+    const int c = threadIdx.x / 128 - 1;
+    const int tw = threadIdx.x & 127;
+    const int w = tw >> 5, lane = tw & 31, g = lane >> 2, t = lane & 3;
+    const int nl = c * 64 + 16 * w + 2 * g;     // A rows g, g + 8
+    const int n = n0 + nl;
+    const bool col_ok = n < N;
+    const int chunk = nl >> 4;
+    const int off_e = ((chunk ^ (2 * t)) << 4) + 2 * g;
+    const int off_o = ((chunk ^ (2 * t + 1)) << 4) + 2 * g;
+    float acc[BM / 2];
+#pragma unroll
+    for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+    uint32_t a0[KS][4], a1[KS][4];
+    WgTiles<T, FMT, BM> tl{ring, full, empty, sc, sd, N, group, Kh, t0,
+                           n_t, n, t, off_e, off_o};
+    if (col_ok && n_t > 0) tl.first_scales();
+    // tile i's products run while tile i + 1 is dequantized into the
+    // other A buffer: two tiles' products are in flight from the second
+    // tile on, the older one retired before its buffer is rewritten.  The
+    // two-tile prologue is unconditional so that ptxas sees the same
+    // groups in flight on every path into the loop (a conditional one
+    // made it serialize the wgmmas, C7513).
+    if (n_t >= 2) {
+      tl.dequant(0, a0);
+      tl.issue(0, a0, acc);
+      tl.dequant(1, a1);
+      tl.issue(1, a1, acc);
+      int i = 2;
+      for (; i + 1 < n_t; i += 2) {
+        wgmma_wait<1>();
+        tl.release(i - 2);
+        tl.dequant(i, a0);
+        tl.issue(i, a0, acc);
+        wgmma_wait<1>();
+        tl.release(i - 1);
+        tl.dequant(i + 1, a1);
+        tl.issue(i + 1, a1, acc);
+      }
+      if (i < n_t) {
+        wgmma_wait<1>();
+        tl.release(i - 2);
+        tl.dequant(i, a0);
+        tl.issue(i, a0, acc);
+      }
+      wgmma_wait<0>();
+      fence_regs<BM / 2>(acc);
+    } else if (n_t == 1) {
+      tl.dequant(0, a0);
+      tl.issue(0, a0, acc);
+      wgmma_wait<0>();
+      fence_regs<BM / 2>(acc);
+    }
+    // accumulator 4j + e is D[n + (e >> 1)][8j + 2t + (e & 1)]
+    if (splits == 1) {
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j)
+        store_pairs<T>(out, N, M, m0 + 8 * j + 2 * t, n, col_ok,
+                       make_float4(acc[4 * j], acc[4 * j + 1],
+                                   acc[4 * j + 2], acc[4 * j + 3]));
+    } else {
+      // reduce-scatter over the cluster: block r owns the r-th share of
+      // j; once every block's products are done (the first barrier),
+      // each pushes its partial of every j to the j's owner (posted
+      // stores into the owner's ring), and after the second barrier the
+      // owner sums the partials in rank order (deterministic)
+      constexpr int J = BM / 8;
+      const int ct = c * 128 + tw;
+      const int stride = ((J + splits - 1) / splits) | 1;  // float4s, odd
+      const uint32_t buf = smem_u32(ring);
+      cluster_sync();
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int owner = ((j + 1) * splits - 1) / J;
+        const int jl = j - owner * J / splits;
+        const int slot = (rank * kWgConsumers + ct) * stride + jl;
+        st_cluster_f4(map_rank(buf + slot * 16, owner),
+                      make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                                  acc[4 * j + 3]));
+      }
+      cluster_sync();
+      const float4* part = reinterpret_cast<const float4*>(ring);
+      const int jb = rank * J / splits, je = (rank + 1) * J / splits;
+      for (int j = jb; j < je; ++j) {
+        float4 s = part[ct * stride + j - jb];
+        for (int q = 1; q < splits; ++q) {
+          const float4 v = part[(q * kWgConsumers + ct) * stride + j - jb];
+          s.x += v.x;
+          s.y += v.y;
+          s.z += v.z;
+          s.w += v.w;
+        }
+        store_pairs<T>(out, N, M, m0 + 8 * j + 2 * t, n, col_ok, s);
+      }
+    }
+  }
+}
+
+template <typename K>
+int opt_in(K kernel, size_t smem) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+template <typename T, int FMT, int BM>
+int launch_wgmma(cudaStream_t st, const void* x, const void* qw,
+                 const void* sc, int sd, void* out, int M, int K, int N,
+                 int group, int splits) {
+  constexpr bool INT4 = FMT != kInt8;
+  using C = WgCfg<INT4, BM>;
+  const auto kernel = quant_matmul_wgmma<T, FMT, BM>;
+  static const int rc_opt = opt_in(kernel, C::kSmem);
+  if (rc_opt) return rc_opt;
+  const int Kp = INT4 ? K / 2 : K;       // packed weight rows
+  int n_k = (Kp + kWgKT - 1) / kWgKT;
+  int per = (n_k + splits - 1) / splits;
+  if (splits > n_k || (splits - 1) * per >= n_k)
+    return static_cast<int>(cudaErrorInvalidValue);   // an empty split
+  CUtensorMap mx, mw;
+  if (!map_2d(&mx, x, 2, K, M, 2ll * K, 64, BM) ||
+      !map_2d(&mw, qw, 1, N, Kp, N, kWgBN, kWgKT))
+    return static_cast<int>(cudaErrorInvalidValue);
+  T* out_t = static_cast<T*>(out);
+  void* args[] = {&mx, &mw, &sc, &sd, &out_t, &M, &K, &N, &group, &n_k,
+                  &per};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(splits),
+                     static_cast<unsigned>((N + kWgBN - 1) / kWgBN),
+                     static_cast<unsigned>((M + BM - 1) / BM));
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.dynamicSmemBytes = C::kSmem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(splits);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelExC(
+      &cfg, reinterpret_cast<const void*>(kernel), args);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// clusters of `splits` blocks of the wgmma body that the card holds at
+// once (a block takes one SM's shared memory), or a negative CUDA error
+template <bool INT4, int BM>
+int max_clusters(int splits) {
+  using C = WgCfg<INT4, BM>;
+  const auto kernel =
+      quant_matmul_wgmma<__nv_bfloat16, INT4 ? kInt4 : kInt8, BM>;
+  static const int rc_opt = opt_in(kernel, C::kSmem);
+  if (rc_opt) return -rc_opt;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(splits), 1, 1);
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.dynamicSmemBytes = C::kSmem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(splits);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(
+      &n, reinterpret_cast<const void*>(kernel), &cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+// the wgmma body for x of dtype T with `rows` (128 or 256) rows a block
+template <typename T>
+int dispatch_wgmma(cudaStream_t st, int int4, int rows, const void* x,
+                   const void* qw, const void* sc, int sd, void* out, int M,
+                   int K, int N, int group, int splits) {
+  const bool pairs = sd == (std::is_same<T, __half>::value ? ptt::kF16
+                                                           : ptt::kBF16);
+#define PTT_QM_LAUNCH(FMT)                                                  \
+  return rows == 128 ? launch_wgmma<T, FMT, 128>(st, x, qw, sc, sd, out, M,  \
+                                                 K, N, group, splits)        \
+                     : launch_wgmma<T, FMT, 256>(st, x, qw, sc, sd, out, M,  \
+                                                 K, N, group, splits)
+  if (!int4) PTT_QM_LAUNCH(kInt8);
+  if (pairs) PTT_QM_LAUNCH(kInt4Pairs);
+  PTT_QM_LAUNCH(kInt4);
+#undef PTT_QM_LAUNCH
+}
+
 }  // namespace
 
 // x [M, K] (dtype), qw int8 [K, N] (int4 == 0) or [K/2, N] (int4 == 1),
 // scales [N] or [K/group, N] (scale_dtype), out [M, N] (dtype); all
-// contiguous, qw and scales 16-byte aligned, N % 16 == 0.  splits > 1
-// divides the K tiles among that many blocks per output tile, whose fp32
-// sums go to part [splits, M, N] and are added by a second launch;
-// splits == 1 writes `out` directly and takes no scratch.
+// contiguous, qw and scales 16-byte aligned, N % 16 == 0.
+//   rows == 0: the mma.sync / CUDA-core bodies.  splits > 1 divides the
+//     K tiles among that many blocks per output tile, whose fp32 sums go
+//     to part [splits, M, N] and are added by a second launch; splits ==
+//     1 writes `out` directly and takes no scratch.
+//   rows == 128 or 256: the wgmma body with blocks of that many rows of x
+//     (bf16/fp16 x 16-byte aligned, K % 8 == 0, int4 group % 64 == 0);
+//     `splits` (1-4, none of them empty) is the cluster size over K,
+//     reduced in shared memory: `part` must be null.
 extern "C" int ptt_quant_matmul(int device, int dtype, int scale_dtype,
                                 int int4, int group, const void* x,
                                 const void* qw, const void* scales, void* out,
                                 void* part, int M, int K, int N, int splits,
-                                void* stream) {
+                                int rows, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (M <= 0 || K <= 0 || N <= 0 || N % 16 || splits <= 0 ||
-      splits > 65535 || (M + 15) / 16 > 65535 ||
-      (splits > 1 && part == nullptr) || !ptt::aligned16(qw) ||
+      splits > 65535 || (M + 15) / 16 > 65535 || !ptt::aligned16(qw) ||
       !ptt::aligned16(scales) ||
       (int4 && (K % 2 || group <= 0 || (K / 2) % group)))
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows) {
+    if (part != nullptr || splits > kMaxSplits || K % 8 ||
+        !ptt::aligned16(x) || (int4 && group % 64) ||
+        (rows != 128 && rows != 256) || scale_dtype < ptt::kF32 ||
+        scale_dtype > ptt::kF16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype == ptt::kBF16)
+      return dispatch_wgmma<__nv_bfloat16>(st, int4, rows, x, qw, scales,
+                                           scale_dtype, out, M, K, N, group,
+                                           splits);
+    if (dtype == ptt::kF16)
+      return dispatch_wgmma<__half>(st, int4, rows, x, qw, scales,
+                                    scale_dtype, out, M, K, N, group, splits);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (splits > 1 && part == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int n_k = (K + kBK - 1) / kBK;
   const int per = (n_k + splits - 1) / splits;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   void* part_or_null = splits > 1 ? part : nullptr;
   PTT_DISPATCH(dtype, T, {
     PTT_DISPATCH(scale_dtype, S, {
@@ -418,4 +1005,21 @@ extern "C" int ptt_quant_matmul(int device, int dtype, int scale_dtype,
     });
   });
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The wgmma body's clusters of `splits` (1-4) blocks over K that fit on
+// the card at once, for blocks of `rows` (128 or 256) rows of x and the
+// weight format: what ops/quant_matmul.py::_schedule sizes its waves by.
+// Negative: a CUDA error.
+extern "C" int ptt_quant_matmul_clusters(int device, int int4, int rows,
+                                         int splits) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if ((rows != 128 && rows != 256) || splits <= 0 || splits > kMaxSplits)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  if (int4)
+    return rows == 128 ? max_clusters<true, 128>(splits)
+                       : max_clusters<true, 256>(splits);
+  return rows == 128 ? max_clusters<false, 128>(splits)
+                     : max_clusters<false, 256>(splits);
 }

@@ -9,7 +9,8 @@ at :350-356: the fused AdamW kernel where the state layout allows it,
 the pure rule elsewhere), and clears the gradients.  The optimizer's
 step count advances before the update, as the reference's does, so
 Adam's bias correction matches; the weight-decay list follows
-`apply_decay_param_fun` as at :316-322.
+`apply_decay_param_fun` as at :316-322, called with each parameter's
+automatic name where it has one (`p.name or n` there).
 
 The reference compiles the whole step into one program with donated
 buffers; here the step is eager and the parameters and optimizer state

@@ -37,7 +37,9 @@ reference's `_block_cached` is.
 Parameters keep the reference's names and its [in, out] layout
 (`x @ w`) — `llama.embed_tokens`, `llama.layers.N.self_attn.q_proj`,
 …, `lm_head` — so weights carry over by name with no transposes
-(models/convert.py).  Random init draws from a seeded
+(models/convert.py).  Each parameter also carries the reference's
+automatic name (`auto_name`, e.g. `llamarmsnorm_0.weight`; nn/layer.py),
+which `apply_decay_param_fun` sees.  Random init draws from a seeded
 `torch.Generator` at std 1/sqrt(fan-in) as the reference's
 `_init_weight` (:139) does (the two packages' random streams differ;
 parity tests load the same numpy weights into both).
@@ -66,6 +68,7 @@ from torch import nn
 
 from .. import ops
 from ..nn import functional as F
+from ..nn.layer import Layer
 from ..distributed.fleet.recompute import recompute
 from ..framework.device import resolve_device
 from ..framework.flags import get_flag
@@ -168,7 +171,7 @@ def _param(shape, std, cfg, device, gen):
     return nn.Parameter(w)
 
 
-class LlamaRMSNorm(nn.Module):
+class LlamaRMSNorm(Layer):
     def __init__(self, config: LlamaConfig, device):
         super().__init__()
         self.weight = nn.Parameter(
@@ -180,7 +183,7 @@ class LlamaRMSNorm(nn.Module):
         return ops.rms_norm(x, self.weight.to(x.dtype), self.eps)
 
 
-class LlamaAttention(nn.Module):
+class LlamaAttention(Layer):
     def __init__(self, config: LlamaConfig, device, gen):
         super().__init__()
         self.config = config
@@ -245,7 +248,7 @@ class LlamaAttention(nn.Module):
             q, cache["k"], cache["v"], page_table, pos, layer, ks, vs))
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(Layer):
     def __init__(self, config: LlamaConfig, device, gen):
         super().__init__()
         h, i = config.hidden_size, config.intermediate_size
@@ -261,7 +264,7 @@ class LlamaMLP(nn.Module):
                                  _wo_mm(self, "up_proj", x)))
 
 
-class LlamaDecoderLayer(nn.Module):
+class LlamaDecoderLayer(Layer):
     def __init__(self, config: LlamaConfig, device, gen, layer_idx=0):
         super().__init__()
         self.config = config
@@ -323,7 +326,7 @@ class LlamaDecoderLayer(nn.Module):
                 h, cos, sin, cache, page_table, pos, layer, where))
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(Layer):
     def __init__(self, config: LlamaConfig, device, gen):
         super().__init__()
         self.config = config
@@ -423,7 +426,7 @@ class LlamaModel(nn.Module):
         return self.norm(x), cache
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(Layer):
     """Llama with an lm head.  `device` None means CUDA (raises without
     one); pass device="cpu" to run the plain versions on the host.
     Weights are random from `seed` until models.convert loads real

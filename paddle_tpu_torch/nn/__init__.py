@@ -1,4 +1,6 @@
-"""paddle_tpu_torch.nn — the functional pieces the training slice uses."""
+"""paddle_tpu_torch.nn — the functional pieces the training slice uses,
+and `Layer`, the module base that names parameters as the reference."""
 from . import functional
+from .layer import Layer
 
-__all__ = ["functional"]
+__all__ = ["functional", "Layer"]

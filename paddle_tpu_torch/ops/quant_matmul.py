@@ -21,6 +21,16 @@ each tile in shared memory right after loading it, so the weight
 crosses device memory at its packed width (1 or 1/2 byte an element)
 and no dequantized [K, N] weight is ever allocated.
 
+Two tensor-core bodies, picked by shape (`_takes_wgmma`, mirrored in the
+kernel's header): the admission chunks (bf16/fp16 x, M > 16, K % 8 == 0,
+x 16-byte aligned, int4 groups a multiple of 64) take the wgmma body —
+TMA ring, dequantization into wgmma's register operand, K split over a
+thread-block cluster and reduced on chip, the row tile and cluster size
+from a cost model (`_schedule`); decode (M <= 16) and every other shape
+take the mma.sync body, K split with fp32 partials (`_splits`) where the
+column blocks alone cannot fill the card.  fp32 x takes the CUDA-core
+body.
+
 `quant_matmul` validates its arguments first (the reference's
 ValueErrors), then takes the plain version for CPU tensors and launches
 the kernel for CUDA tensors, or raises — there is no fallback.
@@ -40,9 +50,23 @@ __all__ = ["quant_matmul", "plain_quant_matmul", "pack_int4",
 launches = {"quant_matmul": 0}
 variant_launches = {"int8": 0, "int4": 0}
 
-# the kernel's tiles (csrc/quant_matmul.cu kBN, kBK): output columns
-# per block and logical K rows per tile
+# the mma.sync body's tiles (csrc/quant_matmul.cu kBN, kBK): output
+# columns per block and logical K rows per tile
 _BN, _BK = 128, 64
+# M up to this takes the decode path (the mma.sync body, 16-row tiles)
+_DECODE_ROWS = 16
+# the wgmma body's schedule model (tools/quant_matmul_schedule.py fits
+# it to the card's times): at most this many blocks of a cluster over K;
+# us a block of 128 / 256 rows spends on one K tile (64 packed rows) of
+# int8 / int4, and us a wave of blocks spends beside its K tiles (pipeline
+# fill, epilogue, the cluster's reduction) by cluster size
+_MAX_SPLITS = 4
+_TILE_US = {(False, 128): 0.47, (False, 256): 0.62,
+            (True, 128): 1.43, (True, 256): 1.57}
+_WAVE_US = {128: {1: 5.9, 2: 8.9, 3: 9.0, 4: 9.6},
+            256: {1: 10.2, 2: 14.1, 3: 14.7, 4: 16.5}}
+# (device, int4, rows) -> {splits: clusters at once}
+_capacity = {}
 
 
 def pack_int4(q):
@@ -144,21 +168,73 @@ def _launch(x, qw, scales, fmt, group_size):
     req(qw.data_ptr() % 16 == 0 and scales.data_ptr() % 16 == 0,
         "quant_matmul kernel needs 16-byte aligned qw and scales", qw,
         scales)
-    splits = _splits(M, K, N, qw.numel())
+    if _takes_wgmma(x, M, K, fmt, g):
+        rows, splits = _schedule(M, K, N, int4,
+                                 lambda r: _cluster_capacity(dev, int4, r))
+    else:
+        rows, splits = 0, _splits(M, K, N, qw.numel())
     out = torch.empty(x.shape[:-1] + (N,), dtype=x.dtype, device=x.device)
     part = None
-    if splits > 1:
+    if splits > 1 and not rows:
         part = torch.empty((splits, M, N), dtype=torch.float32,
                            device=x.device)
     rc = _build.library().ptt_quant_matmul(
         dev, code, scode, int(int4), g, x.data_ptr(), qw.data_ptr(),
         scales.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), M, K, N, splits,
+        None if part is None else part.data_ptr(), M, K, N, splits, rows,
         _build.stream_of(x.device))
     _build.check(rc, "quant_matmul")
     launches["quant_matmul"] += 1
     variant_launches[fmt] += 1
     return out
+
+
+def _takes_wgmma(x, M, K, fmt, group):
+    """Whether the call takes the wgmma body: bf16/fp16 x past the decode
+    rows, x's rows a TMA stride (K % 8 == 0) from a 16-byte aligned
+    start, and for int4 one group scale row per 64 packed rows."""
+    return (x.dtype != torch.float32 and M > _DECODE_ROWS and K % 8 == 0
+            and x.data_ptr() % 16 == 0
+            and (fmt == "int8" or group % 64 == 0))
+
+
+def _cluster_capacity(dev, int4, rows):
+    """{splits: clusters of that many blocks the card holds at once} for
+    the wgmma body's blocks of `rows` rows (the kernel's occupancy query,
+    once per device and configuration)."""
+    key = (dev, bool(int4), rows)
+    if key not in _capacity:
+        lib = _build.library()
+        cap = {}
+        for s in range(1, _MAX_SPLITS + 1):
+            n = lib.ptt_quant_matmul_clusters(dev, int(int4), rows, s)
+            _build.check(-n if n < 0 else 0, "quant_matmul cluster query")
+            cap[s] = n
+        _capacity[key] = cap
+    return _capacity[key]
+
+
+def _schedule(M, K, N, int4, capacity):
+    """The wgmma body's (rows, splits): blocks of 128 or 256 rows of x
+    (256 only past M = 128) and clusters of 1-4 blocks over K, the pair
+    with the least modelled time.  The blocks run in waves of as many
+    clusters as `capacity(rows)[splits]` says fit at once; a wave costs
+    its blocks' K tiles at _TILE_US each plus _WAVE_US.  Ties go to
+    fewer splits, then to more rows.  No split is empty."""
+    n_k = -(-(K // 2 if int4 else K) // 64)
+    best = None
+    for rows in ((128, 256) if M > 128 else (128,)):
+        tiles = -(-N // 128) * -(-M // rows)
+        cap = capacity(rows)
+        for s in range(1, min(_MAX_SPLITS, n_k) + 1):
+            if not cap[s]:
+                continue
+            t = -(-tiles // cap[s]) * (-(-n_k // s) * _TILE_US[int4, rows]
+                                       + _WAVE_US[rows][s])
+            key = (t, s, -rows)
+            if best is None or key < best[0]:
+                best = (key, rows, -(-n_k // -(-n_k // s)))
+    return best[1], best[2]
 
 
 def _splits(M, K, N, weight_bytes):
@@ -167,10 +243,10 @@ def _splits(M, K, N, weight_bytes):
     partial traffic (written and read back, 8 B an output a split) than
     the packed weight's own bytes, and never an empty split (the
     launcher gives each split ceil(K tiles / splits) tiles).  The row
-    tile mirrors the launcher's choice: 16 rows up to M = 16, else 64
-    (8 rows a block for fp32, which this count ignores)."""
+    tile mirrors the mma.sync body's choice: 16 rows up to M = 16, else
+    64 (8 rows a block for fp32, which this count ignores)."""
     n_k = -(-K // _BK)
-    bm = 16 if M <= 16 else 64
+    bm = 16 if M <= _DECODE_ROWS else 64
     blocks = -(-N // _BN) * -(-M // bm)
     want = max(1, -(-528 // blocks))
     cap = max(1, weight_bytes // (8 * M * N))

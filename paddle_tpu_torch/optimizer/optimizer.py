@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..framework.flags import get_flag
+from ..nn.layer import auto_name
 
 __all__ = ["Optimizer", "Adam", "AdamW"]
 
@@ -66,10 +67,12 @@ class Optimizer:
         return float(getattr(wd, "_coeff", getattr(wd, "coeff", 0.0)))
 
     def _decay_of(self, name: str, p) -> float:
-        """The weight decay of parameter `name`, 0 where
-        apply_decay_param_fun excludes it."""
+        """The weight decay of parameter `p` (structural name `name`), 0
+        where apply_decay_param_fun excludes it.  The function sees the
+        reference's automatic name where `p` has one (nn/layer.py), else
+        `name`: the reference's `p.name or n`."""
         fn = getattr(self, "_apply_decay_param_fun", None)
-        if fn is not None and not fn(name):
+        if fn is not None and not fn(auto_name(p) or name):
             return 0.0
         return self._wd_value(p)
 

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Serving speed of several trees of this repo, in turns, on one card.
 
-    python3 serve_ab.py TREE [TREE ...]
+    python3 serve_ab.py [--weight-only int8|int4] [--kv-dtype int8]
+                        TREE [TREE ...]
 
 Each TREE is a checkout of this repository: `.` for this one, or another
 commit unpacked with `git archive` into a directory that .gitignore lists
 (only `chip_smoke.py` and `paddle_tpu_torch/` are needed).  In the order
 given, each tree's own `chip_smoke.py` builds that tree's kernels and runs
 its serve phase (phase 5: Llama-2-7B, bf16, 16 requests, then a profiled
-pure-decode window) twice in a fresh process; the second run is kept, so
+pure-decode window; with --weight-only / --kv-dtype, phase 10's or 11's
+quantized serve) twice in a fresh process; the second run is kept, so
 first-call costs fall on the first.  Give the trees in turns (A B B A) so
 that a drift of the card's clocks falls on each alike.
 
@@ -36,11 +38,13 @@ dev = torch.device("cuda", 0)
 torch.cuda.set_device(dev)
 _build.library()
 for _ in range(2):
-    cs.phase_serve(torch, ops, dev)
+    cs.phase_serve(torch, ops, dev, weight_only={wo!r}, kv_dtype={kv!r},
+                   tag={tag!r})
 """
 
-METRICS = ("decode_ms_per_step", "tok_per_s", "ttft_ms_p50",
-           "trace_wall_ms_per_step", "trace_device_ms_per_step")
+METRICS = ("decode_ms_per_step", "admit_ms_per_step", "tok_per_s",
+           "ttft_ms_p50", "trace_wall_ms_per_step",
+           "trace_device_ms_per_step")
 
 
 def _last(lines, tag):
@@ -50,21 +54,33 @@ def _last(lines, tag):
     return json.loads(rows[-1])
 
 
-def run(tree):
-    proc = subprocess.run([sys.executable, "-c", _RUN], cwd=tree, text=True,
+def run(tree, weight_only=None, kv_dtype=None):
+    tag = "serve" + (f"-{weight_only}" if weight_only else "")
+    code = _RUN.format(wo=weight_only, kv=kv_dtype, tag=tag)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tree, text=True,
                           capture_output=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(f"serve_ab: {tree} failed (rc {proc.returncode})"
                            f":\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
     lines = proc.stdout.splitlines()
-    serve, trace = _last(lines, "[serve] "), _last(lines, "[trace] ")
+    serve = _last(lines, f"[{tag}] ")
+    trace = _last(lines, f"[{tag}-trace] ")
     return dict(tree=tree, decode_ms_per_step=serve["decode_ms_per_step"],
+                admit_ms_per_step=serve["admit_ms_per_step"],
                 tok_per_s=serve["tok_per_s"], ttft_ms_p50=serve["ttft_ms_p50"],
                 trace_wall_ms_per_step=trace["wall_ms_per_step"],
                 trace_device_ms_per_step=trace["device_ms_per_step"])
 
 
-def main(trees):
+def main(argv):
+    opts = {"--weight-only": None, "--kv-dtype": None}
+    trees = []
+    it = iter(argv)
+    for a in it:
+        if a in opts:
+            opts[a] = next(it)
+        else:
+            trees.append(a)
     import torch
     if not torch.cuda.is_available():
         print("serve_ab: no CUDA device is available", file=sys.stderr)
@@ -81,7 +97,7 @@ def main(trees):
         text=True, timeout=60).stdout.strip(), flush=True)
     runs = []
     for tree in trees:
-        runs.append(run(tree))
+        runs.append(run(tree, opts["--weight-only"], opts["--kv-dtype"]))
         print(json.dumps(runs[-1]), flush=True)
     medians = {t: {m: statistics.median(r[m] for r in runs if r["tree"] == t)
                    for m in METRICS} for t in dict.fromkeys(trees)}

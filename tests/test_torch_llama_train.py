@@ -211,15 +211,101 @@ def test_bf16_compute_fp32_params_tracks_reference():
 
 
 def test_weight_decay_follows_apply_decay_param_fun():
+    """The function sees the reference's automatic names (`llamarmsnorm_
+    N.weight`), not the structural ones; the list is by structural name."""
     _, tm = _pair()
+    seen = []
     opt = AdamW(1e-3, parameters=tm.parameters(), weight_decay=0.1,
-                apply_decay_param_fun=lambda n: not n.endswith("norm.weight")
-                and "layernorm" not in n)
+                apply_decay_param_fun=lambda n: seen.append(n)
+                or not n.startswith("llamarmsnorm_"))
     step = TrainStep(tm, tm.compute_loss, opt)
     wds = dict(zip(step._names, step._wds))
     assert wds["llama.norm.weight"] == 0.0
     assert wds["llama.layers.0.input_layernorm.weight"] == 0.0
+    assert wds["llama.layers.1.post_attention_layernorm.weight"] == 0.0
     assert wds["lm_head"] == 0.1
+    assert wds["llama.layers.0.self_attn.q_proj"] == 0.1
+    assert sorted(seen) == sorted(p.auto_name for p in tm.parameters())
+    assert not any(n.startswith("llama.") for n in seen)
+
+
+def _decay_fn(n):
+    # a structural-name policy: under the automatic names the norm
+    # weights (`llamarmsnorm_N.weight`) match neither test, so decay
+    return not n.endswith("norm.weight") and "layernorm" not in n
+
+
+def test_decay_per_parameter_matches_reference(monkeypatch):
+    """The same apply_decay_param_fun gives every parameter the same
+    decay in both packages' train steps, matched by structural name (the
+    reference's list read where its step hands it to apply_updates)."""
+    import paddle_tpu.optimizer.jit_update as ju
+    jm, tm = _pair(num_hidden_layers=1)
+    seen = {}
+    real = ju.apply_updates
+
+    def spy(upd, params, grads, states, lr, wds, *a, **k):
+        seen["wds"] = list(wds)
+        return real(upd, params, grads, states, lr, wds, *a, **k)
+
+    jopt = paddle_tpu.optimizer.AdamW(1e-3, parameters=jm.parameters(),
+                                      weight_decay=0.1,
+                                      apply_decay_param_fun=_decay_fn)
+    jstep = JTrainStep(jm, jm.compute_loss, jopt)
+    b = _batch(np.random.RandomState(8))
+    monkeypatch.setattr(ju, "apply_updates", spy)
+    jstep(JTensor(jnp.asarray(b)), JTensor(jnp.asarray(b)))
+    jwds = dict(zip(jstep._names, seen["wds"]))
+    tstep = TrainStep(tm, tm.compute_loss,
+                      AdamW(1e-3, parameters=tm.parameters(),
+                            weight_decay=0.1,
+                            apply_decay_param_fun=_decay_fn))
+    twds = dict(zip(tstep._names, tstep._wds))
+    assert twds == jwds
+    for n in ("llama.norm.weight", "llama.layers.0.input_layernorm.weight",
+              "llama.layers.0.post_attention_layernorm.weight"):
+        assert twds[n] == 0.1, n
+
+
+def test_automatic_names_follow_reference_counters_and_ties(monkeypatch):
+    """Per-class, per-process counters (both packages' counters reset)
+    give the reference's names parameter for parameter; a parameter
+    assigned to a second layer keeps its first owner's name."""
+    import collections
+    import paddle_tpu.nn.layer.layers as jlayers
+    from paddle_tpu.framework.tensor import Parameter as JParameter
+    import paddle_tpu_torch.nn.layer as tlayer
+    monkeypatch.setattr(jlayers, "_layer_name_counters",
+                        collections.defaultdict(int))
+    monkeypatch.setattr(tlayer, "_layer_name_counters",
+                        collections.defaultdict(int))
+    jm, tm = _pair(num_hidden_layers=2)
+    jnames = {n: p.name for n, p in jm.named_parameters()}
+    tnames = {n: p.auto_name for n, p in tm.named_parameters()}
+    assert tnames == jnames
+    assert tnames["llama.layers.1.post_attention_layernorm.weight"] == \
+        "llamarmsnorm_3.weight"
+    assert tnames["llama.layers.1.self_attn.o_proj"] == \
+        "llamaattention_1.o_proj"
+
+    class Owner(jlayers.Layer):
+        pass
+
+    class TOwner(tlayer.Layer):
+        pass
+
+    TOwner.__name__ = "Owner"
+    ja, jb = Owner(), Owner()
+    ja.w = JParameter(jnp.ones([2]))
+    jb.w = ja.w
+    jb.v = JParameter(jnp.ones([2]))
+    ta, tb = TOwner(), TOwner()
+    ta.w = torch.nn.Parameter(torch.ones(2))
+    tb.w = ta.w
+    tb.v = torch.nn.Parameter(torch.ones(2))
+    assert (ta.w.auto_name, tb.w.auto_name, tb.v.auto_name) == \
+        (ja.w.name, jb.w.name, jb.v.name) == \
+        ("owner_0.w", "owner_0.w", "owner_1.v")
 
 
 def test_not_ported_options_raise():

@@ -18,6 +18,8 @@ pools' codes are pinned (at most 2 differ, each by one step, scales
 within 2^-20 of each other) and the logits held at 2^-8 of the largest
 logit (one flipped code moved them by 1.8e-3 of a 3.8 logit scale).
 """
+import ctypes
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -33,6 +35,7 @@ from paddle_tpu.ops.pallas.quant_matmul import quant_matmul as pallas_qm
 from paddle_tpu.quantization import weight_only as jwo
 
 import paddle_tpu_torch.ops as tops
+from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.framework import flags as tflags
 from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny_config,
                                      load_numpy_state_dict, numpy_state_dict)
@@ -379,13 +382,137 @@ def test_quantized_decode_logits_match_reference(fmt, group, kv, carry):
             np.testing.assert_allclose(p, r, **tol)
 
 
-@pytest.mark.parametrize("M,K,N,want", [
-    (8, 4096, 4096, 16),       # decode: 32 column blocks, K split 16 ways
-    (8, 4096, 32000, 3),       # the lm head: 250 column blocks already
-    (256, 4096, 4096, 2),      # capped: partials may not outgrow the weight
-    (3, 200, 48, 4),           # never more splits than K tiles
-    (1, 64, 16, 1),
+# clusters of 1-4 blocks of the wgmma body an H100 SXM holds at once, as
+# ptt_quant_matmul_clusters (cudaOccupancyMaxActiveClusters) reports them
+_H100_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30}
+
+
+@pytest.mark.parametrize("M,K,N,fmt,want", [
+    (8, 4096, 4096, "int8", (0, 16)),     # decode: 32 column blocks, K / 16
+    (8, 4096, 32000, "int8", (0, 3)),     # the lm head: 250 column blocks
+    (256, 4096, 4096, "int8", (128, 2)),  # admission: 64 clusters of 2
+    (3, 200, 48, "int8", (0, 4)),         # never more splits than K tiles
+    (1, 64, 16, "int8", (0, 1)),
+    (256, 4096, 11008, "int8", (256, 1)),  # 86 strips of 256 rows
+    (256, 11008, 4096, "int4", (256, 3)),  # 86 int4 tiles: 29, 29, 28
+    (256, 4096, 32000, "int4", (256, 1)),  # 250 strips fill two waves
 ])
-def test_quant_matmul_split_count(M, K, N, want):
+def test_quant_matmul_split_count(M, K, N, fmt, want):
+    """(rows, splits) of each body: decode (M <= 16) takes the mma.sync
+    body (rows 0) with K split over fp32 partials (`_splits`); the
+    admission chunks take the wgmma body at the row tile and cluster
+    size `_schedule` models fastest on an H100 (`_H100_CLUSTERS`)."""
     qm = tops.kernel_module("quant_matmul")
-    assert qm._splits(M, K, N, K * N) == want
+    int4 = fmt == "int4"
+    got = ((0, qm._splits(M, K, N, K * N // (2 if int4 else 1)))
+           if M <= 16 else qm._schedule(M, K, N, int4,
+                                        lambda rows: _H100_CLUSTERS))
+    assert got == want
+
+
+def _view(ptr, shape, dtype):
+    """A tensor over the CPU memory at address `ptr`."""
+    n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+    buf = (ctypes.c_char * n).from_address(ptr)
+    return torch.frombuffer(buf, dtype=dtype).view(shape)
+
+
+class _QuantLib:
+    """Stands in for the kernel library's ptt_quant_matmul: checks each
+    call's arguments against `_build._SIGNATURES`, then writes the plain
+    version's product where `out` points."""
+
+    CTYPE = {ctypes.c_void_p: int, ctypes.c_int: int}
+    DTYPE = {code: dt for dt, code in _build.DTYPE_CODES.items()}
+
+    def __init__(self):
+        self.calls = []
+
+    def ptt_quant_matmul(self, *args):
+        sig = _build._SIGNATURES["ptt_quant_matmul"]
+        assert len(args) == len(sig)
+        for i, (a, c) in enumerate(zip(args, sig)):
+            # part is a null pointer (None) where no scratch is needed
+            assert type(a) is self.CTYPE[c] or (i == 9 and a is None), (i, a)
+        self.calls.append(args)
+        (dev, code, scode, int4, g, x, qw, sc, out, part, M, K, N, splits,
+         rows, stream) = args
+        dt, st = self.DTYPE[code], self.DTYPE[scode]
+        fmt = "int4" if int4 else "int8"
+        w = _view(qw, (K // 2 if int4 else K, N), torch.int8)
+        s = _view(sc, (K // g, N) if int4 else (N,), st)
+        _view(out, (M, N), dt).copy_(tops.plain_quant_matmul(
+            _view(x, (M, K), dt), w, s, fmt, g if int4 else None))
+        return 0
+
+    def ptt_quant_matmul_clusters(self, *args):
+        sig = _build._SIGNATURES["ptt_quant_matmul_clusters"]
+        assert len(args) == len(sig) and all(type(a) is int for a in args)
+        dev, int4, rows, splits = args
+        assert rows in (128, 256)
+        return _H100_CLUSTERS[splits]
+
+
+@pytest.mark.parametrize(
+    "M,K,fmt,group,dt,aligned,rows,splits", [
+        (8, 256, "int8", None, "bf16", True, 0, 4),      # decode: mma.sync
+        (256, 4096, "int8", None, "bf16", True, 128, 4),  # admission: wgmma
+        (256, 4096, "int4", 64, "bf16", True, 128, 4),
+        (17, 256, "int8", None, "fp16", True, 128, 1),   # M > 16
+        (256, 256, "int4", 32, "bf16", True, 0, 1),      # group % 64 != 0
+        (100, 202, "int8", None, "bf16", True, 0, 1),    # K % 8 != 0
+        (256, 256, "int8", None, "bf16", False, 0, 1),   # x not 16-aligned
+        (256, 256, "int8", None, "fp32", True, 0, 1),    # CUDA-core body
+    ], ids=["decode", "admit", "admit_int4", "m17_fp16", "int4_g32",
+            "ragged_k", "x_unaligned", "fp32"])
+def test_quant_matmul_launch_marshalling(monkeypatch, M, K, fmt, group, dt,
+                                         aligned, rows, splits):
+    """`_launch` as the card runs it, with the kernel library stood in
+    for: the arguments in the C signature's order and types, the body
+    the header gives the shape (wgmma, rows 128 or 256, only for
+    bf16/fp16 x past 16 rows, K % 8 == 0, x 16-byte aligned, int4 groups
+    a multiple of 64; else mma.sync, rows 0), the split count (for the
+    wgmma body sized by the stand-in's cluster capacity), fp32 partials
+    [splits, M, N] only for the mma.sync body with splits > 1, and one
+    launch counted per call."""
+    qm = tops.kernel_module("quant_matmul")
+    lib = _QuantLib()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "cuda_device_index", lambda *t: 0)
+    monkeypatch.setattr(_build, "stream_of", lambda d: 0)
+    monkeypatch.setattr(qm, "_capacity", {})
+    empty, made = torch.empty, []
+
+    def spy_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        made.append(t)
+        return t
+
+    monkeypatch.setattr(torch, "empty", spy_empty)
+    dtype = {"bf16": torch.bfloat16, "fp16": torch.float16,
+             "fp32": torch.float32}[dt]
+    rng = np.random.RandomState(M + K)
+    N = 256
+    w = torch.from_numpy((rng.randn(K, N) / np.sqrt(K)).astype(np.float32))
+    qw, sc = two.quantize_weight(w.to(torch.bfloat16), fmt, group or 64)
+    xs = torch.from_numpy(rng.randn(M * K + 1).astype(np.float32)).to(dtype)
+    x = (xs[:M * K] if aligned else xs[1:]).view(M, K)
+    assert (x.data_ptr() % 16 == 0) == aligned
+    before = tops.launch_counts()["quant_matmul"]
+    var = dict(qm.variant_launches)
+    out = qm._launch(x, qw, sc, fmt, group)
+    (call,) = lib.calls
+    part = None if call[9] is None else [t for t in made
+                                         if t.data_ptr() == call[9]][0]
+    assert call == (0, _build.DTYPE_CODES[dtype],
+                    _build.DTYPE_CODES[sc.dtype], int(fmt == "int4"),
+                    group or 0, x.data_ptr(), qw.data_ptr(), sc.data_ptr(),
+                    out.data_ptr(), call[9], M, K, N, splits, rows, 0)
+    if rows or splits == 1:
+        assert part is None
+    else:
+        assert part.shape == (splits, M, N) and part.dtype == torch.float32
+    assert out.shape == (M, N) and out.dtype == dtype
+    assert torch.equal(out, tops.plain_quant_matmul(x, qw, sc, fmt, group))
+    assert tops.launch_counts()["quant_matmul"] == before + 1
+    assert qm.variant_launches[fmt] == var[fmt] + 1
