@@ -41,7 +41,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   6. train kernels  each training kernel, forward and backward, against
              its plain version at the training path's shapes in bf16
              (x [8192, 2560]; q [4, 2048, 20, 128], kv [4, 2048, 4, 128]
-             causal); flash attention also at FLASH_EDGE_CASES (ragged s,
+             causal); both RMSNorm backwards also at RMS_BWD_EDGE_CASES
+             (Llama-2-7B's [4096, 4096], one row, 8193 rows, H 8192, the
+             element path H 1003, fp16, fp32, the widest H 58079, an
+             unaligned x), each bit-identical across two launches, and
+             the library's body by shape held to RMS_BWD_PLANS (the
+             table in csrc/rms_norm.cu's header); flash attention also
+             at FLASH_EDGE_CASES (ragged s,
              sq != sk, d 64, fp16, MHA and group 8, B 1) and at
              Llama-2-7B's attention, each beside SDPA; the fused AdamW
              in its four variants (fp32 params
@@ -844,7 +850,7 @@ def admit_trace(torch, model, dev, kv_dtype=None):
 TRACE_KINDS = {"flash_attention": ("flash_",),
                "paged_attention": ("paged_attention",),
                "quant_matmul": ("quant_matmul",),
-               "rms_norm": ("rms_norm",),
+               "rms_norm": ("rms_norm", "rms_bwd", "rms_dw"),
                "rope": ("rope_kernel",), "fused_adamw": ("fused_adamw",),
                "cross_entropy": ("ce_rows",),
                "matmul": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
@@ -900,7 +906,8 @@ def _grad_timer(torch, outs, ins, cots):
 def _rms_bwd_tolerances(torch, x, w, g, dx_ref, dw_ref, eps):
     """Per-element tolerances of the RMSNorm backward kernel against
     plain_rms_norm_bwd.  Both do the same fp32 math and round dx and dw
-    once, so a rounding that flips gives one bf16 ulp, 2^-7 |plain|.
+    once, so a rounding that flips gives one ulp of the output's dtype,
+    at most eps |plain| (eps: 2^-7 bf16, 2^-10 fp16, 2^-23 fp32).
     The fp32 parts differ in summation order and FMA contraction: the
     sum of squares by <= H 2^-24 relative (so r^3 by 3x that, < 2^-10),
     the row dot by <= 2^-16 of the sum of its |terms|, dw by <= rows
@@ -912,10 +919,11 @@ def _rms_bwd_tolerances(torch, x, w, g, dx_ref, dw_ref, eps):
     gw = gf * wf
     dot = (gw * xf).mean(-1, keepdim=True)
     dot_abs = (gw * xf).abs().mean(-1, keepdim=True)
-    dx_tol = (2.0 ** -7 * dx_ref.float().abs()
+    ulp = torch.finfo(dx_ref.dtype).eps
+    dx_tol = (ulp * dx_ref.float().abs()
               + 2.0 ** -10 * (r * gw.abs() + r ** 3 * xf.abs() * dot.abs())
               + 2.0 ** -16 * r ** 3 * xf.abs() * dot_abs)
-    dw_tol = (2.0 ** -7 * dw_ref.float().abs()
+    dw_tol = (torch.finfo(dw_ref.dtype).eps * dw_ref.float().abs()
               + 2.0 ** -10 * (gf * xf * r).abs().sum(0))
     return dx_tol, dw_tol
 
@@ -995,6 +1003,140 @@ def _flash_tolerances(torch, ops, fa, q, k, v, out, lse, dout, refs, scale,
             tol(refs[1], rows, dS, k, rows(slack, k.float().abs())),
             tol(refs[2], keys, dS, q, keys(slack, q.float().abs())),
             tol(refs[3], keys, P, dout)]
+
+
+# RMSNorm backward shapes of phase 6 beside the training shape, each run
+# with and without the residual cotangent: Llama-2-7B's width at a
+# 4096-token prefill, one row, a ragged last batch, H = 8192 (two vectors
+# a thread), the element path (H % 8 != 0), fp16, fp32, the widest row
+# (the wide body) and an unaligned x (the element path's wide body)
+RMS_BWD_EDGE_CASES = [
+    dict(case="llama-2-7b prefill", rows=4096, H=4096),
+    dict(case="one row", rows=1, H=2560),
+    dict(case="ragged rows", rows=8193, H=2560),
+    dict(case="H=8192", rows=2048, H=8192),
+    dict(case="element path H=1003", rows=4096, H=1003),
+    dict(case="fp16", rows=8192, H=2560, dtype="float16"),
+    dict(case="fp32", rows=8192, H=2560, dtype="float32"),
+    dict(case="widest H=58079", rows=256, H=58079),
+    dict(case="unaligned x", rows=1024, H=2560, offset=1),
+]
+
+
+def _rms_bwd_bytes(x, resid):
+    """x, g (and g_resid) read and dx written once, w read and dw
+    written once."""
+    rows, H = x.shape
+    return ((4 if resid else 3) * rows * H + 2 * H) * x.element_size()
+
+
+# csrc/rms_norm.cu's table of the backward's body by shape: (dtype, H,
+# vector path) -> (vectors a thread, threads, rows a batch, rows a batch
+# with the residual cotangent); vectors 0 is the wide body
+RMS_BWD_PLANS = {
+    ("bfloat16", 2560, True): (1, 320, 4, 2),
+    ("float16", 2560, True): (1, 320, 4, 2),
+    ("bfloat16", 4096, True): (1, 512, 4, 2),
+    ("bfloat16", 8192, True): (2, 512, 2, 1),
+    ("float16", 8192, True): (2, 512, 2, 1),
+    ("float32", 2560, True): (2, 320, 2, 1),
+    ("bfloat16", 1003, False): (2, 512, 2, 1),
+    ("bfloat16", 32768, True): (0, 256, 1, 1),
+    ("bfloat16", 58079, False): (0, 256, 1, 1),
+    ("float16", 58079, False): (0, 256, 1, 1),
+}
+
+
+def _rms_bwd_plan(torch, dtype, H, vec, resid):
+    """The library's backward body for a shape: [vectors a thread,
+    threads, rows a batch], vectors 0 the wide body; None where no body
+    takes the shape."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    plan = (ctypes.c_int * 3)()
+    rc = _build.library().ptt_rms_norm_bwd_plan(
+        _build.dtype_code(getattr(torch, dtype)), H, int(vec), int(resid),
+        ctypes.addressof(plan))
+    return None if rc else list(plan)
+
+
+def _rms_bwd_check_plans(torch):
+    """Every row of the header's table is the body the library picks,
+    and a row past the wide body (H 58080) is refused."""
+    for (dtype, H, vec), (v, threads, r, r_resid) in RMS_BWD_PLANS.items():
+        for resid, rows in ((False, r), (True, r_resid)):
+            got = _rms_bwd_plan(torch, dtype, H, vec, resid)
+            check(got == [v, threads, rows],
+                  f"rms_norm backward plan {dtype} H {H} vec {vec} residual "
+                  f"{resid}: the library picks {got}, the header's table "
+                  f"says {[v, threads, rows]}")
+    check(_rms_bwd_plan(torch, "bfloat16", 58080, False, False) is None,
+          "rms_norm backward plan: H 58080 is past the wide body but taken")
+
+
+def _rms_bwd_body(torch, rn, x, w, g, gr):
+    """The body the library takes for these operands."""
+    ops_ = (x, w, g) if gr is None else (x, w, g, gr)
+    vec = rn._bwd_vec(x.shape[-1], x.element_size(), *ops_)
+    return _rms_bwd_plan(torch, str(x.dtype).split(".")[-1], x.shape[-1],
+                         vec, gr is not None)
+
+
+def _rms_bwd_deterministic(torch, rn, x, w, g, gr, eps):
+    """(dx, dw) of the backward, launched twice: both bit-identical."""
+    outs = rn._launch_bwd(x, w, g, gr, eps)
+    again = rn._launch_bwd(x, w, g, gr, eps)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(outs, again)),
+          f"rms_norm backward {list(x.shape)} (residual {gr is not None}): "
+          f"dx or dw differ between two launches on the same inputs")
+    return list(outs)
+
+
+def _rms_bwd_case(torch, ops, rn, randn, add, eps, case, rows, H,
+                  dtype="bfloat16", offset=0):
+    """Both RMSNorm backwards at one shape: every element of dx and dw
+    against plain_rms_norm_bwd within _rms_bwd_tolerances, bit-identical
+    across two launches, timed beside the library's autograd."""
+    F = torch.nn.functional
+    dt = getattr(torch, dtype)
+
+    def operand():                 # `offset` elements into its storage
+        return randn(rows * H + offset, dtype=dt)[offset:].view(rows, H)
+
+    x, gy, gr = operand(), operand(), operand()
+    w = (1.0 + 0.1 * randn(H, dtype=torch.float32)).to(dt)
+    for resid in (False, True):
+        gres = gr if resid else None
+        name = "fused_add_rms_norm_bwd" if resid else "rms_norm_bwd"
+        refs = ops.plain_rms_norm_bwd(x, w, gy, eps, gres)
+        outs = _rms_bwd_deterministic(torch, rn, x, w, gy, gres, eps)
+        xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        if resid:                  # x + 0 then rms_norm: the same work
+            yr = torch.zeros_like(x).requires_grad_(True)
+            lib_res = xr + yr
+            lib = _grad_timer(torch, (lib_res, F.rms_norm(lib_res, (H,), wr,
+                                                          eps)),
+                              (xr, yr, wr), (gr, gy))
+        else:
+            lib = _grad_timer(torch, F.rms_norm(xr, (H,), wr, eps), (xr, wr),
+                              gy)
+        c = add(name, [rows, H], outs, list(refs),
+                _rms_bwd_tolerances(torch, x, w, gy, *refs, eps),
+                time_ms(torch, lambda: rn._launch_bwd(x, w, gy, gres, eps)),
+                time_ms(torch, lambda: ops.plain_rms_norm_bwd(x, w, gy, eps,
+                                                              gres), reps=5),
+                time_ms(torch, lib),
+                "autograd of " + ("x + y then " if resid else "")
+                + "torch.nn.functional.rms_norm (backward only)",
+                _rms_bwd_bytes(x, resid), (11 if resid else 10) * rows * H,
+                case=case, dtype=dtype,
+                body=_rms_bwd_body(torch, rn, x, w, gy, gres))
+        log(f"[train-kernels] {name} {case} {[rows, H]} {dtype}: body "
+            f"{c['body']}, {c['ms']:.4f} ms, {c['ms'] / c['library_ms']:.2f}x "
+            f"the library, {c['bound_ms'] / c['ms']:.3f} of the "
+            f"{c['bound_by']} bound")
+        del refs, outs, xr, wr, lib
 
 
 # flash attention shapes of phase 6 beside the training shape: the edges
@@ -1129,13 +1271,15 @@ def phase_train_kernels(torch, ops, dev):
     xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
     lib_out = F.rms_norm(xr, (H,), wr, eps)
     refs = ops.plain_rms_norm_bwd(x, w, gy, eps)
-    add("rms_norm_bwd", [R, H], list(rn._launch_bwd(x, w, gy, None, eps)),
-        list(refs), _rms_bwd_tolerances(torch, x, w, gy, *refs, eps),
+    add("rms_norm_bwd", [R, H],
+        _rms_bwd_deterministic(torch, rn, x, w, gy, None, eps), list(refs),
+        _rms_bwd_tolerances(torch, x, w, gy, *refs, eps),
         time_ms(torch, lambda: rn._launch_bwd(x, w, gy, None, eps)),
         time_ms(torch, lambda: ops.plain_rms_norm_bwd(x, w, gy, eps)),
         time_ms(torch, _grad_timer(torch, lib_out, (xr, wr), gy)),
         "autograd of torch.nn.functional.rms_norm (backward only)",
-        3 * R * H * 2 + H * 2 + H * 4, 10 * R * H)
+        _rms_bwd_bytes(x, False), 10 * R * H, case="train",
+        body=_rms_bwd_body(torch, rn, x, w, gy, None))
     del lib_out, xr, wr, refs, p_out
 
     # -- fused add + RMSNorm forward and backward ----------------------------
@@ -1158,7 +1302,7 @@ def phase_train_kernels(torch, ops, dev):
     lib_out = F.rms_norm(lib_res, (H,), wr, eps)
     refs = ops.plain_rms_norm_bwd(k_res, w, gy, eps, gr)
     add("fused_add_rms_norm_bwd", [R, H],
-        list(rn._launch_bwd(k_res, w, gy, gr, eps)), list(refs),
+        _rms_bwd_deterministic(torch, rn, k_res, w, gy, gr, eps), list(refs),
         _rms_bwd_tolerances(torch, k_res, w, gy, *refs, eps),
         time_ms(torch, lambda: rn._launch_bwd(k_res, w, gy, gr, eps)),
         time_ms(torch, lambda: ops.plain_rms_norm_bwd(k_res, w, gy, eps,
@@ -1166,9 +1310,19 @@ def phase_train_kernels(torch, ops, dev):
         time_ms(torch, _grad_timer(torch, (lib_res, lib_out), (xr, yr, wr),
                                    (gr, gy))),
         "autograd of x + y then torch.nn.functional.rms_norm (backward "
-        "only)", 4 * R * H * 2 + H * 2 + H * 4, 11 * R * H)
+        "only)", _rms_bwd_bytes(x, True), 11 * R * H, case="train",
+        body=_rms_bwd_body(torch, rn, k_res, w, gy, gr))
     del x, y, gy, gr, k_res, k_out, p_res, p_out, lib_res, lib_out, xr, yr, \
         wr, refs
+    for name in ("rms_norm_bwd", "fused_add_rms_norm_bwd"):
+        c = res[name][0]
+        log(f"[train-kernels] {name} train {c['shape']}: body {c['body']} "
+            f"{c['ms']:.4f} ms, the library {c['library_ms']:.4f} ms, "
+            f"{c['bound_ms'] / c['ms']:.3f} of the {c['bound_by']} bound")
+    _rms_bwd_check_plans(torch)
+    for case in RMS_BWD_EDGE_CASES:
+        _rms_bwd_case(torch, ops, rn, randn, add, eps, **case)
+    torch.cuda.empty_cache()
 
     # -- RoPE forward and backward, q [4, 2048, 20, 128], k [.., 4, ..] ------
     q, kk = randn(b, s, h, d), randn(b, s, hk, d)

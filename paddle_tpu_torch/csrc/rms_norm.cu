@@ -5,8 +5,9 @@
 //   * rms_norm (:130) -> _rms2 (:78) -> _fwd_kernel (:43), below;
 //   * its backward _rms_bwd (:105) -> _bwd_kernel (:50) and the fused
 //     add's backward _add_rms_bwd (:201) -> _add_bwd_kernel (:154): one
-//     kernel body, rms_norm_bwd_kernel, with an optional residual
-//     cotangent;
+//     body with an optional residual cotangent, rms_bwd_rows_kernel
+//     (rms_bwd_wide_kernel for rows too wide for it), and its dw
+//     reduction;
 //   * fused_add_rms_norm (:228) -> _add_rms2 (:170) -> _add_fwd_kernel
 //     (:142): add_rms_norm_kernel.
 // The forward computes
@@ -28,15 +29,75 @@
 // loads and stores when the row and the pointers allow them, a
 // warp-shuffle + shared-memory block reduction, no atomics.
 //
-// Backward (bytes too: x, g, dx, plus g_resid for the fused add, 126 MB
-// or 168 MB at the training shape [8192, 2560] bf16, 0.038 / 0.050 ms):
+// Backward (bytes: x and g read, dx written, plus g_resid read for the
+// fused add; 126 MB or 168 MB at the training shape [8192, 2560] bf16,
+// 0.038 / 0.050 ms at 3.35 TB/s):
 //     dx = r*(g*w) - r^3 * x * mean(g*w*x)  (+ g_resid),   r = rsqrt(...)
 //     dw = sum_rows g * x * r
-// recomputing r, as _bwd_kernel does.  A block walks `rows_per_block`
-// rows; each thread owns the same columns of every row, so it adds its
-// share of dw into shared memory with no synchronisation, and the block
-// writes one fp32 dw partial row — the TPU kernel's per-row-block
-// partials, summed outside the kernel as :123 sums them.
+// with fp32 statistics and r recomputed from x, as _bwd_kernel does; dx
+// is rounded once to T, dw summed in fp32 and rounded once.  Two bodies,
+// chosen by shape alone (bwd_plan below, which ptt_rms_norm_bwd_plan
+// reports and chip_smoke.py's phase 6 holds to the tables below; never
+// in reaction to an error), then one reduction launch:
+//
+//   * rows body (rms_bwd_rows_kernel): rows of at most 512 x 4 vectors
+//     of 16 bytes (bf16/fp16 H <= 16384, fp32 H <= 8192); on the scalar
+//     path (H % (16 / sizeof(T)) != 0, or a pointer not 16-byte aligned)
+//     a "vector" is one element, so H <= 2048.
+//       - The row's vectors are shared evenly by a block of
+//         ceil(vectors / V) threads rounded up to a warp, V = 1, 2 or 4
+//         (the least that keeps the block within 512 threads).  Thread t
+//         owns vectors t, t + threads, ... of every row, so its w and dw
+//         are fixed columns: w is loaded once per block into registers,
+//         and dw is summed in fp32 registers over all the block's rows.
+//       - A block takes R rows at a time (a batch): R = 4 / V, or 2 / V
+//         (at least 1) with the residual cotangent, whose loads add to
+//         the registers a thread holds.  A thread holds the 16-byte
+//         loads of x and g of its columns of all R rows in registers
+//         (2 R V; g_resid's R V more once the sums are formed), forms
+//         the R rows' sums of x^2 and of g*w*x, reduces the 2R sums over
+//         the warp in one transposing butterfly (2R - 1 + 5 - log2(2R)
+//         shuffles instead of 10 R) and over the block through shared
+//         memory behind ONE __syncthreads (two buffers alternate, so the
+//         next batch needs no second barrier).  Right after the barrier
+//         it issues the next batch's loads, then forms this batch's dx
+//         and dw from the registers, so a batch's loads are in flight
+//         while the one before it is finished and stored.  Each row is
+//         read from device memory once.  Plain 16-byte loads, not
+//         cp.async or a TMA ring: with two batches in registers a block
+//         of 320 threads keeps 40 KB of loads in flight at [8192, 2560]
+//         bf16 (ptxas: ~118 registers, one block an SM; ~93 with the
+//         residual, two), about what covers HBM's latency at 25 GB/s an
+//         SM.  Capping the registers for two blocks an SM, loading the
+//         next batch only after dx, or twice the rows a batch measured
+//         no faster on the H100.
+//       - A persistent grid: as many blocks as the card holds at once
+//         (the occupancy API; ptt_rms_norm_bwd_blocks, which the caller
+//         asks before it sizes the dw partials), at most one per batch,
+//         each a contiguous share of the rows whose sizes differ by at
+//         most one row: no uneven last wave.
+//     shape                     V  threads  R  R with g_resid
+//     bf16/fp16 H = 2560        1  320      4  2
+//     bf16/fp16 H = 4096        1  512      4  2
+//     bf16/fp16 H = 8192        2  512      2  1
+//     fp32 H = 2560             2  320      2  1
+//     scalar bf16 H = 1003      2  512      2  1
+//   * wide body (rms_bwd_wide_kernel): wider rows, as long as the fp32
+//     dw row and the reduction's 33 floats fit in one block's dynamic
+//     shared memory, 4 (H + 33) <= 232448 bytes (H <= 58079).  The
+//     first design: a block of <= 256 threads per contiguous share of
+//     the rows walks them one at a time, reads
+//     each row twice (the second time from L1/L2) with two block
+//     reductions between, and sums dw in a shared-memory row of fp32,
+//     each thread its own columns.
+//     shape                     V  threads  R  R with g_resid
+//     bf16/fp16 H = 32768       0  256      1  1
+//     scalar bf16/fp16 H = 58079  0  256    1  1
+//   * reduction (rms_dw_reduce_kernel): each block wrote its fp32 dw
+//     partial row to dw_part [blocks, H]; blocks of 32 columns x 16
+//     slices sum them in a fixed order (slice s: partials s, s + 16, ...;
+//     then the 16 slices in order) and round once to T.  No atomics: two
+//     launches on the same inputs give bit-identical dx and dw.
 //
 // Fused add (bytes: x, y read, resid and out written, 168 MB, 0.050 ms):
 // the residual x + y is rounded to the storage type BEFORE the
@@ -150,27 +211,229 @@ __global__ void add_rms_norm_kernel(const T* __restrict__ x,
   }
 }
 
-// dx [rows, H] (+ gr, the residual cotangent, when not null) and the fp32
-// dw partial of rows [blockIdx.x * rpb, ...) in dw_part[blockIdx.x]
+// ---- backward ---------------------------------------------------------------
+
+// R * V of the rows body, without and with the residual cotangent: rows
+// a batch times vectors a thread (a thread keeps 2 R V loads of 16
+// bytes in flight, and holds 2 R V more)
+constexpr int kRowsRV = 4;
+constexpr int kRowsRVResid = 2;
+constexpr int kRowsThreads = 512;      // the rows body's widest block
+constexpr int kWideSmem = 232448;      // the wide body's dw row + scratch
+constexpr int kSlices = 16;            // the reduction's row slices
+
+// VW consecutive elements of T: one 16-byte vector, or one element
+template <typename T, int VW>
+struct alignas(VW * sizeof(T)) Chunk {
+  static_assert(VW == 1 || VW * sizeof(T) == 16, "a vector or an element");
+  T e[VW];
+  __device__ __forceinline__ void load(const T* p) {
+    if constexpr (VW == 1) {
+      e[0] = __ldg(p);
+    } else {
+      *reinterpret_cast<uint4*>(e) =
+          __ldg(reinterpret_cast<const uint4*>(p));
+    }
+  }
+  __device__ __forceinline__ float operator[](int u) const {
+    return ptt::to_f(e[u]);
+  }
+};
+
+// rows [base, base + R) of `a` (row stride H) that lie below r1, the
+// vectors k a thread owns, into c
+template <typename T, int VW, int V, int R>
+__device__ __forceinline__ void load_rows(Chunk<T, VW> (&c)[R][V],
+                                          const T* __restrict__ a,
+                                          long long base, long long r1, int H,
+                                          const bool* own, const int* col) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      if (base + i < r1 && own[k]) c[i][k].load(a + (base + i) * H + col[k]);
+}
+
+template <typename T, int VW>
+__device__ __forceinline__ void store_chunk(T* p, const float* f) {
+  if constexpr (VW == 1) {
+    *p = ptt::from_f<T>(f[0]);
+  } else {
+    ptt::store_vec(p, f);
+  }
+}
+
+// Sum each of the M values v[] (M a power of two <= 32) over the warp; on
+// return v[0] of lane l holds the total of value l / (32 / M).  The
+// first log2(M) levels halve the values a lane keeps (each lane sends
+// its partner the half the partner keeps), the rest add all to all.
+template <int M>
+__device__ __forceinline__ void warp_transpose_sum(float* v, int lane) {
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const int off = 16 >> k;
+    const int h = M >> (k + 1);
+    if (h >= 1) {
+      const bool up = (lane & off) != 0;
+#pragma unroll
+      for (int j = 0; j < h; ++j) {
+        const float send = up ? v[j] : v[j + h];
+        const float keep = up ? v[j + h] : v[j];
+        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+      }
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
+    }
+  }
+}
+
+// rows [r0, r1) of block `b` of `blocks`: contiguous shares whose sizes
+// differ by at most one
+__device__ __forceinline__ void row_share(long long rows, long long b,
+                                          long long blocks, long long* r0,
+                                          long long* r1) {
+  const long long q = rows / blocks, rem = rows % blocks;
+  *r0 = b * q + (b < rem ? b : rem);
+  *r1 = *r0 + q + (b < rem ? 1 : 0);
+}
+
+// The rows body: dx [rows, H] (+ gr, the residual cotangent, when GR)
+// and the fp32 dw partial of the block's rows in dw_part[blockIdx.x].
+// VW elements a vector, V vectors of a row a thread, R rows a batch.
+template <typename T, int VW, int V, int R, bool GR>
+__global__ void __launch_bounds__(kRowsThreads)
+rms_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    const T* __restrict__ g, const T* __restrict__ gr,
+                    T* __restrict__ dx, float* __restrict__ dw_part,
+                    long long rows, int H, float eps) {
+  constexpr int M = 2 * R;             // each row's sum of x^2 and g*w*x
+  static_assert(M <= 32 && (M & (M - 1)) == 0, "2R a power of two <= 32");
+  __shared__ float red[2][kRowsThreads / 32][M];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int vecs = H / VW;
+  long long r0, r1;
+  row_share(rows, blockIdx.x, gridDim.x, &r0, &r1);
+  const float hf = static_cast<float>(H);
+  bool own[V];
+  int col[V];                          // first element of vector k
+  float wf[V][VW], dw[V][VW];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int c = tid + k * static_cast<int>(blockDim.x);
+    own[k] = c < vecs;
+    col[k] = c * VW;
+    Chunk<T, VW> t;
+    if (own[k]) t.load(w + col[k]);
+#pragma unroll
+    for (int u = 0; u < VW; ++u) {
+      wf[k][u] = own[k] ? t[u] : 0.f;
+      dw[k][u] = 0.f;
+    }
+  }
+  Chunk<T, VW> xa[R][V], ga[R][V];
+  load_rows<T, VW, V, R>(xa, x, r0, r1, H, own, col);
+  load_rows<T, VW, V, R>(ga, g, r0, r1, H, own, col);
+  int buf = 0;
+  for (long long base = r0; base < r1; base += R, buf ^= 1) {
+    float v[M];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      float ss = 0.f, dot = 0.f;
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        if (base + i < r1 && own[k])
+#pragma unroll
+          for (int u = 0; u < VW; ++u) {
+            const float a = xa[i][k][u];
+            ss = fmaf(a, a, ss);
+            dot = fmaf(ga[i][k][u] * wf[k][u], a, dot);
+          }
+      v[i] = ss;
+      v[R + i] = dot;
+    }
+    Chunk<T, VW> ea[GR ? R : 1][V];
+    if constexpr (GR) load_rows<T, VW, V, R>(ea, gr, base, r1, H, own, col);
+    warp_transpose_sum<M>(v, lane);
+    if ((lane & (32 / M - 1)) == 0) red[buf][warp][lane / (32 / M)] = v[0];
+    __syncthreads();
+    // the next batch's loads go out before this batch's dx
+    Chunk<T, VW> xn[R][V], gn[R][V];
+    load_rows<T, VW, V, R>(xn, x, base + R, r1, H, own, col);
+    load_rows<T, VW, V, R>(gn, g, base + R, r1, H, own, col);
+    // every warp sums the warps' partials in the same order
+    float t = 0.f;
+    if (lane < M)
+      for (int j = 0; j < nwarps; ++j) t += red[buf][j][lane];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float ss = __shfl_sync(0xffffffffu, t, i);
+      const float dot = __shfl_sync(0xffffffffu, t, R + i);
+      if (base + i >= r1) continue;
+      const float r = 1.0f / sqrtf(ss / hf + eps);
+      const float mean_dot = dot / hf;
+      const float r3 = r * r * r;
+      T* drow = dx + (base + i) * H;
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        if (!own[k]) continue;
+        float d[VW];
+#pragma unroll
+        for (int u = 0; u < VW; ++u) {
+          const float a = xa[i][k][u], b = ga[i][k][u];
+          float e = r * (b * wf[k][u]) - r3 * a * mean_dot;
+          if constexpr (GR) e += ea[i][k][u];
+          dw[k][u] += b * a * r;
+          d[u] = e;
+        }
+        store_chunk<T, VW>(drow + col[k], d);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        xa[i][k] = xn[i][k];
+        ga[i][k] = gn[i][k];
+      }
+  }
+  float* part = dw_part + static_cast<long long>(blockIdx.x) * H;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    if (!own[k]) continue;
+    if constexpr (VW % 4 == 0) {
+#pragma unroll
+      for (int u = 0; u < VW; u += 4)
+        *reinterpret_cast<float4*>(part + col[k] + u) =
+            make_float4(dw[k][u], dw[k][u + 1], dw[k][u + 2], dw[k][u + 3]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < VW; ++u) part[col[k] + u] = dw[k][u];
+    }
+  }
+}
+
+// The wide body: the same outputs for rows too wide for the rows body's
+// registers, a row at a time, dw in a shared-memory row [H].
 template <typename T>
-__global__ void rms_norm_bwd_kernel(const T* __restrict__ x,
+__global__ void rms_bwd_wide_kernel(const T* __restrict__ x,
                                     const T* __restrict__ w,
                                     const T* __restrict__ g,
                                     const T* __restrict__ gr,
                                     T* __restrict__ dx,
                                     float* __restrict__ dw_part,
-                                    long long rows, int H, int rpb,
-                                    float eps, bool vec) {
-  __shared__ float scratch[33];
+                                    long long rows, int H, float eps,
+                                    bool vec) {
   extern __shared__ float dw_acc[];   // [H], each thread its own columns
+  float* scratch = dw_acc + H;        // [33], block_sum's
   constexpr int N = ptt::Vec<T>::N;
   const int step = vec ? blockDim.x * N : blockDim.x;
   const int first = vec ? threadIdx.x * N : threadIdx.x;
   const int width = vec ? N : 1;
   for (int i = first; i < H; i += step)
     for (int u = 0; u < width; ++u) dw_acc[i + u] = 0.f;
-  const long long r0 = static_cast<long long>(blockIdx.x) * rpb;
-  const long long r1 = r0 + rpb < rows ? r0 + rpb : rows;
+  long long r0, r1;
+  row_share(rows, blockIdx.x, gridDim.x, &r0, &r1);
   for (long long row = r0; row < r1; ++row) {
     const T* xr = x + row * H;
     const T* gw_ = g + row * H;
@@ -233,6 +496,107 @@ int block_threads(int H, bool vec, int N) {
   return threads < 32 ? 32 : (threads > 256 ? 256 : threads);
 }
 
+// dw [H] = sum over b of dw_part[b, :], rounded once to T.  Block: 32
+// columns x kSlices slices; slice s sums partials s, s + kSlices, ... in
+// order, then the slices are summed in order.
+template <typename T>
+__global__ void __launch_bounds__(32 * kSlices)
+rms_dw_reduce_kernel(const float* __restrict__ part, int blocks, int H,
+                     T* __restrict__ dw) {
+  __shared__ float acc[kSlices][33];
+  const int lane = threadIdx.x & 31, slice = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  float t = 0.f;
+  if (c < H) {
+#pragma unroll 4
+    for (int b = slice; b < blocks; b += kSlices)
+      t += part[static_cast<long long>(b) * H + c];
+  }
+  acc[slice][lane] = t;
+  __syncthreads();
+  if (slice == 0 && c < H) {
+    float u = 0.f;
+#pragma unroll
+    for (int j = 0; j < kSlices; ++j) u += acc[j][lane];
+    dw[c] = ptt::from_f<T>(u);
+  }
+}
+
+// The backward body a shape takes (the header's tables): V vectors of a
+// row a thread (0: the wide body), the block's threads, R rows a batch
+// and the dynamic shared memory.
+struct BwdPlan {
+  int V, threads, R;
+  size_t smem;
+};
+
+// threads of the rows body for V vectors (of VW elements) a thread
+int rows_threads(int H, int VW, int V) {
+  const int per = (H / VW + V - 1) / V;
+  return (per + 31) / 32 * 32;
+}
+
+// By shape alone: the rows body with the least V of 1, 2, 4 that keeps
+// the block within kRowsThreads, R = kRowsRV / V (kRowsRVResid / V, at
+// least 1, with the residual cotangent); past it the wide body, a row
+// at a time.  False: no body takes the shape.
+template <typename T>
+bool bwd_plan(int H, bool vec, bool gr, BwdPlan* p) {
+  constexpr int N = ptt::Vec<T>::N;
+  const int VW = vec ? N : 1;
+  if (H <= 0 || (vec && H % N)) return false;
+  for (int V = 1; V <= 4; V *= 2) {
+    const int threads = rows_threads(H, VW, V);
+    if (threads <= kRowsThreads) {
+      const int R = (gr ? kRowsRVResid : kRowsRV) / V;
+      *p = {V, threads, R > 0 ? R : 1, 0};
+      return true;
+    }
+  }
+  *p = {0, block_threads(H, vec, N), 1,
+        sizeof(float) * (static_cast<size_t>(H) + 33)};
+  return p->smem <= static_cast<size_t>(kWideSmem);
+}
+
+template <typename T, int VW, int V, bool GR>
+const void* rows_body() {
+  constexpr int R = (GR ? kRowsRVResid : kRowsRV) / V;
+  return reinterpret_cast<const void*>(
+      rms_bwd_rows_kernel<T, VW, V, (R > 0 ? R : 1), GR>);
+}
+
+template <typename T, int VW, bool GR>
+const void* rows_body_of(int V) {
+  switch (V) {
+    case 1: return rows_body<T, VW, 1, GR>();
+    case 2: return rows_body<T, VW, 2, GR>();
+    case 4: return rows_body<T, VW, 4, GR>();
+    default: return nullptr;
+  }
+}
+
+// The kernel of plan p; null if the wide body's shared memory cannot be
+// granted.
+template <typename T>
+const void* bwd_body(const BwdPlan& p, bool vec, bool gr) {
+  constexpr int N = ptt::Vec<T>::N;
+  if (p.V == 0) {
+    const void* fn = reinterpret_cast<const void*>(rms_bwd_wide_kernel<T>);
+    if (p.smem > 48 * 1024 &&
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(p.smem)) != cudaSuccess)
+      return nullptr;
+    return fn;
+  }
+  if (vec)
+    return gr ? rows_body_of<T, N, true>(p.V) : rows_body_of<T, N, false>(p.V);
+  return gr ? rows_body_of<T, 1, true>(p.V) : rows_body_of<T, 1, false>(p.V);
+}
+
+bool known_dtype(int dtype) {
+  return dtype == ptt::kF32 || dtype == ptt::kBF16 || dtype == ptt::kF16;
+}
+
 }  // namespace
 
 // x [rows, H], w [H], out [rows, H], all contiguous, one dtype.
@@ -280,39 +644,98 @@ extern "C" int ptt_add_rms_norm(int device, int dtype, const void* x,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, g, dx (and g_resid, or null) [rows, H], w [H], one dtype; dw_part
-// [ceil(rows / rows_per_block), H] fp32.  All contiguous.
+// The backward's plan for (dtype, H, vec, a residual cotangent or not),
+// by shape alone (the header's tables): plan[0] vectors of a row a
+// thread (0: the wide body), plan[1] threads a block, plan[2] rows a
+// batch.  Asks no device.
+extern "C" int ptt_rms_norm_bwd_plan(int dtype, int H, int vec,
+                                     int has_resid, int* plan) {
+  if (!known_dtype(dtype) || plan == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdPlan p{};
+  bool ok = false;
+  PTT_DISPATCH(dtype, T,
+               { ok = bwd_plan<T>(H, vec != 0, has_resid != 0, &p); });
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  plan[0] = p.V;
+  plan[1] = p.threads;
+  plan[2] = p.R;
+  return 0;
+}
+
+// The backward's persistent grid for (dtype, H, vec, a residual
+// cotangent or not) over `rows` rows: the blocks of the shape's body
+// that the card holds at once (the occupancy API's blocks an SM times
+// the SMs), at most one per batch of rows.  The caller sizes dw_part
+// [blocks, H] by it.  Negative: a CUDA error.
+extern "C" int ptt_rms_norm_bwd_blocks(int device, int dtype, int H, int vec,
+                                       int has_resid, long long rows) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (!known_dtype(dtype) || rows <= 0)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  int per_sm = 0, sms = 0, R = 1;
+  PTT_DISPATCH(dtype, T, {
+    BwdPlan p{};
+    if (!bwd_plan<T>(H, vec != 0, has_resid != 0, &p))
+      return -static_cast<int>(cudaErrorInvalidValue);
+    const void* fn = bwd_body<T>(p, vec != 0, has_resid != 0);
+    if (fn == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                        p.threads, p.smem);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    R = p.R;
+  });
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (per_sm <= 0) return -static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long batches = (rows + R - 1) / R;
+  const long long resident = static_cast<long long>(per_sm) * sms;
+  return static_cast<int>(batches < resident ? batches : resident);
+}
+
+// x, g, dx (and g_resid, or null) [rows, H], w and dw [H], one dtype,
+// all contiguous; dw_part [blocks, H] fp32 scratch.  vec: the 16-byte
+// vector path (H % (16 / sizeof(T)) == 0 and every pointer 16-byte
+// aligned), else element by element.  The body is the shape's plan
+// (ptt_rms_norm_bwd_plan); blocks is the persistent grid (any number
+// >= 1 is right; ptt_rms_norm_bwd_blocks gives what the card holds at
+// once).  Two launches: the body, then the dw reduction.
 extern "C" int ptt_rms_norm_bwd(int device, int dtype, const void* x,
                                 const void* w, const void* g,
                                 const void* g_resid, void* dx, void* dw_part,
-                                long long rows, int H, int rows_per_block,
-                                float eps, void* stream) {
+                                void* dw, long long rows, int H, int vec,
+                                int blocks, float eps, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (rows <= 0 || H <= 0 || rows_per_block <= 0)
+  if (rows <= 0 || H <= 0 || blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
-  const size_t smem = sizeof(float) * static_cast<size_t>(H);
-  if (blocks > 0x7fffffffLL || smem > 232448)
+  if (vec && !(ptt::aligned16(x) && ptt::aligned16(w) && ptt::aligned16(g) &&
+               ptt::aligned16(dx) && ptt::aligned16(dw_part) &&
+               (g_resid == nullptr || ptt::aligned16(g_resid))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool gr = g_resid != nullptr;
   PTT_DISPATCH(dtype, T, {
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(rms_norm_bwd_kernel<T>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
+    BwdPlan p{};
+    if (!bwd_plan<T>(H, vec != 0, gr, &p))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const void* fn = bwd_body<T>(p, vec != 0, gr);
+    if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid(static_cast<unsigned>(blocks)),
+        block(static_cast<unsigned>(p.threads));
+    if (p.V == 0) {                    // the wide body's parameters
+      bool vflag = vec != 0;
+      void* args[] = {&x, &w, &g, &g_resid, &dx, &dw_part, &rows, &H, &eps,
+                      &vflag};
+      err = cudaLaunchKernel(fn, grid, block, args, p.smem, s);
+    } else {                           // the rows body's
+      void* args[] = {&x, &w, &g, &g_resid, &dx, &dw_part, &rows, &H, &eps};
+      err = cudaLaunchKernel(fn, grid, block, args, 0, s);
     }
-    constexpr int N = ptt::Vec<T>::N;
-    const bool vec = (H % N == 0) && ptt::aligned16(x) && ptt::aligned16(w) &&
-                     ptt::aligned16(g) && ptt::aligned16(dx) &&
-                     (g_resid == nullptr || ptt::aligned16(g_resid));
-    rms_norm_bwd_kernel<T><<<static_cast<unsigned>(blocks),
-                             block_threads(H, vec, N), smem, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w),
-        static_cast<const T*>(g), static_cast<const T*>(g_resid),
-        static_cast<T*>(dx), static_cast<float*>(dw_part), rows, H,
-        rows_per_block, eps, vec);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    rms_dw_reduce_kernel<T><<<(H + 31) / 32, 32 * kSlices, 0, s>>>(
+        static_cast<const float*>(dw_part), blocks, H, static_cast<T*>(dw));
   });
   return static_cast<int>(cudaGetLastError());
 }

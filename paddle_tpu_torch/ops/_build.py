@@ -48,8 +48,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "ptt_rms_norm": (_I, _I, _P, _P, _P, _LL, _I, _F, _P),
     "ptt_add_rms_norm": (_I, _I, _P, _P, _P, _P, _P, _LL, _I, _F, _P),
-    "ptt_rms_norm_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _F,
-                         _P),
+    "ptt_rms_norm_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
+                         _I, _F, _P),
+    "ptt_rms_norm_bwd_blocks": (_I, _I, _I, _I, _I, _LL),
+    "ptt_rms_norm_bwd_plan": (_I, _I, _I, _I, _P),
     "ptt_rope": (_I, _I, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _LL, _I,
                  _P),
     "ptt_paged_attention": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,

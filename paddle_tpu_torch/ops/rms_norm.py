@@ -22,7 +22,10 @@ On a CUDA tensor the forward and the backward both run kernels, through
 fused add) as the reference's custom VJPs do; with no graph to record
 (`_build.records_grad`) the forward kernel is launched directly.  A CPU
 tensor takes the plain versions and native autograd; there is no
-fallback.
+fallback.  The backward's body is chosen by shape in the kernel
+library (csrc/rms_norm.cu's header), over a persistent grid that the
+library sizes from the card's occupancy; its dw is reduced and rounded
+there too, never by PyTorch.
 """
 from __future__ import annotations
 
@@ -37,11 +40,6 @@ __all__ = ["rms_norm", "plain_rms_norm", "plain_rms_norm_bwd",
 # zeroes and reads them)
 launches = {"rms_norm": 0, "rms_norm_bwd": 0, "fused_add_rms_norm": 0,
             "fused_add_rms_norm_bwd": 0}
-
-# the backward kernel gives the card about this many blocks (each walks
-# a share of the rows and writes one fp32 dw partial)
-_BWD_BLOCKS = 512
-
 
 def plain_rms_norm(x, weight=None, epsilon=1e-6):
     xf = x.float()
@@ -161,22 +159,35 @@ def _launch_add(x, y, weight, epsilon):
     return resid, out
 
 
+def _bwd_vec(H, elem_size, *tensors):
+    """Whether the backward takes the 16-byte vector path: H a multiple
+    of 16 bytes' elements and every operand 16-byte aligned."""
+    return H % (16 // elem_size) == 0 and all(
+        t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _launch_bwd(x, weight, g, g_resid, epsilon):
-    """(dx, dw) on the card: dx (+ g_resid) from the kernel, dw the sum
-    of its fp32 per-block partials cast to the weight's dtype."""
+    """(dx, dw) on the card: dx (+ g_resid) and dw, both rounded once,
+    from the body the shape takes and the dw reduction after it, over
+    the grid the library asks for (their fp32 scratch: one dw partial
+    row per block)."""
     more = (g,) if g_resid is None else (g, g_resid)
     dev, code, H = _check(x, weight, *more)
     rows = x.numel() // H
-    per_block = -(-rows // _BWD_BLOCKS)
     dx = torch.empty_like(x)
-    dw_part = torch.empty((-(-rows // per_block), H), dtype=torch.float32,
-                          device=x.device)
-    rc = _build.library().ptt_rms_norm_bwd(
+    vec = int(_bwd_vec(H, x.element_size(), x, weight, dx, *more))
+    name = "rms_norm_bwd" if g_resid is None else "fused_add_rms_norm_bwd"
+    lib = _build.library()
+    blocks = lib.ptt_rms_norm_bwd_blocks(dev, code, H, vec,
+                                         int(g_resid is not None), rows)
+    _build.check(-blocks if blocks < 0 else 0, name + " grid query")
+    dw_part = torch.empty((blocks, H), dtype=torch.float32, device=x.device)
+    dw = torch.empty_like(weight)
+    rc = lib.ptt_rms_norm_bwd(
         dev, code, x.data_ptr(), weight.data_ptr(), g.data_ptr(),
         None if g_resid is None else g_resid.data_ptr(), dx.data_ptr(),
-        dw_part.data_ptr(), rows, H, per_block, epsilon,
+        dw_part.data_ptr(), dw.data_ptr(), rows, H, vec, blocks, epsilon,
         _build.stream_of(x.device))
-    name = "rms_norm_bwd" if g_resid is None else "fused_add_rms_norm_bwd"
     _build.check(rc, name)
     launches[name] += 1
-    return dx, dw_part.sum(0).to(weight.dtype)
+    return dx, dw

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Serving speed of several trees of this repo, in turns, on one card.
+"""Serving or training speed of several trees of this repo, in turns,
+on one card.
 
     python3 serve_ab.py [--weight-only int8|int4] [--kv-dtype int8]
                         TREE [TREE ...]
+    python3 serve_ab.py --train TREE [TREE ...]
 
 Each TREE is a checkout of this repository: `.` for this one, or another
 commit unpacked with `git archive` into a directory that .gitignore lists
@@ -11,8 +13,12 @@ given, each tree's own `chip_smoke.py` builds that tree's kernels and runs
 its serve phase (phase 5: Llama-2-7B, bf16, 16 requests, then a profiled
 pure-decode window; with --weight-only / --kv-dtype, phase 10's or 11's
 quantized serve) twice in a fresh process; the second run is kept, so
-first-call costs fall on the first.  Give the trees in turns (A B B A) so
-that a drift of the card's clocks falls on each alike.
+first-call costs fall on the first.  With --train it runs the tree's
+training phase instead (phase 8: `bench.py::bench_llama`'s
+configuration, 6 TrainStep steps from the same seeded weights and batch,
+then one profiled step) once in a fresh process.  Give the trees in
+turns (A B B A) so that a drift of the card's clocks falls on each
+alike.
 
 Prints the card's name and power limit, one JSON line per run, and last
 the median of each tree's runs.  Exits 2 without a CUDA device.
@@ -42,9 +48,24 @@ for _ in range(2):
                    tag={tag!r})
 """
 
+_RUN_TRAIN = """
+import sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from paddle_tpu_torch import ops
+from paddle_tpu_torch.ops import _build
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+_build.library()
+cs.phase_train(torch, ops, dev)
+"""
+
 METRICS = ("decode_ms_per_step", "admit_ms_per_step", "tok_per_s",
            "ttft_ms_p50", "trace_wall_ms_per_step",
            "trace_device_ms_per_step")
+TRAIN_METRICS = ("step_ms_p50", "mfu", "busy_share", "rms_norm_ms")
 
 
 def _last(lines, tag):
@@ -54,15 +75,29 @@ def _last(lines, tag):
     return json.loads(rows[-1])
 
 
-def run(tree, weight_only=None, kv_dtype=None):
-    tag = "serve" + (f"-{weight_only}" if weight_only else "")
-    code = _RUN.format(wo=weight_only, kv=kv_dtype, tag=tag)
+def _output(tree, code):
     proc = subprocess.run([sys.executable, "-c", code], cwd=tree, text=True,
                           capture_output=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(f"serve_ab: {tree} failed (rc {proc.returncode})"
                            f":\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
-    lines = proc.stdout.splitlines()
+    return proc.stdout.splitlines()
+
+
+def run_train(tree):
+    lines = _output(tree, _RUN_TRAIN)
+    train = _last(lines, "[train] ")
+    trace = _last(lines, "[train-trace] ")
+    return dict(tree=tree, step_ms_p50=train["step_ms_p50"],
+                mfu=train["mfu"], losses=train["losses"],
+                busy_share=trace["busy_share"],
+                rms_norm_ms=trace["by_kind_ms"]["rms_norm"],
+                by_kind_ms=trace["by_kind_ms"])
+
+
+def run(tree, weight_only=None, kv_dtype=None):
+    tag = "serve" + (f"-{weight_only}" if weight_only else "")
+    lines = _output(tree, _RUN.format(wo=weight_only, kv=kv_dtype, tag=tag))
     serve = _last(lines, f"[{tag}] ")
     trace = _last(lines, f"[{tag}-trace] ")
     return dict(tree=tree, decode_ms_per_step=serve["decode_ms_per_step"],
@@ -74,11 +109,13 @@ def run(tree, weight_only=None, kv_dtype=None):
 
 def main(argv):
     opts = {"--weight-only": None, "--kv-dtype": None}
-    trees = []
+    trees, train = [], False
     it = iter(argv)
     for a in it:
         if a in opts:
             opts[a] = next(it)
+        elif a == "--train":
+            train = True
         else:
             trees.append(a)
     import torch
@@ -97,10 +134,12 @@ def main(argv):
         text=True, timeout=60).stdout.strip(), flush=True)
     runs = []
     for tree in trees:
-        runs.append(run(tree, opts["--weight-only"], opts["--kv-dtype"]))
+        runs.append(run_train(tree) if train else
+                    run(tree, opts["--weight-only"], opts["--kv-dtype"]))
         print(json.dumps(runs[-1]), flush=True)
+    metrics = TRAIN_METRICS if train else METRICS
     medians = {t: {m: statistics.median(r[m] for r in runs if r["tree"] == t)
-                   for m in METRICS} for t in dict.fromkeys(trees)}
+                   for m in metrics} for t in dict.fromkeys(trees)}
     print(json.dumps({"medians": medians}), flush=True)
     return 0
 

@@ -390,6 +390,160 @@ def test_flash_launch_marshalling(monkeypatch, dt, causal):
     assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
 
 
+class _RmsBwdLib:
+    """Stands in for the kernel library's RMSNorm backward: checks each
+    call's arguments against `_build._SIGNATURES`, then writes dx and dw
+    where it was pointed, as the kernel and its reduction do, with the
+    plain math.  The grid query answers `blocks`."""
+
+    CTYPE = {ctypes.c_void_p: int, ctypes.c_int: int, ctypes.c_longlong: int,
+             ctypes.c_float: float}
+    DTYPE = {code: dt for dt, code in _build.DTYPE_CODES.items()}
+
+    def __init__(self, blocks):
+        self.blocks = blocks
+        self.calls = []
+
+    def _record(self, name, args):
+        sig = _build._SIGNATURES[name]
+        assert len(args) == len(sig), name
+        for i, (a, c) in enumerate(zip(args, sig)):
+            assert type(a) is self.CTYPE[c] or (
+                a is None and c is ctypes.c_void_p), (name, i, a, c)
+        self.calls.append((name, args))
+
+    def ptt_rms_norm_bwd_blocks(self, *args):
+        self._record("ptt_rms_norm_bwd_blocks", args)
+        return self.blocks
+
+    def ptt_rms_norm_bwd(self, *args):
+        self._record("ptt_rms_norm_bwd", args)
+        dev, code, x, w, g, gr, dx, part, dw, rows, H, vec, blocks, eps, \
+            stream = args
+        dt = self.DTYPE[code]
+        p = _view(part, (blocks, H), torch.float32)
+        assert torch.isnan(p).all()      # scratch, the kernel's to fill
+        ref = tops.plain_rms_norm_bwd(
+            _view(x, (rows, H), dt), _view(w, (H,), dt),
+            _view(g, (rows, H), dt), eps,
+            None if gr is None else _view(gr, (rows, H), dt))
+        _view(dx, (rows, H), dt).copy_(ref[0])
+        _view(dw, (H,), dt).copy_(ref[1])
+        return 0
+
+
+def test_rms_bwd_grid_query_error_stops_the_launch(monkeypatch):
+    """A shape no body takes (the library's grid query answers a CUDA
+    error, negated) raises before any scratch is made or kernel
+    launched."""
+    rn = tops.kernel_module("rms_norm")
+    lib = _RmsBwdLib(blocks=-1)          # -cudaErrorInvalidValue
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "cuda_device_index", lambda *t: 0)
+    x = torch.zeros((2, 58080), dtype=torch.bfloat16)
+    w = torch.ones(58080, dtype=torch.bfloat16)
+    before = tops.launch_counts()["rms_norm_bwd"]
+    with pytest.raises(RuntimeError, match="grid query.*CUDA error 1"):
+        rn._launch_bwd(x, w, x, None, EPS)
+    assert [c[0] for c in lib.calls] == ["ptt_rms_norm_bwd_blocks"]
+    assert tops.launch_counts()["rms_norm_bwd"] == before
+
+
+@pytest.mark.parametrize("resid", [False, True])
+@pytest.mark.parametrize("dt,H,offset", [
+    ("bfloat16", 2560, 0), ("bfloat16", 4096, 0), ("bfloat16", 8192, 0),
+    ("bfloat16", 1003, 0), ("bfloat16", 2560, 1), ("bfloat16", 58079, 0),
+    ("float32", 2560, 0)])
+def test_rms_bwd_launch_marshalling(monkeypatch, resid, dt, H, offset):
+    """`_launch_bwd` as the card runs it, with the kernel library stood
+    in for: the grid query and then the launch, with arguments in the C
+    signatures' order and types; the 16-byte vector path only for an
+    aligned H that is a multiple of 16 bytes (H 1003 and an unaligned x
+    take the element path); fp32 dw_part [blocks, H] scratch sized by
+    the query's answer that PyTorch never sums; dx and dw as the kernel
+    wrote them; one launch counted."""
+    rn = tops.kernel_module("rms_norm")
+    lib = _RmsBwdLib(blocks=5)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "cuda_device_index", lambda *t: 0)
+    monkeypatch.setattr(_build, "stream_of", lambda d: 0)
+    empty, made = torch.empty, []
+
+    def nan_empty(*shape, **kw):        # fresh allocations start as NaN
+        t = empty(*shape, **kw)
+        made.append(t.fill_(float("nan")))
+        return t
+
+    monkeypatch.setattr(torch, "empty", nan_empty)
+    tdt = DT[dt][0]
+    rng = np.random.RandomState(H + offset)
+    rows = 6
+
+    def operand(*shape):                # `offset` elements into its storage
+        n = int(np.prod(shape))
+        return _t(_rand(rng, n + offset), dt)[offset:].view(shape)
+
+    x, g = operand(rows, H), operand(rows, H)
+    gr = operand(rows, H) if resid else None
+    w = _t(1 + 0.1 * _rand(rng, H), dt)
+    name = "fused_add_rms_norm_bwd" if resid else "rms_norm_bwd"
+    before = tops.launch_counts()[name]
+    dx, dw = rn._launch_bwd(x, w, g, gr, EPS)
+    (qname, qargs), (bname, bargs) = lib.calls
+    vec = int(offset == 0 and H % (16 // x.element_size()) == 0)
+    code = _build.DTYPE_CODES[tdt]
+    assert (qname, bname) == ("ptt_rms_norm_bwd_blocks", "ptt_rms_norm_bwd")
+    assert qargs == (0, code, H, vec, int(resid), rows)
+    part, = [t for t in made if t.data_ptr() == bargs[7]]
+    assert part.shape == (5, H) and part.dtype == torch.float32
+    assert bargs == (0, code, x.data_ptr(), w.data_ptr(), g.data_ptr(),
+                     None if gr is None else gr.data_ptr(), dx.data_ptr(),
+                     part.data_ptr(), dw.data_ptr(), rows, H, vec, 5, EPS, 0)
+    assert torch.isnan(part).all()      # no PyTorch reduction read it
+    assert dx.shape == x.shape and dx.dtype == tdt
+    assert dw.shape == (H,) and dw.dtype == tdt
+    want = tops.plain_rms_norm_bwd(x, w, g, EPS, gr)
+    assert torch.equal(dx, want[0]) and torch.equal(dw, want[1])
+    assert tops.launch_counts()[name] == before + 1
+
+
+@pytest.mark.parametrize("dt", ["float16", "float32"])
+def test_rms_bwd_tolerances_refuse_a_bf16_rounding(dt):
+    """chip_smoke's per-element check of the RMSNorm backward at fp16
+    and fp32: the plain result passes, and so does the same math in
+    float64 rounded once (a rounding at another point); a body that
+    rounded dx, x or g through bf16 on the way fails it."""
+    cs = _chip_smoke()
+    tdt = getattr(torch, dt)
+    rng = np.random.RandomState(11)
+    rows, H = 256, 1024
+    x, g, gr = (torch.from_numpy(_rand(rng, rows, H)).to(tdt)
+                for _ in range(3))
+    w = torch.from_numpy(1 + 0.1 * _rand(rng, H)).to(tdt)
+    bf = torch.bfloat16
+
+    def through_bf16(t):
+        return t.to(bf).to(tdt)
+
+    for resid in (None, gr):
+        dx, dw = tops.plain_rms_norm_bwd(x, w, g, EPS, resid)
+        tol_dx, tol_dw = cs._rms_bwd_tolerances(torch, x, w, g, dx, dw, EPS)
+
+        def fits(got, ref, tol):
+            return bool(((got.double() - ref.double()).abs()
+                         <= tol.double()).all())
+
+        d64 = tops.plain_rms_norm_bwd(x.double(), w.double(), g.double(),
+                                      EPS, None if resid is None
+                                      else resid.double())
+        assert fits(d64[0].to(tdt), dx, tol_dx)
+        assert fits(d64[1].to(tdt), dw, tol_dw)
+        assert not fits(through_bf16(dx), dx, tol_dx)
+        for bx, bg in ((through_bf16(x), g), (x, through_bf16(g))):
+            got = tops.plain_rms_norm_bwd(bx, w, bg, EPS, resid)[0]
+            assert not fits(got, dx, tol_dx)
+
+
 @pytest.mark.parametrize("mask_kind", ["bool", "additive"])
 def test_plain_attention_masks_and_cross_causal(mask_kind):
     """The twin's other arguments: a mask, and causal with sq != sk
