@@ -16,7 +16,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              the kernel's, the plain version's and a library
              yardstick's time (CUDA events, median of 30 after warm-up),
              and the least time the work could take.  paged_attention
-             also on int8 pools (the bf16 pools quantized per page);
+             also on int8 pools (the bf16 pools quantized per page), each
+             case launched twice (outputs bit-identical) with the body
+             the library takes for it logged, then at PAGED_EDGE_CASES
+             (one slot of 4096 keys, 32 slots, every pos 0, the table's
+             last row, ragged C 5 and 17, group 8, two row tiles, d 64,
+             fp16, pages of 8 and 32 rows, an fp32 pool on the CUDA-core
+             body), each on a pool of q's dtype and its int8 copy,
+             beside SDPA on the gathered view;
              quant_matmul int8 and int4 (group 64) at M = 8 and 256 and
              every [K, N] of Llama-2-7B's decode matmuls, then at
              QM_EDGE_CASES (ragged M, K and N, int4 group 128, fp16 x,
@@ -155,6 +162,10 @@ def time_ms(torch, fn, reps=REPS, warm=5):
                              for i in range(reps))
 
 
+def _ms(t):
+    return None if t is None else round(t, 4)
+
+
 def bound(nbytes, flops, flop_rate):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flop_rate * 1e3
@@ -236,64 +247,44 @@ def phase_kernels(torch, ops, dev):
     pt = perm.reshape(B, P_slot).to(torch.int32).contiguous()
     for C in (1, 32):
         for group in (1, 4):
-            h = n_kv * group
-            q = randn(B, C, h, hd)
-            k = ops.paged_attention(q, kpool, vpool, pt, pos, layer)
-            p = plain_paged_attention(q, kpool, vpool, pt, pos, layer)
-            torch.cuda.synchronize()
-            pages = torch.clamp((pos + C - 1) // ps + 1, max=P_slot)
-            kv_bytes = int(pages.sum().item()) * ps * n_kv * hd * 2 * 2
-            nbytes = kv_bytes + 2 * q.numel() * 2 + pt.numel() * 4 + B * 4
-            keys = (pos[:, None].long() + torch.arange(C, device=dev)[None]
-                    + 1).clamp(max=P_slot * ps)
-            flops = int(keys.sum().item()) * h * hd * 4
-            b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
-            # library yardstick: SDPA on the PRE-GATHERED dense view
-            # (the gather itself is excluded from its time)
-            S = P_slot * ps
-            kg = kpool[:, :, layer][pt.long()].reshape(B, S, n_kv, hd)
-            vg = vpool[:, :, layer][pt.long()].reshape(B, S, n_kv, hd)
-            kg = kg.repeat_interleave(group, dim=2).transpose(1, 2)
-            vg = vg.repeat_interleave(group, dim=2).transpose(1, 2)
-            qt = q.transpose(1, 2)
-            mask = (torch.arange(S, device=dev)[None, None, :]
-                    <= (pos[:, None, None].long()
-                        + torch.arange(C, device=dev)[None, :, None]))[:, None]
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            lib = sdpa(qt, kg, vg, attn_mask=mask)
-            lib_err = (lib.transpose(1, 2).float() - p.float()).abs().max()
-            checked = _checked([k], [p], [_paged_tolerance(
-                torch, qt, kg, vg, mask, p)])
-            results["paged_attention"].append(dict(
-                shape=[B, C, h, hd], group=group, **checked,
-                library_err=lib_err.item(),
-                ms=time_ms(torch, lambda: ops.paged_attention(
-                    q, kpool, vpool, pt, pos, layer)),
-                plain_ms=time_ms(torch, lambda: plain_paged_attention(
-                    q, kpool, vpool, pt, pos, layer)),
-                library_ms=time_ms(torch, lambda: sdpa(qt, kg, vg,
-                                                       attn_mask=mask)),
-                library="scaled_dot_product_attention on the pre-gathered "
-                        "dense view (gather excluded)",
-                bound_ms=b_ms, bound_by=b_by))
-            del kg, vg, lib
-    for c in results["paged_attention"]:
-        c["variant"] = "fp"
-    results["paged_attention"] += _paged_int8_cases(
-        torch, ops, kpool, vpool, pt, pos, layer, g)
-    del kpool, vpool
+            q = randn(B, C, n_kv * group, hd)
+            results["paged_attention"].append(_paged_case(
+                torch, ops, q, kpool, vpool, pt, pos, layer))
+    # the int8 pools: the bf16 pools quantized per page
+    k8, ks = _quantize_pool(torch, kpool)
+    v8, vs = _quantize_pool(torch, vpool)
+    for C in (1, 32):
+        for group in (1, 4):
+            q = randn(B, C, n_kv * group, hd)
+            results["paged_attention"].append(_paged_case(
+                torch, ops, q, k8, v8, pt, pos, layer, ks, vs))
+    del kpool, vpool, k8, v8
+    torch.cuda.empty_cache()
+    results["paged_edge"] = _paged_edge_cases(torch, ops, g)
     torch.cuda.empty_cache()
     results["quant_matmul"] = _quant_matmul_cases(torch, ops, g)
+    def msq(c):
+        m = c.get("msq_share")
+        return "" if m is None else f"; mean square / variance {m:.3f}"
+
     for name, cases in results.items():
         for c in cases:
+            if name == "paged_edge":        # logged by _paged_edge_cases
+                check(c["tol_share"] <= 1.0,
+                      f"paged_attention '{c['case']}' {c['variant']} "
+                      f"disagrees with its plain version: errors "
+                      f"{c['errs']} use {c['shares']} of their tolerances")
+                continue
             log(f"[kernels] {name} {c['shape']}"
                 f"{' ' + c['variant'] if 'variant' in c else ''}"
                 f"{' group ' + str(c['group']) if 'group' in c else ''}: "
                 f"err {c['errs']}, share of the per-element tolerance "
                 f"{c['shares']}, median tol / median |plain| {c['tight']}; "
-                f"kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
-                f"library {c['library_ms'] if c['library_ms'] is None else round(c['library_ms'], 4)} ms, "
-                f"bound {c['bound_ms']:.5f} ms ({c['bound_by']})")
+                f"kernel {c['ms']:.4f} ms, plain {_ms(c['plain_ms'])} ms, "
+                f"library {_ms(c['library_ms'])} ms, "
+                f"bound {c['bound_ms']:.5f} ms ({c['bound_by']})"
+                f"{'; ' + c['body'] + ' body' if 'body' in c else ''}"
+                f"{msq(c)}")
             check(c["tol_share"] <= 1.0,
                   f"{name} {c['shape']} disagrees with its plain version: "
                   f"errors {c['errs']} use {c['shares']} of their "
@@ -312,68 +303,179 @@ def _quantize_pool(torch, pool):
     return q8, sc.contiguous()
 
 
-def _paged_int8_cases(torch, ops, kpool, vpool, pt, pos, layer, g):
-    """int8 paged_attention against plain_paged_attention with scales,
-    at phase 3's serve shapes: the bf16 pools quantized per page.  The
-    tolerance is `_paged_tolerance` on the dequantized view (the kernel
-    and the plain version dequantize to the same bf16 values, so only
-    the softmax-weight rounding differs); the library yardstick is SDPA
-    on the gathered, dequantized view (gather and dequant excluded)."""
-    from paddle_tpu_torch.ops import plain_paged_attention
-    dev = kpool.device
-    B, P_slot = pt.shape
-    _, ps, L, n_kv, hd = kpool.shape
-    k8, ks = _quantize_pool(torch, kpool)
-    v8, vs = _quantize_pool(torch, vpool)
-    out = []
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    for C in (1, 32):
-        for group in (1, 4):
-            h = n_kv * group
-            q = torch.randn((B, C, h, hd), generator=g, device=dev,
-                            dtype=torch.float32).to(torch.bfloat16)
-            args = (q, k8, v8, pt, pos, layer, ks, vs)
-            k = ops.paged_attention(*args)
-            p = plain_paged_attention(*args)
-            torch.cuda.synchronize()
-            pages = torch.clamp((pos + C - 1) // ps + 1, max=P_slot)
-            n_pages = int(pages.sum().item())
-            # int8 K/V rows of the live pages, their two scales per page,
-            # q, out, the page table and pos
-            nbytes = (n_pages * (ps * n_kv * hd * 2 + n_kv * 4 * 2)
-                      + 2 * q.numel() * 2 + pt.numel() * 4 + B * 4)
-            keys = (pos[:, None].long() + torch.arange(C, device=dev)[None]
-                    + 1).clamp(max=P_slot * ps)
-            flops = int(keys.sum().item()) * h * hd * 4
-            b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
-            S = P_slot * ps
-            idx = pt.long()
+def _paged_body(torch, q, kp, vp):
+    """The body the kernel library takes for these operands, by shape
+    (csrc/paged_attention.cu::body_of): "ring" or "cuda-core"."""
+    from paddle_tpu_torch.ops import _build
+    code = _build.library().ptt_paged_attention_body(
+        _build.dtype_code(q.dtype), 3 if kp.dtype == torch.int8 else 0,
+        q.shape[-1], q.data_ptr(), kp.data_ptr(), vp.data_ptr())
+    check(code in (0, 1), f"ptt_paged_attention_body returned {code}")
+    return ("cuda-core", "ring")[code]
 
-            def view(p8, sc):
-                d = (p8[:, :, layer][idx].float()
-                     * sc[:, layer][idx][:, :, None, :, None])
-                return d.to(torch.bfloat16).reshape(B, S, n_kv, hd) \
-                    .repeat_interleave(group, dim=2).transpose(1, 2)
-            kg, vg = view(k8, ks), view(v8, vs)
-            qt = q.transpose(1, 2)
-            mask = (torch.arange(S, device=dev)[None, None, :]
-                    <= (pos[:, None, None].long()
-                        + torch.arange(C, device=dev)[None, :, None]))[:, None]
-            lib = sdpa(qt, kg, vg, attn_mask=mask)
-            out.append(dict(
-                shape=[B, C, h, hd], group=group, variant="int8",
-                **_checked([k], [p], [_paged_tolerance(torch, qt, kg, vg,
-                                                       mask, p)]),
-                library_err=(lib.transpose(1, 2).float() - p.float()).abs()
-                .max().item(),
-                ms=time_ms(torch, lambda: ops.paged_attention(*args)),
-                plain_ms=time_ms(torch, lambda: plain_paged_attention(*args)),
-                library_ms=time_ms(torch, lambda: sdpa(qt, kg, vg,
-                                                       attn_mask=mask)),
-                library="scaled_dot_product_attention on the gathered, "
-                        "dequantized bf16 view (gather, dequant excluded)",
-                bound_ms=b_ms, bound_by=b_by))
-            del kg, vg, lib
+
+def _paged_dense_view(torch, q, kp, vp, pt, pos, layer, ks=None, vs=None):
+    """The pre-gathered dense view of a paged batch, as SDPA takes it: qt
+    [B, h, C, d], each slot's K and V rows (an int8 pool's dequantized and
+    rounded to q's dtype) repeated over the query-head group, kg/vg [B, h,
+    P_slot * ps, d], and the causal mask by position, [B, 1, C, S]."""
+    B, C, h, d = q.shape
+    n_kv = kp.shape[3]
+    S = pt.shape[1] * kp.shape[1]
+    idx = pt.long()
+
+    def view(pool, sc):
+        x = pool[:, :, layer][idx]
+        if pool.dtype == torch.int8:
+            x = (x.float() * sc[:, layer][idx][:, :, None, :, None]).to(q.dtype)
+        return x.reshape(B, S, n_kv, d).repeat_interleave(h // n_kv, dim=2) \
+            .transpose(1, 2)
+    mask = (torch.arange(S, device=q.device)[None, None, :]
+            <= (pos[:, None, None].long()
+                + torch.arange(C, device=q.device)[None, :, None]))[:, None]
+    return q.transpose(1, 2), view(kp, ks), view(vp, vs), mask
+
+
+def _paged_case(torch, ops, q, kp, vp, pt, pos, layer, ks=None, vs=None,
+                time_plain=True):
+    """paged_attention against plain_paged_attention at one shape, a pool
+    of q's dtype or an int8 pool with its scales: every element within
+    `_paged_tolerance` on the gathered (dequantized) dense view and, for
+    16-bit q, the mean square error within its variance (for fp32 q
+    nothing is rounded to a narrower dtype, and the variance leaves out
+    fp32's differences), two launches bit-identical, the body by shape;
+    the kernel's, the plain version's and SDPA's time on the
+    pre-gathered view (the gather and dequant left out of its time), and
+    the bound from the rows this run's slots need."""
+    from paddle_tpu_torch.ops import plain_paged_attention
+    dev = q.device
+    B, C, h, d = q.shape
+    _, ps, L, n_kv, _ = kp.shape
+    P_slot = pt.shape[1]
+    group = h // n_kv
+    quant = kp.dtype == torch.int8
+    args = (q, kp, vp, pt, pos, layer) + ((ks, vs) if quant else ())
+    k = ops.paged_attention(*args)
+    k2 = ops.paged_attention(*args)
+    p = plain_paged_attention(*args)
+    torch.cuda.synchronize()
+    same = torch.equal(k.view(torch.uint8), k2.view(torch.uint8))
+    # the K/V rows each slot needs (up to its last lane's position), the
+    # page-table entries of its live pages (and an int8 pool's two
+    # scales a live page and kv head), q, out and pos
+    rows = torch.clamp(pos.long() + C, max=P_slot * ps)
+    n_rows = int(rows.sum().item())
+    n_pages = int(((rows + ps - 1) // ps).sum().item())
+    nbytes = (n_rows * n_kv * d * kp.element_size() * 2
+              + n_pages * (4 + (n_kv * 4 * 2 if quant else 0))
+              + 2 * q.numel() * q.element_size() + B * 4)
+    keys = (pos[:, None].long() + torch.arange(C, device=dev)[None]
+            + 1).clamp(max=P_slot * ps)
+    flops = int(keys.sum().item()) * h * d * 4
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    qt, kg, vg, mask = _paged_dense_view(torch, q, kp, vp, pt, pos, layer,
+                                         ks, vs)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = sdpa(qt, kg, vg, attn_mask=mask)
+    tol, var = _paged_tolerance(torch, qt, kg, vg, mask, p)
+    # (an element with no error where the model allows none counts 0)
+    msq = ((k.float() - p.float()).square_() / var.clamp_min(1e-30)).mean() \
+        .item() if q.dtype != torch.float32 else None
+    c = dict(
+        shape=[B, C, h, d], group=group, variant="int8" if quant else "fp",
+        dtype=str(q.dtype).split(".")[-1], ps=ps, P_slot=P_slot,
+        body=_paged_body(torch, q, kp, vp), bit_identical=same,
+        **_checked([k], [p], [tol]), msq_share=msq,
+        library_err=(lib.transpose(1, 2).float() - p.float()).abs().max()
+        .item(),
+        ms=time_ms(torch, lambda: ops.paged_attention(*args)),
+        plain_ms=time_ms(torch, lambda: plain_paged_attention(*args))
+        if time_plain else None,
+        library_ms=time_ms(torch, lambda: sdpa(qt, kg, vg, attn_mask=mask)),
+        library="scaled_dot_product_attention on the pre-gathered dense "
+                + ("dequantized " if quant else "") + "view (gather"
+                + (", dequant" if quant else "") + " excluded)",
+        bound_ms=b_ms, bound_by=b_by)
+    c["library_ratio"] = c["ms"] / c["library_ms"]
+    c["bound_share"] = c["bound_ms"] / c["ms"]
+    check(same, f"paged_attention {c['shape']} {c['variant']}: two launches "
+          f"on the same inputs differ")
+    check(msq is None or msq <= 1.0,
+          f"paged_attention {c['shape']} {c['variant']}: mean square error "
+          f"{msq} of the rounding model's variance")
+    del kg, vg, lib, k, k2, p, tol, var
+    return c
+
+
+# paged_attention edge shapes, each on a pool of q's dtype and on an int8
+# pool: (name, B, C, group, head_dim, q dtype, ps, P_slot, pos) with pos a
+# list, "zero", "full" (the last lane on the table's last row) or
+# "spread" (seeded, over the whole table); h = 32 query heads
+PAGED_EDGE_CASES = (
+    ("B 1, pos 4095", 1, 1, 1, 128, "bfloat16", 16, 256, [4095]),
+    ("32 slots", 32, 1, 1, 128, "bfloat16", 16, 66, "spread"),
+    ("every pos 0", 8, 1, 1, 128, "bfloat16", 16, 66, "zero"),
+    ("last row of a full table", 8, 1, 1, 128, "bfloat16", 16, 66, "full"),
+    ("C 5", 8, 5, 1, 128, "bfloat16", 16, 66, "spread"),
+    ("C 17, group 4", 8, 17, 4, 128, "bfloat16", 16, 66, "spread"),
+    ("group 8", 8, 1, 8, 128, "bfloat16", 16, 66, "spread"),
+    ("group 8, C 32 (two row tiles)", 8, 32, 8, 128, "bfloat16", 16, 66,
+     "spread"),
+    ("d 64", 8, 1, 1, 64, "bfloat16", 16, 66, "spread"),
+    ("d 64, C 32", 8, 32, 1, 64, "bfloat16", 16, 66, "spread"),
+    ("fp16", 8, 32, 1, 128, "float16", 16, 66, "spread"),
+    ("ps 8", 8, 1, 1, 128, "bfloat16", 8, 132, "spread"),
+    ("ps 32", 8, 32, 1, 128, "bfloat16", 32, 33, "spread"),
+    ("fp32 pool (CUDA-core body)", 8, 1, 1, 128, "float32", 16, 66,
+     "spread"),
+)
+
+
+def _paged_edge_cases(torch, ops, g):
+    """`_paged_case` at every PAGED_EDGE_CASES shape, on a pool of q's
+    dtype and on its int8 copy (2 layers, layer 1; each slot's pages
+    drawn at random from the pool); the body must be the ring body for
+    bf16/fp16 q and the CUDA-core body for fp32."""
+    dev = g.device
+    out = []
+    for name, B, C, group, d, dt, ps, P_slot, pos in PAGED_EDGE_CASES:
+        dtype = getattr(torch, dt)
+        n_kv = 32 // group
+        P = 1 + B * P_slot
+        cap = P_slot * ps
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dtype)
+        kp, vp = randn(P, ps, 2, n_kv, d), randn(P, ps, 2, n_kv, d)
+        pt = (torch.randperm(P - 1, generator=g, device=dev)[:B * P_slot]
+              + 1).reshape(B, P_slot).to(torch.int32).contiguous()
+        if pos == "zero":
+            pos = [0] * B
+        elif pos == "full":
+            pos = [cap - C] * B
+        elif pos == "spread":
+            pos = torch.randint(0, cap - C + 1, (B,), generator=g,
+                                device=dev).tolist()
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+        q = randn(B, C, n_kv * group, d)
+        k8, ks = _quantize_pool(torch, kp)
+        v8, vs = _quantize_pool(torch, vp)
+        for pools in ((kp, vp), (k8, v8, ks, vs)):
+            c = _paged_case(torch, ops, q, pools[0], pools[1], pt, pos_t, 1,
+                            *pools[2:], time_plain=False)
+            c["case"] = name
+            want = "cuda-core" if dtype == torch.float32 else "ring"
+            log(f"[kernels] paged_attention edge '{name}' {c['variant']} "
+                f"{c['shape']} ps {ps} P_slot {P_slot}: {c['body']} body, "
+                f"{c['ms']:.4f} ms, SDPA {c['library_ms']:.4f} ms "
+                f"({c['library_ratio']:.2f}x), bound {c['bound_ms']:.5f} ms "
+                f"({c['bound_share']:.3f} of it), share of the tolerance "
+                f"{c['tol_share']:.3f}, mean square / variance "
+                f"{c['msq_share']}, bit-identical {c['bit_identical']}")
+            check(c["body"] == want, f"paged_attention '{name}' took the "
+                  f"{c['body']} body, not {want}")
+            out.append(c)
+        del kp, vp, k8, v8
     return out
 
 
@@ -533,32 +635,61 @@ def _checked(outs, refs, tols):
                 tight=[r["tight"] for r in rows])
 
 
-def _weighted_sum_tolerance(torch, P, v, ref):
-    """Per-element tolerance of out = sum_j P_j v_j (the softmax weights
-    over the keys times V, [b, h, q, k] x [b, h, k, d]) against a
-    version that rounds each weight to bf16 where the other keeps it
-    fp32 (or rounds it at another point), as in `_flash_tolerances`:
-      2^-7 |plain|            an output rounding that flips;
-      2^-4 sqrt(sum P^2 v^2)  the weight roundings (<= 2^-8 each),
-                              independent and of mean zero (Hoeffding,
-                              8 standard deviations);
-      2^-12 sum |P| |v|       fp32 scores and sums in another order."""
-    vf = v.float()
-    rows = lambda w, x: (w @ x).transpose(1, 2)
-    return (2.0 ** -7 * ref.float().abs()
-            + 2.0 ** -4 * rows(P * P, vf * vf).sqrt()
-            + 2.0 ** -12 * rows(P, vf.abs()))
+# (u, e) of a dtype: a rounding to it moves x by at most max(u |x|, e)
+ROUNDING = {"bfloat16": (2.0 ** -8, 2.0 ** -134),
+            "float16": (2.0 ** -11, 2.0 ** -25),
+            "float32": (2.0 ** -24, 2.0 ** -150)}
+
+
+def _rounding_tolerance(torch, dtype, ref, total, w, x, extra=0.0):
+    """(tolerance, variance) of an output out = total(w, x), a sum of
+    weight x operand terms, against a version that rounds every weight
+    to `dtype` at another point (or keeps it fp32) and rounds the output
+    once.  In that dtype a rounding moves x by at most r(x) = max(u |x|,
+    e) (`ROUNDING`: e is half the subnormal step; a 0 weight, a masked
+    key's, rounds exactly).  So per element:
+      2 r(plain)               an output rounding that flips (2^-7
+                               |plain| for bf16, 2^-10 for fp16);
+      16 sqrt(sum r(w)^2 x^2)  the weight roundings: independent and of
+                               mean zero, so by Hoeffding each side's sum
+                               exceeds 8 sqrt(sum r(w)^2 x^2) with
+                               probability < 3e-14; 2^-4 sqrt(sum w^2
+                               x^2) for bf16, 2^-7 for fp16;
+      2^-12 sum |w| |x|        fp32: scores, hence weights, that differ
+                               by ~2^-13 relative, and sums in another
+                               order;
+      extra                    what the caller adds.
+    The variance bounds the mean square of the same rounding errors:
+    each is at most r in size, so its variance at most r^2 / 3 a side,
+    (2/3)(r(plain)^2 + sum r(w)^2 x^2) for both (fp32 differences, ~2^-20
+    relative, left out: so it bounds a 16-bit dtype's errors only).  16 r
+    of slack a term is more than the 8x between bf16's and fp16's u, so
+    the per-element tolerance alone passes fp16 weights rounded at bf16;
+    their mean square error is ~11x this variance, an honest kernel's
+    below it."""
+    u, e = ROUNDING[str(dtype).split(".")[-1]]
+
+    def r(t):                      # the most one rounding moves t
+        return t.float().abs().mul_(u).clamp_min_(e)
+
+    xf = x.float()
+    rw2 = total(r(w).masked_fill_(w == 0, 0.0).square_(), xf * xf)
+    return (2.0 * r(ref) + 16.0 * rw2.sqrt()
+            + 2.0 ** -12 * total(w.abs(), xf.abs()) + extra,
+            (2.0 / 3.0) * (r(ref).square_() + rw2) + extra ** 2)
 
 
 def _paged_tolerance(torch, qt, kg, vg, mask, ref):
-    """Per-element tolerance of paged attention against
+    """(tolerance, variance) of paged attention against
     plain_paged_attention, on the pre-gathered dense view (qt [B, h, C,
-    d], kg/vg [B, h, S, d], mask [B, 1, C, S]): the plain version rounds
-    the softmax weights to bf16 before P.V, as the reference twin does."""
+    d], kg/vg [B, h, S, d], mask [B, 1, C, S]): out = P.V with the
+    softmax weights P rounded to q's dtype before P.V, as the reference
+    twin rounds them (`_rounding_tolerance` in q's dtype)."""
     scale = qt.shape[-1] ** -0.5
     s = (qt.float() @ kg.float().transpose(-1, -2)) * scale
     P = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
-    return _weighted_sum_tolerance(torch, P, vg, ref)
+    return _rounding_tolerance(torch, qt.dtype, ref,
+                               lambda w, x: (w @ x).transpose(1, 2), P, vg)
 
 
 # ---------------------------------------------------------------------------
@@ -938,34 +1069,13 @@ def _flash_tolerances(torch, ops, fa, q, k, v, out, lse, dout, refs, scale,
     Each output is a sum of weight x operand terms: P.V (out), dS.K
     (dq), dS^T.Q and P^T.dO summed over the query-head group (dk, dv).
     Each side rounds every weight (p or ds) to the operand dtype once
-    and rounds each output once.  In that dtype a rounding moves x by
-    at most r(x) = max(u |x|, e): u = 2^-8 and e = 2^-134 for bf16,
-    u = 2^-11 and e = 2^-25 (half the subnormal step) for fp16, whose
-    weights reach its subnormals at long rows (a 0 weight, a masked
-    key's, rounds exactly).  So per element:
-      2 r(plain)               an output rounding that flips (2^-7
-                               |plain| for bf16, 2^-10 for fp16);
-      16 sqrt(sum r(w)^2 x^2)  the weight roundings: independent and of
-                               mean zero, so by Hoeffding each side's sum
-                               exceeds 8 sqrt(sum r(w)^2 x^2) with
-                               probability < 3e-14 (< 1e-5 over all
-                               1e8 compared elements); 2^-4 sqrt(sum w^2
-                               x^2) for bf16, 2^-7 for fp16;
-      2^-12 sum |w| |x|        fp32: scores, hence p, that differ by
-                               ~2^-13 relative, and sums in another order;
-      dq, dk: dP = dO.v^T      an fp32 dot of 128 terms (<= 2^-17 of
-                               ||dO_i|| ||v_j|| per side) that delta can
-                               cancel; it enters ds unrounded.
+    and rounds each output once: `_rounding_tolerance` in q's dtype,
+    whose fp16 weights reach its subnormals at long rows.  dq and dk
+    add dP = dO.v^T, an fp32 dot of 128 terms (<= 2^-17 of ||dO_i||
+    ||v_j|| per side) that delta can cancel; it enters ds unrounded.
     Weights of masked keys are 0 on both sides.
 
-    Returns (tolerance, variance) per output.  The variance bounds the
-    mean square of the same rounding errors: each is at most r in size,
-    so its variance at most r^2 / 3 a side, (2/3)(r(plain)^2 + sum
-    r(w)^2 x^2) for both (fp32 differences, ~2^-20 relative, left out).
-    16 r of slack a term is more than the 8x between the two dtypes' u,
-    so the per-element tolerance alone passes fp16 weights rounded at
-    bf16; their mean square error is ~11x this variance, an honest
-    kernel's below it."""
+    Returns (tolerance, variance) per output."""
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     grp = h // hk
@@ -985,19 +1095,8 @@ def _flash_tolerances(torch, ops, fa, q, k, v, out, lse, dout, refs, scale,
                             w.reshape(b, hk, grp, sq, sk),
                             x.reshape(b, sq, hk, grp, d))
 
-    u, e = (2.0 ** -11, 2.0 ** -25) if q.dtype == torch.float16 \
-        else (2.0 ** -8, 2.0 ** -134)
-
-    def r(x):                      # the most one rounding moves x
-        return x.float().abs().mul_(u).clamp_min_(e)
-
     def tol(ref, total, w, x, extra=0.0):
-        xf = x.float()
-        rw2 = total(r(w).masked_fill_(w == 0, 0.0).square_(),  # 0 is exact
-                    xf * xf)
-        return (2.0 * r(ref) + 16.0 * rw2.sqrt()
-                + 2.0 ** -12 * total(w.abs(), xf.abs()) + extra,
-                (2.0 / 3.0) * (r(ref).square_() + rw2) + extra ** 2)
+        return _rounding_tolerance(torch, q.dtype, ref, total, w, x, extra)
 
     return [tol(refs[0], rows, P, v),
             tol(refs[1], rows, dS, k, rows(slack, k.float().abs())),
@@ -1779,17 +1878,19 @@ def main():
     info = _build.build_info
     log(f"[build] {time.perf_counter() - t0:.1f} s "
         f"({'compiled' if info['built'] else 'cached'}) {info['path']}")
-    # per source file, and only the kernels that spill or whose wgmma
-    # products ptxas serialized (ptxas -v prints registers, stack and
-    # spills for every kernel instantiated)
+    # per source file, and only the kernels that spill (with their
+    # registers) or whose wgmma products ptxas serialized (ptxas -v
+    # prints registers, stack and spills for every kernel instantiated)
     lines = info["log"].splitlines()
     log(f"[build] {sum('Compiling entry function' in x for x in lines)} "
         f"kernels compiled")
-    for prev, line in zip([""] + lines, lines):
+    for prev, line, nxt in zip([""] + lines, lines, lines[1:] + [""]):
         if line.startswith("==") or "Performance Loss" in line or (
                 "spill" in line and " 0 bytes spill stores" not in line):
             log("[build] " + (prev.strip() + " | " if "spill" in line
-                              else "") + line.strip())
+                              else "") + line.strip()
+                + (" | " + nxt.strip() if "spill" in line and "Used" in nxt
+                   else ""))
 
     # 3-9, each phase's wall time logged
     walls = {}

@@ -55,8 +55,10 @@ _SIGNATURES = {
     "ptt_rope": (_I, _I, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _LL, _I,
                  _P),
     "ptt_paged_attention": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                            _I, _P),
+                            _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _F, _I, _P),
+    "ptt_paged_attention_body": (_I, _I, _I, _P, _P, _P),
+    "ptt_paged_attention_plan": (_I, _I, _I, _I, _I, _I, _P),
     "ptt_flash_fwd": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _F, _I, _P),
     "ptt_flash_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

@@ -9,11 +9,18 @@ each slot's logical KV view through the page table (int8 pools
 dequantized with their per-page per-head scales, `_dequant_pages`
 :154, and rounded to q's dtype), then the dense `cached_attention`
 math.  The kernel walks only the pages up to each slot's frontier and
-never materialises that view; an int8 page tile is loaded at a byte an
-element and dequantized in shared memory, rounded to q's dtype as the
-plain version rounds it.  bf16/fp16 queries with head_dim 64 or 128
-run on tensor cores, everything else on CUDA cores (the choice is made
-in the C launcher from dtype and shape).
+never materialises that view.  bf16/fp16 queries with head_dim 64 or
+128 over 16-byte aligned pools take the tensor-core ring body (pages
+streamed through shared memory with cp.async; an int8 page dequantized
+after it lands, rounded to q's dtype as the plain version rounds it);
+everything else takes the CUDA-core body.  The C launcher chooses the
+body from dtype, head_dim and alignment (`ptt_paged_attention_body`
+reports it).  The library also owns the plan (`ptt_paged_attention_plan`,
+csrc/paged_attention_plan.cuh): the pages a block walks, from shapes and
+the card's SM count alone; a slot longer than one chunk is merged by its
+last block, through fp32 scratch and the int32 counters of
+`_merge_counters`.  Those are kept per (device, stream) and are zero
+between launches, so launches that share them run one after another.
 
 Layout (models/llama.py::init_paged_cache): pools [P, ps, L, n_kv, d]
 of q's dtype, or int8 with scales k_scale/v_scale [P, L, n_kv] fp32;
@@ -24,6 +31,8 @@ pos [B] int32; query lane c of slot b attends rows <= pos[b] + c.
 the kernel for CUDA tensors, or raises — there is no fallback.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -83,6 +92,11 @@ def paged_attention(q, k_pool, v_pool, page_table, pos, layer,
 
 def _launch(q, k_pool, v_pool, page_table, pos, layer, k_scale, v_scale,
             scale):
+    """One kernel launch on the current stream of q's device, with the
+    library's plan.  Slots longer than one chunk are merged through the
+    merge counters of that (device, stream): the kernel leaves them
+    zero, and launches on one stream run one after another, so no two
+    launches ever count on the same counter at once."""
     req = _build.require
     quant = k_pool.dtype == torch.int8
     scales = (k_scale, v_scale) if quant else ()
@@ -122,34 +136,61 @@ def _launch(q, k_pool, v_pool, page_table, pos, layer, k_scale, v_scale,
     s = scale if scale is not None else 1.0 / (d ** 0.5)
     P_slot = page_table.shape[1]
     R = C * (h // n_kv)
-    splits = _splits(B * n_kv, R, P_slot)
+    lib = _build.library()
+    chunk, splits, n_counters = _plan(lib, dev, B, n_kv, R, P_slot, ps)
+    stream = _build.stream_of(q.device)
     out = torch.empty_like(q)
-    part_acc = part_ml = None
+    part_acc = part_ml = counters = None
     if splits > 1:
         part_acc = torch.empty((B, n_kv, splits, R, d), dtype=torch.float32,
                                device=q.device)
         part_ml = torch.empty((B, n_kv, splits, R, 2), dtype=torch.float32,
                               device=q.device)
-    rc = _build.library().ptt_paged_attention(
+        counters = _merge_counters(q.device, stream, n_counters)
+    rc = lib.ptt_paged_attention(
         dev, code, _POOL_INT8 if quant else _POOL_SAME, q.data_ptr(),
         k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
         page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
         None if part_acc is None else part_acc.data_ptr(),
-        None if part_ml is None else part_ml.data_ptr(), B, C, h, d, ps, L,
-        n_kv, P_slot, int(layer), float(s), splits,
-        _build.stream_of(q.device))
+        None if part_ml is None else part_ml.data_ptr(),
+        None if counters is None else counters.data_ptr(), B, C, h, d, ps, L,
+        n_kv, P_slot, int(layer), float(s), chunk, stream)
     _build.check(rc, "paged_attention")
     launches["paged_attention"] += 1
     variant_launches["int8" if quant else "fp"] += 1
     return out
 
 
-def _splits(blocks, R, P_slot):
-    """Blocks per (slot, kv head) walk: enough to give the card ~2048
-    small blocks at decode (R <= 4 query rows, 128 threads, a few KB of
-    shared memory each) or ~512 larger ones otherwise, never more than
-    16 or than the slot's pages."""
-    target = 2048 if R <= 4 else 512
-    return max(1, min(16, P_slot, -(-target // blocks)))
+# the plan by (device, B, n_kv, R, P_slot, ps), as the library answered
+_plans = {}
+# the int32 merge counters by (device, stream): zero between launches (the
+# last block of each slot re-arms its counter), so launches that share
+# them must run one after another, as launches on one stream do
+_counters = {}
+
+
+def _plan(lib, dev, B, n_kv, R, P_slot, ps):
+    """(chunk, splits, counters) of a launch, from the library
+    (csrc/paged_attention_plan.cuh): shapes and the card's SM count
+    alone, never pos."""
+    key = (dev, B, n_kv, R, P_slot, ps)
+    got = _plans.get(key)
+    if got is None:
+        buf = (ctypes.c_int * 3)()
+        _build.check(lib.ptt_paged_attention_plan(
+            dev, B, n_kv, R, P_slot, ps, ctypes.addressof(buf)),
+            "paged_attention plan")
+        got = _plans[key] = tuple(buf)
+    return got
+
+
+def _merge_counters(device, stream, n):
+    """At least n zeroed int32 counters for launches on `stream` of
+    `device`, kept across those launches."""
+    buf = _counters.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1), dtype=torch.int32, device=device)
+        _counters[(device, stream)] = buf
+    return buf

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Serving or training speed of several trees of this repo, in turns,
-on one card.
+"""Serving, training or kernel speed of several trees of this repo, in
+turns, on one card.
 
     python3 serve_ab.py [--weight-only int8|int4] [--kv-dtype int8]
                         TREE [TREE ...]
     python3 serve_ab.py --train TREE [TREE ...]
+    python3 serve_ab.py --kernels TREE [TREE ...]
 
 Each TREE is a checkout of this repository: `.` for this one, or another
 commit unpacked with `git archive` into a directory that .gitignore lists
@@ -12,11 +13,18 @@ commit unpacked with `git archive` into a directory that .gitignore lists
 given, each tree's own `chip_smoke.py` builds that tree's kernels and runs
 its serve phase (phase 5: Llama-2-7B, bf16, 16 requests, then a profiled
 pure-decode window; with --weight-only / --kv-dtype, phase 10's or 11's
-quantized serve) twice in a fresh process; the second run is kept, so
-first-call costs fall on the first.  With --train it runs the tree's
+quantized serve, which also profiles one admission chunk) twice in a
+fresh process; the second run is kept, so first-call costs fall on the
+first.  Each run reports decode and admission ms a step, tokens/s, TTFT
+p50, and from the traces the device ms a step, paged attention's among
+them.  With --train it runs the tree's
 training phase instead (phase 8: `bench.py::bench_llama`'s
 configuration, 6 TrainStep steps from the same seeded weights and batch,
-then one profiled step) once in a fresh process.  Give the trees in
+then one profiled step) once in a fresh process.  With --kernels it
+runs the tree's phase 3 (each kernel against its plain version at the
+serving shapes, from the same seed) once in a fresh process and reports
+each case's kernel ms, keyed by kernel, case, shape, pool or format and
+group; the medians cover the cases every tree ran.  Give the trees in
 turns (A B B A) so that a drift of the card's clocks falls on each
 alike.
 
@@ -62,9 +70,34 @@ _build.library()
 cs.phase_train(torch, ops, dev)
 """
 
+_RUN_KERNELS = """
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from paddle_tpu_torch import ops
+from paddle_tpu_torch.ops import _build
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+_build.library()
+ms = {}
+for name, cases in cs.phase_kernels(torch, ops, dev).items():
+    for c in cases:
+        key = " ".join(str(x) for x in (
+            name, c.get("case", ""), c["shape"], c.get("variant", ""),
+            c.get("group", "")) if x != "")
+        ms[key] = c["ms"]
+print("[kernels-ab] " + json.dumps(ms), flush=True)
+"""
+
 METRICS = ("decode_ms_per_step", "admit_ms_per_step", "tok_per_s",
            "ttft_ms_p50", "trace_wall_ms_per_step",
-           "trace_device_ms_per_step")
+           "trace_device_ms_per_step", "paged_attention_ms_per_step")
+# the quantized serves also trace one admission chunk
+ADMIT_METRICS = ("admit_trace_wall_ms_per_step",
+                 "admit_trace_device_ms_per_step",
+                 "admit_paged_attention_ms_per_step")
 TRAIN_METRICS = ("step_ms_p50", "mfu", "busy_share", "rms_norm_ms")
 
 
@@ -95,27 +128,41 @@ def run_train(tree):
                 by_kind_ms=trace["by_kind_ms"])
 
 
+def run_kernels(tree):
+    return dict(tree=tree, **_last(_output(tree, _RUN_KERNELS),
+                                   "[kernels-ab] "))
+
+
 def run(tree, weight_only=None, kv_dtype=None):
     tag = "serve" + (f"-{weight_only}" if weight_only else "")
     lines = _output(tree, _RUN.format(wo=weight_only, kv=kv_dtype, tag=tag))
     serve = _last(lines, f"[{tag}] ")
     trace = _last(lines, f"[{tag}-trace] ")
-    return dict(tree=tree, decode_ms_per_step=serve["decode_ms_per_step"],
-                admit_ms_per_step=serve["admit_ms_per_step"],
-                tok_per_s=serve["tok_per_s"], ttft_ms_p50=serve["ttft_ms_p50"],
-                trace_wall_ms_per_step=trace["wall_ms_per_step"],
-                trace_device_ms_per_step=trace["device_ms_per_step"])
+    rec = dict(tree=tree, decode_ms_per_step=serve["decode_ms_per_step"],
+               admit_ms_per_step=serve["admit_ms_per_step"],
+               tok_per_s=serve["tok_per_s"], ttft_ms_p50=serve["ttft_ms_p50"],
+               trace_wall_ms_per_step=trace["wall_ms_per_step"],
+               trace_device_ms_per_step=trace["device_ms_per_step"],
+               paged_attention_ms_per_step=trace["by_kind_ms_per_step"]
+               ["paged_attention"])
+    if weight_only:
+        admit = _last(lines, f"[{tag}-admit-trace] ")
+        rec.update(admit_trace_wall_ms_per_step=admit["wall_ms_per_step"],
+                   admit_trace_device_ms_per_step=admit["device_ms_per_step"],
+                   admit_paged_attention_ms_per_step=admit[
+                       "by_kind_ms_per_step"]["paged_attention"])
+    return rec
 
 
 def main(argv):
     opts = {"--weight-only": None, "--kv-dtype": None}
-    trees, train = [], False
+    trees, mode = [], "serve"
     it = iter(argv)
     for a in it:
         if a in opts:
             opts[a] = next(it)
-        elif a == "--train":
-            train = True
+        elif a in ("--train", "--kernels"):
+            mode = a[2:]
         else:
             trees.append(a)
     import torch
@@ -134,10 +181,16 @@ def main(argv):
         text=True, timeout=60).stdout.strip(), flush=True)
     runs = []
     for tree in trees:
-        runs.append(run_train(tree) if train else
+        runs.append(run_train(tree) if mode == "train" else
+                    run_kernels(tree) if mode == "kernels" else
                     run(tree, opts["--weight-only"], opts["--kv-dtype"]))
         print(json.dumps(runs[-1]), flush=True)
-    metrics = TRAIN_METRICS if train else METRICS
+    if mode == "kernels":       # the cases every tree ran
+        metrics = [k for k in runs[0] if k != "tree"
+                   and all(k in r for r in runs)]
+    else:
+        metrics = TRAIN_METRICS if mode == "train" else METRICS + (
+            ADMIT_METRICS if opts["--weight-only"] else ())
     medians = {t: {m: statistics.median(r[m] for r in runs if r["tree"] == t)
                    for m in metrics} for t in dict.fromkeys(trees)}
     print(json.dumps({"medians": medians}), flush=True)

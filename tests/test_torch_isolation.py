@@ -8,8 +8,9 @@
     CPU goes to the kernel or raises, and no `try` in ops/ can swallow
     a launch or build error;
   * a build with no nvcc raises with the reason;
-  * the card scripts (chip_smoke.py, serve_ab.py) import nothing of the
-    reference and, with no CUDA device, exit 2 without a result.
+  * the card scripts (chip_smoke.py, serve_ab.py, tools/*_ab.py) import
+    nothing of the reference and, with no CUDA device, exit 2 without a
+    result.
 """
 import ast
 import os
@@ -65,7 +66,8 @@ def test_sources_never_import_the_reference():
                 assert top not in ("jax", "jaxlib", "paddle_tpu"), (f, n)
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "serve_ab.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "serve_ab.py",
+                                    "tools/quant_matmul_ab.py"])
 def test_card_scripts_stand_alone_and_refuse_without_cuda(script, tmp_path):
     """The card scripts import nothing of the reference, and with no CUDA
     device (as here) exit 2 and print no result."""

@@ -10,6 +10,12 @@ Tolerance: atol = rtol = 1e-5 in fp32 — the two packages do the same
 fp32 arithmetic with different reduction orders (XLA vs PyTorch CPU
 kernels), which moves results by a few ulps.
 """
+import ctypes
+import importlib.util
+import pathlib
+import shutil
+import subprocess
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +29,7 @@ from paddle_tpu.ops.pallas.rms_norm import rms_norm as pallas_rms_norm
 from paddle_tpu.ops.pallas.rope import rope_apply as pallas_rope_apply
 
 import paddle_tpu_torch.ops as tops
+from paddle_tpu_torch.ops import _build
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -160,16 +167,254 @@ def test_swiglu():
            jops.swiglu(jnp.asarray(np.concatenate([x, g], -1))))
 
 
-@pytest.mark.parametrize("blocks,R,P_slot,want", [
-    (256, 1, 66, 8),      # 7B decode: 8 slots x 32 kv heads -> 2048 blocks
-    (256, 32, 66, 2),     # 7B prefill chunk: ~512 larger blocks
-    (2, 1, 66, 16),       # capped at 16 splits
-    (2, 1, 3, 3),         # never more splits than a slot has pages
-    (4096, 4, 66, 1),     # enough blocks already
+@pytest.fixture(scope="module")
+def paged_plan(tmp_path_factory):
+    """The kernel library's plan (csrc/paged_attention_plan.cuh, plain
+    C++), built by the host's C++ compiler: (B, n_kv, R, P_slot, ps,
+    sms) -> (chunk, splits, counters)."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx, "the plan test needs a C++ compiler"
+    d = tmp_path_factory.mktemp("paged_plan")
+    (d / "shim.cpp").write_text(
+        '#include "paged_attention_plan.cuh"\n'
+        'extern "C" void plan(int B, int n_kv, int R, int P_slot, int ps,\n'
+        '                     int sms, int* out) {\n'
+        '  const ptt_paged::Plan p =\n'
+        '      ptt_paged::plan(B, n_kv, R, P_slot, ps, sms);\n'
+        '  out[0] = p.chunk; out[1] = p.splits; out[2] = p.counters;\n'
+        '}\n')
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC",
+                    "-I", str(_build.CSRC), str(d / "shim.cpp"), "-o",
+                    str(d / "plan.so")], check=True)
+    fn = ctypes.CDLL(str(d / "plan.so")).plan
+    fn.restype = None
+
+    def plan(B, n_kv, R, P_slot, ps, sms=H100_SMS):
+        out = (ctypes.c_int * 3)()
+        fn(*(ctypes.c_int(v) for v in (B, n_kv, R, P_slot, ps, sms)), out)
+        return tuple(out)
+    return plan
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("B,n_kv,R,P_slot,ps,sms,want", [
+    (8, 32, 1, 66, 16, 132, (32, 3)),     # 7B decode: 512 keys a block
+    (8, 32, 32, 66, 16, 132, (32, 3)),    # 7B admission chunk, group 1
+    (8, 32, 128, 66, 16, 132, (64, 2)),   # group 4: 1024 keys (8 a row)
+    (1, 32, 1, 256, 16, 132, (16, 16)),   # one long slot: 256 keys
+    (1, 32, 1, 256, 16, 66, (32, 8)),     # the same on 66 SMs: 512 keys
+    (8, 32, 1, 4, 16, 132, (4, 1)),       # P_slot under a chunk: one split
+    (64, 32, 1, 66, 16, 132, (32, 3)),    # many slots
+    (8, 32, 1, 132, 8, 132, (64, 3)),     # pages of 8 rows: the keys stay
+    (8, 4, 256, 66, 16, 132, (16, 5)),    # two row tiles of 128
+    (1, 1, 1, 300, 1, 132, (128, 3)),     # pages of one row: 128 keys
 ])
-def test_paged_attention_split_count(blocks, R, P_slot, want):
+def test_paged_attention_split_count(paged_plan, B, n_kv, R, P_slot, ps,
+                                     sms, want):
+    """The library's plan from shapes and the card's SM count alone:
+    pages a block walks and the blocks that cover a slot (splits =
+    ceil(P_slot / chunk)), and a merge counter for each (slot, kv head,
+    row tile) when a slot can take more than one split."""
+    chunk, splits, counters = paged_plan(B, n_kv, R, P_slot, ps, sms)
+    assert (chunk, splits) == want
+    assert splits == -(-P_slot // chunk)
+    assert counters == (B * n_kv * -(-R // 128) if splits > 1 else 0)
+
+
+class _PagedLib:
+    """Stands in for the kernel library's ptt_paged_attention_plan (the
+    real plan, at an H100's SM count) and ptt_paged_attention: checks
+    each call's arguments against `_build._SIGNATURES`, then writes the
+    plain version's result where `out` points."""
+
+    CTYPE = {ctypes.c_void_p: int, ctypes.c_int: int, ctypes.c_float: float}
+
+    def __init__(self, args, plan):
+        self.args = args          # the wrapper's inputs, as the test made them
+        self.plan = plan
+        self.calls = []
+        self.plan_calls = []
+
+    def _check(self, name, a, nullable=()):
+        sig = _build._SIGNATURES[name]
+        assert len(a) == len(sig)
+        for i, (x, c) in enumerate(zip(a, sig)):
+            assert type(x) is self.CTYPE[c] or (i in nullable
+                                                and x is None), (name, i, x)
+
+    def ptt_paged_attention_plan(self, *a):
+        self._check("ptt_paged_attention_plan", a)
+        self.plan_calls.append(a)
+        _view(a[6], (3,), torch.int32).copy_(
+            torch.tensor(self.plan(*a[1:6]), dtype=torch.int32))
+        return 0
+
+    def ptt_paged_attention(self, *a):
+        # scales (int8 pools only) and the merge scratch may be null
+        self._check("ptt_paged_attention", a, (6, 7, 11, 12, 13))
+        self.calls.append(a)
+        out = tops.plain_paged_attention(*self.args)
+        _view(a[10], out.shape, out.dtype).copy_(out)
+        return 0
+
+
+def _view(ptr, shape, dtype):
+    """A tensor over the CPU memory at address `ptr`."""
+    n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+    buf = (ctypes.c_char * n).from_address(ptr)
+    return torch.frombuffer(buf, dtype=dtype).view(shape)
+
+
+@pytest.mark.parametrize("dt,pool,C,group,ps", [
+    ("bf16", "fp", 1, 1, 16),       # decode
+    ("bf16", "int8", 1, 1, 16),
+    ("bf16", "fp", 32, 4, 16),      # admission chunk, GQA
+    ("bf16", "int8", 32, 4, 16),
+    ("bf16", "fp", 1, 4, 8),        # pages of 8 rows
+    ("fp16", "int8", 5, 1, 8),
+    ("fp32", "fp", 1, 1, 16),       # the CUDA-core body's pool
+    ("bf16", "fp", 3, 1, 64),       # one chunk covers the table: no scratch
+])
+def test_paged_attention_launch_marshalling(monkeypatch, paged_plan, dt,
+                                            pool, C, group, ps):
+    """`_launch` as the card runs it, with the kernel library stood in
+    for: the plan asked of the library once for the shapes, every
+    argument in the C signatures' order and type, the plan's chunk
+    handed over, fp32 scratch part_acc [B, n_kv, splits, R, d] and
+    part_ml [..., 2] with the plan's count of zeroed int32 merge
+    counters, kept for the launch's (device, stream), only when a slot
+    can take more than one split, and one launch counted under the
+    pool's variant."""
     pa = tops.kernel_module("paged_attention")
-    assert pa._splits(blocks, R, P_slot) == want
+    monkeypatch.setattr(_build, "cuda_device_index", lambda *t: 0)
+    monkeypatch.setattr(_build, "stream_of", lambda d: 7)
+    monkeypatch.setattr(pa, "_counters", {})
+    monkeypatch.setattr(pa, "_plans", {})
+    empty, made = torch.empty, []
+
+    def spy_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        made.append(t)
+        return t
+
+    monkeypatch.setattr(torch, "empty", spy_empty)
+    dtype = {"bf16": torch.bfloat16, "fp16": torch.float16,
+             "fp32": torch.float32}[dt]
+    rng = np.random.RandomState(C * 10 + group + ps)
+    # three chunks' pages, or (pages of 64 rows) exactly one chunk
+    B, n_kv, d, L, layer = 3, 2, 64, 2, 1
+    P_slot = 2 if ps == 64 else 192 // ps
+    h = n_kv * group
+    q, kp, vp, pt, pos = _paged_inputs(rng, B, C, h, n_kv, d=d,
+                                       P=1 + B * P_slot, ps=ps, L=L,
+                                       P_slot=P_slot)
+    q = torch.from_numpy(q).to(dtype)
+    kp, vp = torch.from_numpy(kp).to(dtype), torch.from_numpy(vp).to(dtype)
+    scales = ()
+    if pool == "int8":
+        amax = kp.float().abs().amax(dim=(1, 4))
+        ks = (amax.clamp_min(1e-8) / 127).contiguous()
+        kp = (kp.float() / ks[:, None, :, :, None]).round().clamp(
+            -127, 127).to(torch.int8)
+        vp = (vp.float() / ks[:, None, :, :, None]).round().clamp(
+            -127, 127).to(torch.int8)
+        scales = (ks, ks.clone())
+    pt, pos = torch.from_numpy(pt), torch.from_numpy(pos)
+    args = (q, kp, vp, pt, pos, layer) + scales
+    lib = _PagedLib(args, paged_plan)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    before = tops.launch_counts()["paged_attention"]
+    var = dict(pa.variant_launches)
+    out = pa._launch(q, kp, vp, pt, pos, layer, *(scales or (None, None)),
+                     None)
+    R = C * group
+    (plan_call,) = lib.plan_calls
+    assert plan_call[:6] == (0, B, n_kv, R, P_slot, ps)
+    chunk, splits, n_counters = paged_plan(B, n_kv, R, P_slot, ps)
+    (call,) = lib.calls
+    assert call[:11] == (
+        0, _build.DTYPE_CODES[dtype], 3 if pool == "int8" else 0,
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+        scales[0].data_ptr() if scales else None,
+        scales[1].data_ptr() if scales else None, pt.data_ptr(),
+        pos.data_ptr(), out.data_ptr())
+    assert call[14:] == (B, C, h, d, ps, L, n_kv, P_slot, layer,
+                         pytest.approx(d ** -0.5), chunk, 7)
+    if splits == 1:
+        assert n_counters == 0 and ps == 64
+        assert call[11:14] == (None, None, None)
+    else:
+        part_acc, part_ml = [next(t for t in made if t.data_ptr() == p)
+                             for p in call[11:13]]
+        assert part_acc.shape == (B, n_kv, splits, R, d)
+        assert part_ml.shape == (B, n_kv, splits, R, 2)
+        assert part_acc.dtype == part_ml.dtype == torch.float32
+        counters = pa._counters[(q.device, 7)]
+        assert call[13] == counters.data_ptr()
+        assert counters.dtype == torch.int32
+        assert counters.numel() >= n_counters == B * n_kv
+        assert not counters.any()
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert torch.equal(out, tops.plain_paged_attention(*args))
+    assert tops.launch_counts()["paged_attention"] == before + 1
+    assert pa.variant_launches[pool] == var[pool] + 1
+    # a second launch of the same shapes reuses the plan and the counters
+    pa._launch(q, kp, vp, pt, pos, layer, *(scales or (None, None)), None)
+    assert len(lib.plan_calls) == 1 and len(lib.calls) == 2
+    assert lib.calls[1][13] == call[13]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dt", ["float16", "float32"])
+def test_paged_tolerance_refuses_a_bf16_rounding(dt):
+    """chip_smoke's check of paged attention at fp16 and fp32 (q and the
+    pool), on float64 twins of out = P.V over the gathered view: a twin
+    that rounds the weights P to q's dtype (the plain version's math) or
+    keeps them fp32 (a rounding at another point) passes the
+    per-element tolerance and, at fp16, the mean square bound.  The
+    plain result rounded through bf16 fails the per-element tolerance at
+    fp32; at fp16 it passes it (16 r of slack on each weight rounding is
+    more than the 8x between the two unit roundoffs) and fails the mean
+    square bound, as do weights rounded to bf16."""
+    cs = _chip_smoke()
+    tdt = getattr(torch, dt)
+    rng = np.random.RandomState(17)
+    B, C, n_kv, group, d, ps, P_slot = 4, 4, 2, 2, 64, 8, 40
+    q, kp, vp, pt, pos = _paged_inputs(rng, B, C, n_kv * group, n_kv, d=d,
+                                       P=1 + B * P_slot, ps=ps, P_slot=P_slot)
+    q, kp, vp = (torch.from_numpy(x).to(tdt) for x in (q, kp, vp))
+    pt, pos = torch.from_numpy(pt), torch.from_numpy(pos)
+    ref = tops.plain_paged_attention(q, kp, vp, pt, pos, 1)
+    qt, kg, vg, mask = cs._paged_dense_view(torch, q, kp, vp, pt, pos, 1)
+    tol, var = cs._paged_tolerance(torch, qt, kg, vg, mask, ref)
+    s = (qt.double() @ kg.double().transpose(-1, -2)) * d ** -0.5
+    P = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1).float()
+
+    def twin(wdt):
+        return (P.to(wdt).double() @ vg.double()).transpose(1, 2).to(tdt)
+
+    def fits(got):
+        err = (got.double() - ref.double()).abs()
+        return (bool((err <= tol.double()).all()),
+                float((err ** 2 / var.double()).mean()) <= 1.0)
+
+    bf = torch.bfloat16
+    if tdt == torch.float32:
+        assert fits(twin(tdt))[0] and fits(twin(torch.float32))[0]
+        assert not fits(ref.to(bf).to(tdt))[0]
+    else:
+        assert fits(twin(tdt)) == fits(twin(torch.float32)) == (True, True)
+        assert fits(ref.to(bf).to(tdt)) == (True, False)
+        assert fits(twin(bf)) == (True, False)
 
 
 def test_paged_attention_rejects_bad_gqa():
