@@ -26,10 +26,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              beside SDPA on the gathered view;
              quant_matmul int8 and int4 (group 64) at M = 8 and 256 and
              every [K, N] of Llama-2-7B's decode matmuls, then at
-             QM_EDGE_CASES (ragged M, K and N, int4 group 128, fp16 x,
-             bf16 and fp32 scales); each logs the body that ran (M <= 16
-             mma.sync, the rest wgmma, checked), its ratio to the
-             library yardstick and its share of the bound
+             QM_EDGE_CASES (ragged M, K and N, int4 groups 128, and 50
+             and 54 at M <= 16, fp16 x, bf16 and fp32 scales, x
+             unaligned) and QM_DECODE_EDGE_CASES (M 1, 5, 13, 16, K 4104,
+             4160 and 200, N 1040 and 48, int4 groups 16, 32 and 128, fp16
+             x, bf16/fp16/fp32 scales, x unaligned); each case launched
+             twice (bit-identical), logging the body that ran (M <= 16
+             the decode body with its plan, but int4 groups not a
+             multiple of 16 the mma.sync body; the rest wgmma; checked),
+             its time beside torch.matmul's, the bound and its share of
+             it
   4. parity  a 2-layer Llama at full width (hidden 4096, 32 heads, vocab
              32000) in fp32: the card (kernels) against the CPU (plain
              versions) on the same weights — prefill logits, and the
@@ -503,26 +509,50 @@ def _quant_matmul_tolerance(torch, x, w, ref):
 
 # edge shapes of the admission body (M > 16): ragged M (one and two
 # 256-row tiles), a ragged last K tile, N not a multiple of its 128-column
-# strips, int4 group 128, fp16 x, bf16 and fp32 scales: (fmt, M, K, N,
-# group, x dtype, scale dtype)
+# strips, int4 group 128, fp16 x, bf16 and fp32 scales; and of the
+# mma.sync body at M <= 16: int4 groups that are not a multiple of 16
+# (54, and 50 with x at an odd offset): (fmt, M, K, N, group, x dtype,
+# scale dtype, x's offset in elements)
 QM_EDGE_CASES = (
-    ("int8", 17, 4096, 4096, 64, "bfloat16", "bfloat16"),
-    ("int4", 100, 4096, 4096, 64, "bfloat16", "bfloat16"),
-    ("int8", 255, 4096, 11008, 64, "bfloat16", "float32"),
-    ("int4", 300, 4096, 4096, 64, "bfloat16", "bfloat16"),
-    ("int8", 256, 4104, 4096, 64, "bfloat16", "bfloat16"),
-    ("int8", 100, 1000, 1040, 64, "float16", "float32"),
-    ("int4", 256, 4096, 4096, 128, "bfloat16", "float32"),
-    ("int4", 256, 11008, 4096, 64, "float16", "float16"),
+    ("int8", 17, 4096, 4096, 64, "bfloat16", "bfloat16", 0),
+    ("int4", 100, 4096, 4096, 64, "bfloat16", "bfloat16", 0),
+    ("int8", 255, 4096, 11008, 64, "bfloat16", "float32", 0),
+    ("int4", 300, 4096, 4096, 64, "bfloat16", "bfloat16", 0),
+    ("int8", 256, 4104, 4096, 64, "bfloat16", "bfloat16", 0),
+    ("int8", 100, 1000, 1040, 64, "float16", "float32", 0),
+    ("int4", 256, 4096, 4096, 128, "bfloat16", "float32", 0),
+    ("int4", 256, 11008, 4096, 64, "float16", "float16", 0),
+    ("int4", 8, 4104, 1040, 54, "float16", "float16", 0),
+    ("int4", 13, 200, 48, 50, "bfloat16", "bfloat16", 3),
+)
+
+# edge shapes of the decode body (M <= 16): one, five, thirteen and
+# sixteen rows, a ragged last K tile (int8, and int4 with its x staged),
+# N not a multiple of its 128-column blocks, int4 groups 16, 32 and 128,
+# fp16 x, bf16 and fp32 scales, x at an odd element offset: (fmt, M, K,
+# N, group, x dtype, scale dtype, x's offset in elements)
+QM_DECODE_EDGE_CASES = (
+    ("int8", 1, 4096, 4096, 64, "bfloat16", "bfloat16", 0),
+    ("int4", 5, 4096, 11008, 64, "bfloat16", "bfloat16", 0),
+    ("int8", 16, 4096, 32000, 64, "bfloat16", "bfloat16", 0),
+    ("int4", 16, 11008, 4096, 16, "bfloat16", "bfloat16", 0),
+    ("int8", 8, 4104, 1040, 64, "bfloat16", "float32", 0),
+    ("int4", 8, 4160, 1040, 32, "bfloat16", "bfloat16", 0),
+    ("int8", 3, 200, 48, 64, "float16", "bfloat16", 1),
+    ("int4", 8, 4096, 4096, 128, "bfloat16", "float32", 0),
+    ("int4", 8, 4096, 4096, 16, "float16", "float32", 1),
+    ("int4", 13, 256, 48, 32, "bfloat16", "bfloat16", 3),
+    ("int8", 8, 4096, 4096, 64, "float16", "float16", 1),
 )
 
 
 def _quant_matmul_case(torch, ops, g, fmt, M, K, N, group, xdt, sdt,
-                       w=None):
+                       w=None, x_offset=0):
     """quant_matmul against plain_quant_matmul at one shape: the weight
-    (seeded random, or `w`) quantized in `sdt`, x in `xdt`; logs the body
-    that ran, the ratio to the library yardstick and the share of the
-    bound."""
+    (seeded random, or `w`) quantized in `sdt`, x in `xdt` (`x_offset`
+    elements into its storage); two launches bit-identical; logs the body
+    that ran (and the decode body's plan), the ratio to the library
+    yardstick and the share of the bound."""
     from paddle_tpu_torch.ops import dequant_weight, plain_quant_matmul
     from paddle_tpu_torch.quantization import quantize_weight
     qm = ops.kernel_module("quant_matmul")
@@ -531,19 +561,24 @@ def _quant_matmul_case(torch, ops, g, fmt, M, K, N, group, xdt, sdt,
         w = torch.randn((K, N), generator=g, device=dev) / K ** 0.5
     qw, sc = quantize_weight(w.to(sdt), fmt, group)
     wd = dequant_weight(qw, sc, fmt, group).to(xdt)
-    x = torch.randn((M, K), generator=g, device=dev).to(xdt)
+    x = torch.randn(M * K + x_offset, generator=g, device=dev).to(xdt)
+    x = x[x_offset:].view(M, K)
     args = (x, qw, sc, fmt, group)
     k = ops.quant_matmul(*args)
+    k2 = ops.quant_matmul(*args)
     p = plain_quant_matmul(*args)
     lib = torch.matmul(x, wd)
     torch.cuda.synchronize()
+    check(torch.equal(k.view(torch.int16), k2.view(torch.int16)),
+          f"quant_matmul {fmt} [{M}, {K}, {N}]: two launches differ")
     nbytes = (x.numel() * x.element_size() + qw.numel()
               + sc.numel() * sc.element_size() + M * N * x.element_size())
     b_ms, b_by = bound(nbytes, 2 * M * K * N, BF16_FLOP_PER_S)
     c = dict(
         shape=[M, K, N], variant=fmt, group=group,
         dtypes=[str(xdt).split(".")[-1], str(sdt).split(".")[-1]],
-        body="wgmma" if qm._takes_wgmma(x, M, K, fmt, group) else "mma.sync",
+        body=qm._body(dev.index or 0, x, sc, M, K, N, fmt, group),
+        x_offset=x_offset,
         **_checked([k], [p], [_quant_matmul_tolerance(torch, x, wd, p)]),
         library_err=(lib.float() - p.float()).abs().max().item(),
         ms=time_ms(torch, lambda: ops.quant_matmul(*args)),
@@ -555,6 +590,12 @@ def _quant_matmul_case(torch, ops, g, fmt, M, K, N, group, xdt, sdt,
     c["library_ratio"] = c["ms"] / c["library_ms"]
     c["bound_share"] = c["bound_ms"] / c["ms"]
     extra = ""
+    if c["body"] == "decode":
+        _, splits, stages, smem, xtma = qm._decode_plan(
+            dev.index or 0, x, sc, M, K, N, fmt == "int4", group)
+        c["plan"] = dict(splits=splits, stages=stages, smem=smem,
+                         x_by_tma=bool(xtma))
+        extra = f" plan {c['plan']}"
     if c["body"] == "wgmma":
         int4 = fmt == "int4"
         c["rows_splits"] = qm._schedule(
@@ -566,10 +607,12 @@ def _quant_matmul_case(torch, ops, g, fmt, M, K, N, group, xdt, sdt,
         extra = (f" (rows, splits) {c['rows_splits']}; the mma.sync body "
                  f"{c['mma_sync_ms']:.4f} ms")
     log(f"[kernels] quant_matmul {fmt} {c['shape']} group {group} "
-        f"{c['dtypes']} {c['body']}: {c['ms']:.4f} ms, "
-        f"{c['library_ratio']:.2f}x the library, "
-        f"{c['bound_share']:.3f} of the {b_by} bound{extra}")
-    del qw, sc, wd, x, k, p, lib
+        f"{c['dtypes']}{f' x at +{x_offset}' if x_offset else ''} "
+        f"{c['body']}: {c['ms']:.4f} ms (torch.matmul "
+        f"{c['library_ms']:.4f}), {c['library_ratio']:.2f}x the library, "
+        f"bound {b_ms:.4f} ms, {c['bound_share']:.3f} of it ({b_by}), "
+        f"{c['tol_share']:.3f} of the tolerance{extra}")
+    del qw, sc, wd, x, k, k2, p, lib
     return c
 
 
@@ -597,7 +640,9 @@ def _quant_matmul_mma_sync(torch, qm, x, qw, sc, fmt, group):
 def _quant_matmul_cases(torch, ops, g):
     """quant_matmul against plain_quant_matmul, int8 and int4 (group 64)
     bf16 weights from seeded random ones, bf16 x, at M in {8, 256} and
-    every [K, N] of the serving path, then at QM_EDGE_CASES.  Library
+    every [K, N] of the serving path, then at QM_EDGE_CASES (the wgmma
+    body's, and the mma.sync body's at M <= 16) and QM_DECODE_EDGE_CASES
+    (the decode body's).  Library
     yardstick: torch.matmul of x with the already-dequantized weight
     (the dequant is left out of its time)."""
     bf16 = torch.bfloat16
@@ -610,14 +655,17 @@ def _quant_matmul_cases(torch, ops, g):
                 out.append(_quant_matmul_case(torch, ops, g, fmt, M, K, N,
                                               QM_GROUP, bf16, bf16, w=w))
             del w
-    for fmt, M, K, N, group, xdt, sdt in QM_EDGE_CASES:
+    for fmt, M, K, N, group, xdt, sdt, off in (QM_EDGE_CASES
+                                               + QM_DECODE_EDGE_CASES):
         out.append(_quant_matmul_case(torch, ops, g, fmt, M, K, N, group,
                                       getattr(torch, xdt),
-                                      getattr(torch, sdt)))
-    # the decode shapes keep the mma.sync body, the admission chunks (and
-    # every edge shape here) take the wgmma body
+                                      getattr(torch, sdt), x_offset=off))
+    # the decode shapes (M <= 16) take the decode body, but int4 groups
+    # that are not a multiple of 16 the mma.sync body; the admission
+    # chunks (and QM_EDGE_CASES past 16 rows) the wgmma body
     for c in out:
-        want = "mma.sync" if c["shape"][0] <= 16 else "wgmma"
+        want = ("wgmma" if c["shape"][0] > 16 else "mma.sync"
+                if c["variant"] == "int4" and c["group"] % 16 else "decode")
         check(c["body"] == want, f"quant_matmul {c['shape']} took the "
               f"{c['body']} body, not {want}")
     return out

@@ -12,6 +12,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <atomic>
+
 namespace ptt {
 
 // dtype codes shared with paddle_tpu_torch/ops/_build.py::DTYPE_CODES
@@ -109,6 +111,21 @@ __device__ __forceinline__ void store_vec(T* p, const float* f) {
 
 __host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// The card's SM count, read once a device (the library's plans size
+// their grids by it), or a negative CUDA error.
+inline int sm_count(int device) {
+  static std::atomic<int> cached[64];   // zero: not read yet
+  if (device < 0 || device >= 64)
+    return -static_cast<int>(cudaErrorInvalidDevice);
+  int n = cached[device].load(std::memory_order_relaxed);
+  if (n > 0) return n;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cached[device].store(n, std::memory_order_relaxed);
+  return n;
 }
 
 // Two values as one 32-bit word of 16-bit elements, `lo` in the low

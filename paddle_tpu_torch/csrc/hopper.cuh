@@ -373,6 +373,31 @@ inline bool map_2d(CUtensorMap* m, const void* base, int elem, long long cols,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A row-major [rows, cols] matrix of `elem` bytes an element (2 or 4) and
+// `row_bytes` bytes a row (a multiple of 16), read in unswizzled boxes of
+// (box_cols, box_rows): row r of a box lands box_cols * elem bytes after
+// row r - 1 (a multiple of 16 bytes); elements past either edge are
+// zero-filled.
+inline bool map_2d_rows(CUtensorMap* m, const void* base, int elem,
+                        long long cols, long long rows, long long row_bytes,
+                        int box_cols, int box_rows) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t step[2] = {1, 1};
+  return enc(m,
+             elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_UINT32
+                       : CU_TENSOR_MAP_DATA_TYPE_UINT16,
+             2, const_cast<void*>(base), dims, strides, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // A flat fp32 vector of n elements read in boxes of `box` elements;
 // elements past n are zero-filled.  A box must start on a 16-byte
 // boundary (a coordinate that is a multiple of 4): an unaligned start

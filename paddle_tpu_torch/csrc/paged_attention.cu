@@ -1034,21 +1034,13 @@ extern "C" int ptt_paged_attention_plan(int device, int B, int n_kv, int R,
   if (B <= 0 || n_kv <= 0 || R <= 0 || P_slot <= 0 || ps <= 0 ||
       plan == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  static int sms[64] = {};    // per device, read once
-  if (device < 0 || device >= 64)
-    return static_cast<int>(cudaErrorInvalidDevice);
-  if (sms[device] == 0) {
-    int n = 0;
-    const cudaError_t err = cudaDeviceGetAttribute(
-        &n, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sms[device] = n;
-  }
+  const int sms = ptt::sm_count(device);
+  if (sms < 0) return -sms;
   const long long tiles = (R + kRowTile - 1) / kRowTile;
   if (static_cast<long long>(B) * n_kv * tiles > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const ptt_paged::Plan p =
-      ptt_paged::plan(B, n_kv, R, P_slot, ps, sms[device]);
+      ptt_paged::plan(B, n_kv, R, P_slot, ps, sms);
   int* out = static_cast<int*>(plan);
   out[0] = p.chunk;
   out[1] = p.splits;

@@ -686,8 +686,8 @@ extern "C" int ptt_rms_norm_bwd_blocks(int device, int dtype, int H, int vec,
     if (err != cudaSuccess) return -static_cast<int>(err);
     R = p.R;
   });
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return -static_cast<int>(err);
+  sms = ptt::sm_count(device);
+  if (sms < 0) return sms;
   if (per_sm <= 0) return -static_cast<int>(cudaErrorInvalidConfiguration);
   const long long batches = (rows + R - 1) / R;
   const long long resident = static_cast<long long>(per_sm) * sms;

@@ -69,6 +69,7 @@ _SIGNATURES = {
     "ptt_quant_matmul": (_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _P),
     "ptt_quant_matmul_clusters": (_I, _I, _I, _I),
+    "ptt_quant_matmul_plan": (_I, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None

@@ -17,25 +17,31 @@ Formats (the reference's layout contract, ops/__init__.py:406-419):
 Scales keep the weight's storage dtype.  The dequantized weight is
 `q_f32 * scale_f32` rounded to the activation dtype; the product is
 `x @ w` summed in fp32 and rounded to x.dtype.  The kernel dequantizes
-each tile in shared memory right after loading it, so the weight
-crosses device memory at its packed width (1 or 1/2 byte an element)
-and no dequantized [K, N] weight is ever allocated.
+each tile on chip right after loading it, so the weight crosses device
+memory at its packed width (1 or 1/2 byte an element) and no
+dequantized [K, N] weight is ever allocated.
 
-Two tensor-core bodies, picked by shape (`_takes_wgmma`, mirrored in the
-kernel's header): the admission chunks (bf16/fp16 x, M > 16, K % 8 == 0,
-x 16-byte aligned, int4 groups a multiple of 64) take the wgmma body —
-TMA ring, dequantization into wgmma's register operand, K split over a
-thread-block cluster and reduced on chip, the row tile and cluster size
-from a cost model (`_schedule`); decode (M <= 16) and every other shape
-take the mma.sync body, K split with fp32 partials (`_splits`) where the
-column blocks alone cannot fill the card.  fp32 x takes the CUDA-core
-body.
+Three tensor-core bodies, picked by shape (mirrored in the kernel's
+header): the admission chunks (bf16/fp16 x, M > 16, K % 8 == 0, x
+16-byte aligned, int4 groups a multiple of 64: `_takes_wgmma`) take the
+wgmma body — TMA ring, dequantization into wgmma's register operand, K
+split over a thread-block cluster and reduced on chip, the row tile and
+cluster size from a cost model (`_schedule`); decode (bf16/fp16 x, M <=
+16, int4 groups a multiple of 16, where the library's plan takes the
+shape: `_decode_plan`) takes the decode body — a TMA ring of the packed
+weight dequantized straight into mma.sync's A operand, K split over a
+cluster and reduced on chip, its split and stages planned by the library
+from the shapes and the SM count; every other shape takes the mma.sync
+body, K split with fp32 partials (`_splits`) where the column blocks
+alone cannot fill the card.  fp32 x takes the CUDA-core body.
 
 `quant_matmul` validates its arguments first (the reference's
 ValueErrors), then takes the plain version for CPU tensors and launches
 the kernel for CUDA tensors, or raises — there is no fallback.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -51,9 +57,9 @@ launches = {"quant_matmul": 0}
 variant_launches = {"int8": 0, "int4": 0}
 
 # the mma.sync body's tiles (csrc/quant_matmul.cu kBN, kBK): output
-# columns per block and logical K rows per tile
-_BN, _BK = 128, 64
-# M up to this takes the decode path (the mma.sync body, 16-row tiles)
+# columns per block and logical K rows per tile, and its row tile
+_BN, _BK, _BM = 128, 64, 64
+# the wgmma body takes M past this (up to it, the decode plan decides)
 _DECODE_ROWS = 16
 # the wgmma body's schedule model (tools/quant_matmul_schedule.py fits
 # it to the card's times): at most this many blocks of a cluster over K;
@@ -67,6 +73,9 @@ _WAVE_US = {128: {1: 5.9, 2: 8.9, 3: 9.0, 4: 9.6},
             256: {1: 10.2, 2: 14.1, 3: 14.7, 4: 16.5}}
 # (device, int4, rows) -> {splits: clusters at once}
 _capacity = {}
+# (device, x's address % 16, M, K, N, int4, group, scale dtype) -> the
+# decode plan (body, splits, stages, smem, x by TMA)
+_plans = {}
 
 
 def pack_int4(q):
@@ -168,9 +177,12 @@ def _launch(x, qw, scales, fmt, group_size):
     req(qw.data_ptr() % 16 == 0 and scales.data_ptr() % 16 == 0,
         "quant_matmul kernel needs 16-byte aligned qw and scales", qw,
         scales)
-    if _takes_wgmma(x, M, K, fmt, g):
+    body = _body(dev, x, scales, M, K, N, fmt, g)
+    if body == "wgmma":
         rows, splits = _schedule(M, K, N, int4,
                                  lambda r: _cluster_capacity(dev, int4, r))
+    elif body == "decode":
+        rows, splits = 0, 0         # the library plans the split
     else:
         rows, splits = 0, _splits(M, K, N, qw.numel())
     out = torch.empty(x.shape[:-1] + (N,), dtype=x.dtype, device=x.device)
@@ -189,6 +201,21 @@ def _launch(x, qw, scales, fmt, group_size):
     return out
 
 
+def _body(dev, x, scales, M, K, N, fmt, group):
+    """The kernel body a call takes, by shape alone: "wgmma" (the
+    admission chunks, `_takes_wgmma`), "decode" (16-bit x the library's
+    decode plan takes: M <= 16, int4 groups a multiple of 16), "mma.sync"
+    (every other 16-bit shape) or
+    "cuda-core" (fp32 x)."""
+    if x.dtype == torch.float32:
+        return "cuda-core"
+    if _takes_wgmma(x, M, K, fmt, group):
+        return "wgmma"
+    if _decode_plan(dev, x, scales, M, K, N, fmt == "int4", group)[0]:
+        return "decode"
+    return "mma.sync"
+
+
 def _takes_wgmma(x, M, K, fmt, group):
     """Whether the call takes the wgmma body: bf16/fp16 x past the decode
     rows, x's rows a TMA stride (K % 8 == 0) from a 16-byte aligned
@@ -196,6 +223,25 @@ def _takes_wgmma(x, M, K, fmt, group):
     return (x.dtype != torch.float32 and M > _DECODE_ROWS and K % 8 == 0
             and x.data_ptr() % 16 == 0
             and (fmt == "int8" or group % 64 == 0))
+
+
+def _decode_plan(dev, x, scales, M, K, N, int4, group):
+    """(body, splits, stages, smem bytes, x by TMA) of the decode body for
+    16-bit x [M, K] and a weight of N columns (int4: in groups of `group`
+    rows) with `scales`' dtype, as the library plans it
+    (csrc/quant_matmul_plan.cuh: the shapes, x's alignment and the card's
+    SM count, never a tensor's values); body 0: the shape is not the
+    decode body's."""
+    scode = _build.dtype_code(scales.dtype)
+    key = (dev, x.data_ptr() % 16, M, K, N, bool(int4), group, scode)
+    got = _plans.get(key)
+    if got is None:
+        buf = (ctypes.c_int * 5)()
+        _build.check(_build.library().ptt_quant_matmul_plan(
+            dev, x.data_ptr(), M, K, N, int(int4), group, scode,
+            ctypes.addressof(buf)), "quant_matmul plan")
+        got = _plans[key] = tuple(buf)
+    return got
 
 
 def _cluster_capacity(dev, int4, rows):
@@ -238,16 +284,15 @@ def _schedule(M, K, N, int4, capacity):
 
 
 def _splits(M, K, N, weight_bytes):
-    """Splits over K: enough blocks to give each of the 132 SMs ~4 (the
-    decode shapes have only N/128 column blocks), but never more fp32
-    partial traffic (written and read back, 8 B an output a split) than
-    the packed weight's own bytes, and never an empty split (the
-    launcher gives each split ceil(K tiles / splits) tiles).  The row
-    tile mirrors the mma.sync body's choice: 16 rows up to M = 16, else
-    64 (8 rows a block for fp32, which this count ignores)."""
+    """Splits over K for the mma.sync and CUDA-core bodies: enough blocks
+    to give each of the 132 SMs ~4 (few rows leave only N/128 column
+    blocks), but never more fp32 partial traffic (written and read back,
+    8 B an output a split) than the packed weight's own bytes, and never
+    an empty split (the launcher gives each split ceil(K tiles / splits)
+    tiles).  Blocks of the mma.sync body's 64 rows (fp32's 8-row blocks
+    are not counted)."""
     n_k = -(-K // _BK)
-    bm = 16 if M <= _DECODE_ROWS else 64
-    blocks = -(-N // _BN) * -(-M // bm)
+    blocks = -(-N // _BN) * -(-M // _BM)
     want = max(1, -(-528 // blocks))
     cap = max(1, weight_bytes // (8 * M * N))
     splits = max(1, min(want, cap, n_k))

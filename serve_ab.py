@@ -15,21 +15,23 @@ its serve phase (phase 5: Llama-2-7B, bf16, 16 requests, then a profiled
 pure-decode window; with --weight-only / --kv-dtype, phase 10's or 11's
 quantized serve, which also profiles one admission chunk) twice in a
 fresh process; the second run is kept, so first-call costs fall on the
-first.  Each run reports decode and admission ms a step, tokens/s, TTFT
-p50, and from the traces the device ms a step, paged attention's among
-them.  With --train it runs the tree's
+first (which skips the profiled windows: its traces are never read, and
+the kept run's unprofiled serve comes before its own).  Each run reports decode and admission ms a step, tokens/s, TTFT
+p50, and from the traces the device ms a step, paged attention's and
+quant_matmul's among them.  With --train it runs the tree's
 training phase instead (phase 8: `bench.py::bench_llama`'s
 configuration, 6 TrainStep steps from the same seeded weights and batch,
 then one profiled step) once in a fresh process.  With --kernels it
 runs the tree's phase 3 (each kernel against its plain version at the
 serving shapes, from the same seed) once in a fresh process and reports
-each case's kernel ms, keyed by kernel, case, shape, pool or format and
-group; the medians cover the cases every tree ran.  Give the trees in
+each case's kernel ms, keyed by kernel, case, shape, pool or format,
+group, dtypes and x's offset; the medians cover the cases every tree
+ran.  Give the trees in
 turns (A B B A) so that a drift of the card's clocks falls on each
 alike.
 
 Prints the card's name and power limit, one JSON line per run, and last
-the median of each tree's runs.  Exits 2 without a CUDA device.
+the median and the range (least, most) of each tree's runs.  Exits 2 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -51,7 +53,11 @@ torch.backends.cudnn.allow_tf32 = False
 dev = torch.device("cuda", 0)
 torch.cuda.set_device(dev)
 _build.library()
-for _ in range(2):
+traces = cs.decode_trace, cs.admit_trace
+cs.decode_trace = cs.admit_trace = lambda *a, **k: {{}}
+for i in range(2):
+    if i:
+        cs.decode_trace, cs.admit_trace = traces
     cs.phase_serve(torch, ops, dev, weight_only={wo!r}, kv_dtype={kv!r},
                    tag={tag!r})
 """
@@ -86,18 +92,21 @@ for name, cases in cs.phase_kernels(torch, ops, dev).items():
     for c in cases:
         key = " ".join(str(x) for x in (
             name, c.get("case", ""), c["shape"], c.get("variant", ""),
-            c.get("group", "")) if x != "")
+            c.get("group", ""), " ".join(c.get("dtypes", ())),
+            f"x+{c['x_offset']}" if c.get("x_offset") else "") if x != "")
         ms[key] = c["ms"]
 print("[kernels-ab] " + json.dumps(ms), flush=True)
 """
 
 METRICS = ("decode_ms_per_step", "admit_ms_per_step", "tok_per_s",
            "ttft_ms_p50", "trace_wall_ms_per_step",
-           "trace_device_ms_per_step", "paged_attention_ms_per_step")
+           "trace_device_ms_per_step", "paged_attention_ms_per_step",
+           "quant_matmul_ms_per_step")
 # the quantized serves also trace one admission chunk
 ADMIT_METRICS = ("admit_trace_wall_ms_per_step",
                  "admit_trace_device_ms_per_step",
-                 "admit_paged_attention_ms_per_step")
+                 "admit_paged_attention_ms_per_step",
+                 "admit_quant_matmul_ms_per_step")
 TRAIN_METRICS = ("step_ms_p50", "mfu", "busy_share", "rms_norm_ms")
 
 
@@ -144,13 +153,17 @@ def run(tree, weight_only=None, kv_dtype=None):
                trace_wall_ms_per_step=trace["wall_ms_per_step"],
                trace_device_ms_per_step=trace["device_ms_per_step"],
                paged_attention_ms_per_step=trace["by_kind_ms_per_step"]
-               ["paged_attention"])
+               ["paged_attention"],
+               quant_matmul_ms_per_step=trace["by_kind_ms_per_step"]
+               ["quant_matmul"])
     if weight_only:
         admit = _last(lines, f"[{tag}-admit-trace] ")
         rec.update(admit_trace_wall_ms_per_step=admit["wall_ms_per_step"],
                    admit_trace_device_ms_per_step=admit["device_ms_per_step"],
                    admit_paged_attention_ms_per_step=admit[
-                       "by_kind_ms_per_step"]["paged_attention"])
+                       "by_kind_ms_per_step"]["paged_attention"],
+                   admit_quant_matmul_ms_per_step=admit[
+                       "by_kind_ms_per_step"]["quant_matmul"])
     return rec
 
 
@@ -191,9 +204,13 @@ def main(argv):
     else:
         metrics = TRAIN_METRICS if mode == "train" else METRICS + (
             ADMIT_METRICS if opts["--weight-only"] else ())
-    medians = {t: {m: statistics.median(r[m] for r in runs if r["tree"] == t)
+    by_tree = {t: {m: [r[m] for r in runs if r["tree"] == t]
                    for m in metrics} for t in dict.fromkeys(trees)}
-    print(json.dumps({"medians": medians}), flush=True)
+    print(json.dumps({
+        "medians": {t: {m: statistics.median(v) for m, v in ms.items()}
+                    for t, ms in by_tree.items()},
+        "ranges": {t: {m: [min(v), max(v)] for m, v in ms.items()}
+                   for t, ms in by_tree.items()}}), flush=True)
     return 0
 
 

@@ -19,6 +19,8 @@ within 2^-20 of each other) and the logits held at 2^-8 of the largest
 logit (one flipped code moved them by 1.8e-3 of a 3.8 logit scale).
 """
 import ctypes
+import shutil
+import subprocess
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -385,29 +387,116 @@ def test_quantized_decode_logits_match_reference(fmt, group, kv, carry):
 # clusters of 1-4 blocks of the wgmma body an H100 SXM holds at once, as
 # ptt_quant_matmul_clusters (cudaOccupancyMaxActiveClusters) reports them
 _H100_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30}
+H100_SMS = 132
 
 
 @pytest.mark.parametrize("M,K,N,fmt,want", [
-    (8, 4096, 4096, "int8", (0, 16)),     # decode: 32 column blocks, K / 16
-    (8, 4096, 32000, "int8", (0, 3)),     # the lm head: 250 column blocks
     (256, 4096, 4096, "int8", (128, 2)),  # admission: 64 clusters of 2
-    (3, 200, 48, "int8", (0, 4)),         # never more splits than K tiles
-    (1, 64, 16, "int8", (0, 1)),
     (256, 4096, 11008, "int8", (256, 1)),  # 86 strips of 256 rows
     (256, 11008, 4096, "int4", (256, 3)),  # 86 int4 tiles: 29, 29, 28
     (256, 4096, 32000, "int4", (256, 1)),  # 250 strips fill two waves
 ])
 def test_quant_matmul_split_count(M, K, N, fmt, want):
-    """(rows, splits) of each body: decode (M <= 16) takes the mma.sync
-    body (rows 0) with K split over fp32 partials (`_splits`); the
-    admission chunks take the wgmma body at the row tile and cluster
-    size `_schedule` models fastest on an H100 (`_H100_CLUSTERS`)."""
+    """(rows, splits) of the wgmma body: the admission chunks take it at
+    the row tile and cluster size `_schedule` models fastest on an H100
+    (`_H100_CLUSTERS`)."""
     qm = tops.kernel_module("quant_matmul")
-    int4 = fmt == "int4"
-    got = ((0, qm._splits(M, K, N, K * N // (2 if int4 else 1)))
-           if M <= 16 else qm._schedule(M, K, N, int4,
-                                        lambda rows: _H100_CLUSTERS))
+    got = qm._schedule(M, K, N, fmt == "int4", lambda rows: _H100_CLUSTERS)
     assert got == want
+
+
+@pytest.fixture(scope="module")
+def decode_plan(tmp_path_factory):
+    """The kernel library's decode plan (csrc/quant_matmul_plan.cuh,
+    plain C++), built by the host's C++ compiler: (M, K, N, int4, group,
+    scale bytes, x by TMA, sms) -> (body, splits, stages, smem bytes)."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx, "the plan test needs a C++ compiler"
+    d = tmp_path_factory.mktemp("qm_plan")
+    (d / "shim.cpp").write_text(
+        '#include "quant_matmul_plan.cuh"\n'
+        'extern "C" void plan(int M, int K, int N, int int4, int group,\n'
+        '                     int selem, int xtma, int sms, int* out) {\n'
+        '  const ptt_qm::Plan p = ptt_qm::plan(M, K, N, int4 != 0, group,\n'
+        '                                      selem, xtma != 0, sms);\n'
+        '  out[0] = p.body; out[1] = p.splits; out[2] = p.stages;\n'
+        '  out[3] = p.smem;\n'
+        '}\n')
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC",
+                    "-I", str(_build.CSRC), str(d / "shim.cpp"), "-o",
+                    str(d / "plan.so")], check=True)
+    fn = ctypes.CDLL(str(d / "plan.so")).plan
+    fn.restype = None
+
+    def plan(M, K, N, int4, group=64, selem=2, xtma=True, sms=H100_SMS):
+        out = (ctypes.c_int * 4)()
+        fn(*(ctypes.c_int(int(v)) for v in (M, K, N, int4, group, selem,
+                                            xtma, sms)), out)
+        return tuple(out)
+    return plan
+
+
+@pytest.mark.parametrize("M,K,N,fmt,sms,xtma,want", [
+    (8, 4096, 4096, "int8", 132, True, (8, 4)),   # 7B q/k/v/o: 32 cols x 8
+    (8, 4096, 32000, "int8", 132, True, (1, 4)),  # lm head: 250 blocks
+    (8, 11008, 4096, "int8", 132, True, (8, 4)),  # down: 172 tiles over 8
+    (8, 4096, 11008, "int4", 132, True, (4, 3)),  # gate/up: 86 cols x 4
+    (8, 4096, 4096, "int4", 132, True, (8, 4)),   # 32 int4 tiles, 4 a block
+    (16, 4096, 32000, "int8", 132, True, (1, 4)),
+    (16, 4096, 32000, "int8", 132, False, (1, 4)),  # x staged: 128 KB
+    (3, 200, 48, "int8", 132, True, (4, 3)),      # tiny K: one tile a block
+    (1, 64, 16, "int8", 132, True, (1, 3)),       # one tile
+    (8, 4096, 4096, "int8", 66, True, (4, 4)),    # half the SMs: 4 splits
+])
+def test_quant_matmul_decode_plan(decode_plan, M, K, N, fmt, sms, xtma,
+                                  want):
+    """The decode body's plan from shapes and the card's SM count alone:
+    the split over K (the fewest blocks of a cluster, a power of two up to
+    8, that give 1.5 blocks an SM, none of them empty), the weight stages
+    in flight (8 an SM among its blocks, 3-8 a block, no more than a
+    block walks but 3), and the shared memory that the ring (weight, x
+    and int4 scale boxes a stage), a staged x share and the barriers
+    take."""
+    int4 = fmt == "int4"
+    body, splits, stages, smem = decode_plan(M, K, N, int4, xtma=xtma,
+                                             sms=sms)
+    assert body == 1 and (splits, stages) == want
+    n_k = -(-(K // 2 if int4 else K) // 64)
+    per = -(-n_k // splits)
+    assert (splits - 1) * per < n_k
+    halves, rows = (2 if int4 else 1), (16 if M > 8 else 8)
+    # a stage: the weight box, x's box of 8 or 16 rows a nibble half and
+    # int4's group scale row (bf16) of each half, rounded up to 1 KB
+    stage = 8192 + (halves * rows * 128 if xtma else 0)
+    stage = -(-(stage + (2 * 128 * 2 if int4 else 0)) // 1024) * 1024
+    xbytes = 0 if xtma else halves * per * rows * 128
+    assert smem == 1024 + stages * stage + xbytes + 16 * stages <= 232448
+
+
+@pytest.mark.parametrize("M,K,N,fmt,group,xtma,body", [
+    (17, 4096, 4096, "int8", 64, True, 0),   # past 16 rows: not the body's
+    (16, 65536, 4096, "int8", 64, True, 1),  # x by TMA: any K
+    (16, 65536, 4096, "int8", 64, False, 0),  # staged x overflows its room
+    (8, 65536, 4096, "int8", 64, False, 1),  # ... but not at 8 rows
+    (8, 4096, 4096, "int4", 16, True, 1),    # int4 groups of 16 rows up
+    (16, 11008, 4096, "int4", 128, False, 1),
+    (8, 4104, 1040, "int4", 54, True, 0),    # not a multiple of 16
+    (13, 200, 48, "int4", 50, False, 0),
+])
+def test_quant_matmul_decode_plan_domain(decode_plan, M, K, N, fmt, group,
+                                         xtma, body):
+    """Which shapes the decode body takes (the rest take the mma.sync
+    body): up to 16 rows, int4 groups a multiple of 16 (a 16-row k step
+    within one group); staged x (not by TMA) takes the whole share of a
+    block in shared memory."""
+    int4 = fmt == "int4"
+    got = decode_plan(M, K, N, int4, group=group, xtma=xtma)
+    assert got[0] == body
+    if body and not xtma:
+        n_k = -(-(K // 2 if int4 else K) // 64)
+        per = -(-n_k // got[1])
+        xbytes = (2 if int4 else 1) * per * (16 if M > 8 else 8) * 128
+        assert xbytes <= 160 * 1024
 
 
 def _view(ptr, shape, dtype):
@@ -420,13 +509,29 @@ def _view(ptr, shape, dtype):
 class _QuantLib:
     """Stands in for the kernel library's ptt_quant_matmul: checks each
     call's arguments against `_build._SIGNATURES`, then writes the plain
-    version's product where `out` points."""
+    version's product where `out` points.  Its decode plan is the real
+    one (`plan`) at an H100's SM count."""
 
     CTYPE = {ctypes.c_void_p: int, ctypes.c_int: int}
     DTYPE = {code: dt for dt, code in _build.DTYPE_CODES.items()}
 
-    def __init__(self):
+    def __init__(self, plan):
+        self.plan = plan
         self.calls = []
+        self.plan_calls = []
+
+    def ptt_quant_matmul_plan(self, *args):
+        sig = _build._SIGNATURES["ptt_quant_matmul_plan"]
+        assert len(args) == len(sig) and all(type(a) is int for a in args)
+        dev, x, M, K, N, int4, group, scode, out = args
+        self.plan_calls.append((dev, M, K, N, int4, group, scode))
+        # x by TMA: 16-byte aligned rows of 16-byte strides, int4 halves of
+        # whole 64-column boxes (csrc/quant_matmul.cu x_by_tma)
+        xtma = x % 16 == 0 and K % 8 == 0 and (not int4 or K // 2 % 64 == 0)
+        _view(out, (5,), torch.int32).copy_(torch.tensor(
+            self.plan(M, K, N, int4, group, 4 if scode == 0 else 2, xtma)
+            + (int(xtma),), dtype=torch.int32))
+        return 0
 
     def ptt_quant_matmul(self, *args):
         sig = _build._SIGNATURES["ptt_quant_matmul"]
@@ -439,6 +544,12 @@ class _QuantLib:
          rows, stream) = args
         dt, st = self.DTYPE[code], self.DTYPE[scode]
         fmt = "int4" if int4 else "int8"
+        # the entry's contract: the decode plan's shapes take no split and
+        # no scratch, every other shape at least one split
+        xtma = x % 16 == 0 and K % 8 == 0 and (not int4 or K // 2 % 64 == 0)
+        decode = (not rows and dt != torch.float32 and self.plan(
+            M, K, N, int4, g, 4 if scode == 0 else 2, xtma)[0] == 1)
+        assert (splits == 0 and part is None) if decode else splits >= 1
         w = _view(qw, (K // 2 if int4 else K, N), torch.int8)
         s = _view(sc, (K // g, N) if int4 else (N,), st)
         _view(out, (M, N), dt).copy_(tops.plain_quant_matmul(
@@ -455,7 +566,12 @@ class _QuantLib:
 
 @pytest.mark.parametrize(
     "M,K,fmt,group,dt,aligned,rows,splits", [
-        (8, 256, "int8", None, "bf16", True, 0, 4),      # decode: mma.sync
+        (8, 256, "int8", None, "bf16", True, 0, 0),      # decode body
+        (1, 256, "int8", None, "bf16", True, 0, 0),
+        (16, 256, "int8", None, "bf16", True, 0, 0),
+        (8, 256, "int4", 32, "bf16", True, 0, 0),
+        (5, 202, "int8", None, "fp16", False, 0, 0),     # unaligned, K % 8
+        (8, 200, "int4", 50, "bf16", True, 0, 1),        # group % 16: mma
         (256, 4096, "int8", None, "bf16", True, 128, 4),  # admission: wgmma
         (256, 4096, "int4", 64, "bf16", True, 128, 4),
         (17, 256, "int8", None, "fp16", True, 128, 1),   # M > 16
@@ -463,24 +579,29 @@ class _QuantLib:
         (100, 202, "int8", None, "bf16", True, 0, 1),    # K % 8 != 0
         (256, 256, "int8", None, "bf16", False, 0, 1),   # x not 16-aligned
         (256, 256, "int8", None, "fp32", True, 0, 1),    # CUDA-core body
-    ], ids=["decode", "admit", "admit_int4", "m17_fp16", "int4_g32",
-            "ragged_k", "x_unaligned", "fp32"])
-def test_quant_matmul_launch_marshalling(monkeypatch, M, K, fmt, group, dt,
-                                         aligned, rows, splits):
+    ], ids=["decode", "decode_m1", "decode_m16", "decode_int4",
+            "decode_fp16_unaligned", "int4_g50_m8", "admit", "admit_int4", "m17_fp16",
+            "int4_g32", "ragged_k", "x_unaligned", "fp32"])
+def test_quant_matmul_launch_marshalling(monkeypatch, decode_plan, M, K, fmt,
+                                         group, dt, aligned, rows, splits):
     """`_launch` as the card runs it, with the kernel library stood in
     for: the arguments in the C signature's order and types, the body
     the header gives the shape (wgmma, rows 128 or 256, only for
     bf16/fp16 x past 16 rows, K % 8 == 0, x 16-byte aligned, int4 groups
-    a multiple of 64; else mma.sync, rows 0), the split count (for the
-    wgmma body sized by the stand-in's cluster capacity), fp32 partials
-    [splits, M, N] only for the mma.sync body with splits > 1, and one
-    launch counted per call."""
+    a multiple of 64; the decode body, rows 0 and splits 0, for bf16/fp16
+    x up to 16 rows at any alignment and int4 groups a multiple of 16,
+    planned by the library; else
+    mma.sync, rows 0), the split count (for the wgmma body sized by the
+    stand-in's cluster capacity), fp32 partials [splits, M, N] only for
+    the mma.sync body with splits > 1, the library's plan asked once a
+    shape, and one launch counted per call."""
     qm = tops.kernel_module("quant_matmul")
-    lib = _QuantLib()
+    lib = _QuantLib(decode_plan)
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "cuda_device_index", lambda *t: 0)
     monkeypatch.setattr(_build, "stream_of", lambda d: 0)
     monkeypatch.setattr(qm, "_capacity", {})
+    monkeypatch.setattr(qm, "_plans", {})
     empty, made = torch.empty, []
 
     def spy_empty(*shape, **kw):
@@ -508,11 +629,17 @@ def test_quant_matmul_launch_marshalling(monkeypatch, M, K, fmt, group, dt,
                     _build.DTYPE_CODES[sc.dtype], int(fmt == "int4"),
                     group or 0, x.data_ptr(), qw.data_ptr(), sc.data_ptr(),
                     out.data_ptr(), call[9], M, K, N, splits, rows, 0)
-    if rows or splits == 1:
+    if rows or splits <= 1:
         assert part is None
     else:
         assert part.shape == (splits, M, N) and part.dtype == torch.float32
+    # the plan is asked for 16-bit x off the wgmma body, once a shape
+    assert lib.plan_calls == ([] if rows or dt == "fp32" else
+                              [(0, M, K, N, int(fmt == "int4"), group or 0,
+                                _build.DTYPE_CODES[sc.dtype])])
     assert out.shape == (M, N) and out.dtype == dtype
     assert torch.equal(out, tops.plain_quant_matmul(x, qw, sc, fmt, group))
     assert tops.launch_counts()["quant_matmul"] == before + 1
     assert qm.variant_launches[fmt] == var[fmt] + 1
+    qm._launch(x, qw, sc, fmt, group)
+    assert len(lib.plan_calls) == (0 if rows or dt == "fp32" else 1)

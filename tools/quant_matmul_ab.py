@@ -10,9 +10,12 @@ given, each tree builds its own kernels in a fresh process and runs
 `ops.quant_matmul` on the same seeded inputs: int8 and int4 (group 64)
 bf16 weights, bf16 x, at M = 8 (decode) and M = 256 (an admission chunk)
 and every [K, N] of Llama-2-7B's projections and lm head.  Each output
-is hashed, and its time taken (CUDA events, median of 30).  Give the
-trees in turns (A B B A) so that a drift of the card's clocks falls on
-each alike.
+is hashed, and its time taken (CUDA events, median of 30), and the host's
+time a call (five batches of 200 calls, each queued behind a device-side
+sleep, so the host never waits for the card: what a host-bound decode
+step pays a launch; the median and the least of the five).
+Give the trees in turns (A B B A) so that a drift of the card's clocks
+falls on each alike.
 
 Prints the card's name and power limit, one JSON line per run, then per
 case whether every tree's output is bit-identical to the first tree's
@@ -28,7 +31,7 @@ import sys
 
 # run inside each tree: its own chip_smoke.py and paddle_tpu_torch
 _RUN = """
-import hashlib, json, sys, torch
+import hashlib, json, sys, time, torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
 from paddle_tpu_torch import ops
@@ -51,8 +54,17 @@ for fmt in ("int8", "int4"):
             torch.cuda.synchronize()
             digest = hashlib.sha256(out.view(torch.int16).cpu().numpy()
                                     .tobytes()).hexdigest()[:16]
+            host = []
+            for _ in range(5):
+                torch.cuda._sleep(int(1e8))
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    ops.quant_matmul(*args)
+                host.append((time.perf_counter() - t0) / 200 * 1e6)
+                torch.cuda.synchronize()
             res[f"{fmt} {M}x{K}x{N}"] = dict(sha=digest, ms=cs.time_ms(
-                torch, lambda: ops.quant_matmul(*args)))
+                torch, lambda: ops.quant_matmul(*args)),
+                host_us=sorted(host)[2], host_us_min=min(host))
 print("RESULT " + json.dumps(res), flush=True)
 """
 
@@ -80,9 +92,11 @@ def main(trees):
     first = runs[0][1]
     for case in first:
         same = all(r[case]["sha"] == first[case]["sha"] for _, r in runs)
-        ms = {t: statistics.median(r[case]["ms"] for tt, r in runs if tt == t)
-              for t in dict.fromkeys(trees)}
-        print(json.dumps({"case": case, "bit_identical": same, "ms": ms}),
+        med = {key: {t: statistics.median(r[case][key] for tt, r in runs
+                                          if tt == t)
+                     for t in dict.fromkeys(trees)}
+               for key in ("ms", "host_us", "host_us_min")}
+        print(json.dumps({"case": case, "bit_identical": same, **med}),
               flush=True)
     return 0
 
