@@ -14,8 +14,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              its own tolerance from the kernel's rounding model (the
              share of it used and median tol / median |plain| logged),
              the kernel's, the plain version's and a library
-             yardstick's time (CUDA events, median of 30 after warm-up),
-             and the least time the work could take.  paged_attention
+             yardstick's time (CUDA events, median of 30 after warm-up;
+             phases 3 and 6 first settle the card with a second of
+             copies), and the least time the work could take.  rms_norm also
+             at RMS_FWD_EDGE_CASES (one row, 7 rows, 8192 rows of 4096,
+             H 8192, the scalar path H 1003, the wide body H 16384 /
+             32768 / 58079 and an unaligned x, fp16, fp32) and rope at both
+             serve shapes, each launched twice (bit-identical; rope
+             bit-identical to its plain version too), with the plan the
+             library reports held to the header's table (RMS_FWD_PLANS,
+             ROPE_PLANS) and the kernel / library ratio and the share of
+             the bound logged.  paged_attention
              also on int8 pools (the bf16 pools quantized per page), each
              case launched twice (outputs bit-identical) with the body
              the library takes for it logged, then at PAGED_EDGE_CASES
@@ -59,7 +68,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              element path H 1003, fp16, fp32, the widest H 58079, an
              unaligned x), each bit-identical across two launches, and
              the library's body by shape held to RMS_BWD_PLANS (the
-             table in csrc/rms_norm.cu's header); flash attention also
+             table in csrc/rms_norm.cu's header); the RMSNorm forward
+             launched twice with its plan, the fused add's forward
+             kernel's source held to ADD_RMS_NORM_SHA256; RoPE forward
+             and backward at the training shape and ROPE_EDGE_CASES (d
+             64 / 96, the scalar path d 100 and an unaligned q, h + hk =
+             65 at decode and 70000 over one row, per-slot and shared
+             tables, fp16, fp32), each launched twice and bit-identical
+             to the plain versions; flash attention also
              at FLASH_EDGE_CASES (ragged s,
              sq != sk, d 64, fp16, MHA and group 8, B 1) and at
              Llama-2-7B's attention, each beside SDPA; the fused AdamW
@@ -168,6 +184,20 @@ def time_ms(torch, fn, reps=REPS, warm=5):
                              for i in range(reps))
 
 
+def settle(torch, dev, seconds=1.0):
+    """Keep the card copying device memory for `seconds` before a phase's
+    timings.  Right after phases 3-5 the first memory-bound timings read
+    ~10% slow for the kernels and the library calls alike, and normal a
+    second later."""
+    a = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    b = torch.empty_like(a)
+    t_end = time.perf_counter() + seconds
+    while time.perf_counter() < t_end:
+        for _ in range(16):
+            b.copy_(a)
+        torch.cuda.synchronize()
+
+
 def _ms(t):
     return None if t is None else round(t, 4)
 
@@ -181,9 +211,254 @@ def bound(nbytes, flops, flop_rate):
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
+# RMSNorm forward shapes of phase 3 beside the serve shapes, each launched
+# twice (bit-identical): one row, 7 rows, Llama-2-7B's width at a
+# 8192-token prefill, two vectors a thread (H 8192), the scalar path (H %
+# 8 != 0), the wide body (H 16384 and 32768, an unaligned x, the widest
+# scalar row H 58079), fp16 and fp32
+RMS_FWD_EDGE_CASES = [
+    dict(case="one row", rows=1, H=4096),
+    dict(case="7 rows", rows=7, H=4096),
+    dict(case="llama-2-7b prefill", rows=8192, H=4096),
+    dict(case="H=8192", rows=2048, H=8192),
+    dict(case="H=16384", rows=512, H=16384),
+    dict(case="scalar H=1003", rows=4096, H=1003),
+    dict(case="unaligned x", rows=1024, H=2048, offset=1),
+    dict(case="wide H=32768", rows=256, H=32768),
+    dict(case="widest H=58079", rows=64, H=58079),
+    dict(case="fp16", rows=8192, H=2560, dtype="float16"),
+    dict(case="fp32", rows=8192, H=2560, dtype="float32"),
+]
+
+# csrc/rms_norm.cu's table of the forward's body by shape: (dtype, H,
+# vector path) -> (vectors a thread, threads, rows a block once the rows
+# outnumber the blocks the card holds at once; one row a block till
+# then); vectors 0 is the wide body, a row a block
+RMS_FWD_PLANS = {
+    ("bfloat16", 2560, True): (1, 320, 4),
+    ("float16", 2560, True): (1, 320, 4),
+    ("bfloat16", 4096, True): (1, 512, 4),
+    ("bfloat16", 8192, True): (2, 512, 2),
+    ("bfloat16", 16384, True): (0, 256, 1),
+    ("float32", 2560, True): (2, 320, 2),
+    ("bfloat16", 1003, False): (2, 512, 2),
+    ("bfloat16", 2048, False): (0, 256, 1),
+    ("bfloat16", 32768, True): (0, 256, 1),
+    ("bfloat16", 58079, False): (0, 256, 1),
+}
+
+
+def _rms_fwd_plan(torch, rn, x, w):
+    """The library's forward plan for these operands, as a launch takes
+    it: [vectors a thread (0: the wide body), threads, rows a block,
+    blocks, the one-row body's blocks an SM], held to RMS_FWD_PLANS."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    rows, H = x.shape
+    vec = rn._bwd_vec(H, x.element_size(), x, w)
+    plan = (ctypes.c_int * 5)()
+    rc = _build.library().ptt_rms_norm_plan(
+        0, _build.dtype_code(x.dtype), H, int(vec), rows,
+        ctypes.addressof(plan))
+    check(rc == 0, f"rms_norm plan [{rows}, {H}]: CUDA error {rc}")
+    got = list(plan)
+    V, threads, R, blocks, per_sm = got
+    key = (str(x.dtype).split(".")[-1], H, vec)
+    want = RMS_FWD_PLANS.get(key)
+    check(want is not None and [V, threads] == list(want[:2]),
+          f"rms_norm plan {key}: the library picks {got[:2]}, the header's "
+          f"table says {want}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fits = V == 0 or rows <= per_sm * sms
+    check(R == (1 if fits else want[2]) and blocks == -(-rows // R)
+          and (V == 0) == (per_sm == 0),
+          f"rms_norm plan {key} over {rows} rows: {R} rows a block, "
+          f"{blocks} blocks at {per_sm} an SM")
+    return got
+
+
+def _rms_fwd_case(torch, ops, rn, randn, case, rows, H, dtype="bfloat16",
+                  offset=0):
+    """The RMSNorm forward at one shape: launched twice (bit-identical),
+    every element within 2^-6 |plain| of plain_rms_norm (the kernel
+    casts once after * w, as the TPU kernel; the plain version casts
+    before * w, as the reference twin: one extra rounding, <= 3 u of each
+    output, plus ~2^-12 from the fp32 sum order) plus what those
+    roundings move a subnormal output, e (|w| + 2) (ROUNDING; fp16's
+    subnormals start at 2^-14), timed beside
+    torch.nn.functional.rms_norm, with the body the library took."""
+    F = torch.nn.functional
+    dt = getattr(torch, dtype)
+    x = randn(rows * H + offset, dtype=dt)[offset:].view(rows, H)
+    w = (1.0 + 0.1 * randn(H, dtype=torch.float32)).to(dt)
+    eps = 1e-5
+    k, again = rn._launch(x, w, eps), rn._launch(x, w, eps)
+    p = ops.plain_rms_norm(x, w, eps)
+    torch.cuda.synchronize()
+    check(torch.equal(k, again), f"rms_norm {case} [{rows}, {H}] {dtype}: "
+          f"two launches on the same inputs differ")
+    b_ms, b_by = bound((2 * rows * H + H) * x.element_size(), 4 * rows * H,
+                       BF16_FLOP_PER_S)
+    c = dict(case=case, shape=[rows, H], dtype=dtype, x_offset=offset,
+             **_checked([k], [p], [2.0 ** -6 * p.float().abs()
+                                   + ROUNDING[dtype][1]
+                                   * (w.float().abs() + 2.0)]),
+             ms=time_ms(torch, lambda: rn._launch(x, w, eps)),
+             plain_ms=time_ms(torch, lambda: ops.plain_rms_norm(x, w, eps)),
+             library_ms=time_ms(torch, lambda: F.rms_norm(x, (H,), w, eps)),
+             library="torch.nn.functional.rms_norm", bound_ms=b_ms,
+             bound_by=b_by, plan=_rms_fwd_plan(torch, rn, x, w))
+    log(f"[kernels] rms_norm {case} {[rows, H]} {dtype}"
+        f"{' x+' + str(offset) if offset else ''}: plan {c['plan']}, "
+        f"{c['ms']:.4f} ms, {c['ms'] / c['library_ms']:.2f}x the library, "
+        f"{b_ms / c['ms']:.3f} of the {b_by} bound")
+    return c
+
+
+# RoPE shapes of phase 6 beside the training shape, each forward and
+# backward (neg_sin), launched twice (bit-identical to the plain
+# versions): d 64 and 96, the scalar path (d / 2 not a multiple of 8; an
+# unaligned q), h + hk = 65 at decode and 70000 over one row (past the
+# 65535 of a grid's y), per-slot and shared tables, fp16 and fp32
+ROPE_EDGE_CASES = [
+    dict(case="d=64", b=2, s=1024, h=20, hk=4, d=64),
+    dict(case="d=96", b=2, s=512, h=8, hk=2, d=96),
+    dict(case="scalar d=100", b=2, s=256, h=8, hk=2, d=100),
+    dict(case="unaligned q", b=2, s=256, h=20, hk=4, d=128, offset=1),
+    dict(case="h+hk=65, per-slot", b=8, s=1, h=64, hk=1, d=128,
+         per_slot=True),
+    dict(case="h+hk=70000", b=1, s=1, h=69000, hk=1000, d=128),
+    dict(case="fp16, per-slot", b=8, s=32, h=32, hk=32, d=128,
+         dtype="float16", per_slot=True),
+    dict(case="fp32", b=2, s=2048, h=20, hk=4, d=128, dtype="float32"),
+]
+
+# csrc/rope.cu's table of the plan at 132 SMs: (dtype, d, vector path,
+# rows, heads) -> (pairs a thread, threads a head, head splits, heads
+# loaded before any is formed, threads, blocks)
+ROPE_PLANS = {
+    ("bfloat16", 128, True, 8192, 24): (8, 8, 1, 4, 128, 512),
+    ("bfloat16", 128, True, 8, 64): (8, 8, 64, 1, 128, 32),
+    ("bfloat16", 128, True, 256, 64): (8, 8, 32, 2, 128, 512),
+    ("float16", 128, True, 256, 64): (8, 8, 32, 2, 128, 512),
+    ("float32", 128, True, 4096, 24): (4, 16, 1, 4, 128, 512),
+    ("bfloat16", 64, True, 2048, 24): (8, 4, 8, 2, 128, 512),
+    ("bfloat16", 96, True, 1024, 10): (8, 6, 8, 2, 128, 384),
+    ("bfloat16", 100, False, 512, 10): (1, 50, 4, 2, 128, 800),
+    ("bfloat16", 128, False, 512, 24): (1, 64, 2, 4, 128, 512),
+    ("bfloat16", 128, True, 8, 65): (8, 8, 64, 2, 128, 32),
+    ("bfloat16", 128, True, 1, 70000): (8, 8, 8192, 4, 128, 512),
+}
+
+
+def _rope_vec(q, k, cos, sin):
+    """Whether a launch takes the 16-byte path: d / 2 a multiple of 16
+    bytes' elements, every operand 16-byte aligned (the outputs are
+    fresh allocations)."""
+    d = q.shape[-1]
+    return (d // 2) % (16 // q.element_size()) == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (q, k, cos, sin))
+
+
+def _rope_plan(torch, q, k, cos, sin):
+    """The library's plan for these operands: [pairs a thread, threads a
+    head, head splits, heads loaded before any is formed, threads,
+    blocks, SMs], held to ROPE_PLANS on a card of 132 SMs and to the
+    plan's invariants on any."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    b, s, h, d = q.shape
+    heads = h + k.shape[2]
+    vec = _rope_vec(q, k, cos, sin)
+    plan = (ctypes.c_int * 7)()
+    rc = _build.library().ptt_rope_plan(
+        0, _build.dtype_code(q.dtype), d, int(vec), b * s, heads,
+        ctypes.addressof(plan))
+    check(rc == 0, f"rope plan {list(q.shape)}: CUDA error {rc}")
+    got = list(plan)
+    vw, P, J, U, threads, blocks, sms = got
+    per = -(-heads // J)
+    key = (str(q.dtype).split(".")[-1], d, vec, b * s, heads)
+    check(vw == (16 // q.element_size() if vec else 1) and vw * P * 2 == d
+          and J <= heads and J & (J - 1) == 0
+          and U == (4 if per >= 4 else 2 if per >= 2 else 1)
+          and blocks == min(-(-b * s * P * J // threads), 16 * sms),
+          f"rope plan {key}: {got} breaks the plan's rules")
+    check(sms != 132 or key not in ROPE_PLANS
+          or got[:6] == list(ROPE_PLANS[key]),
+          f"rope plan {key}: the library picks {got[:6]}, the header's "
+          f"table says {ROPE_PLANS.get(key)}")
+    return got
+
+
+def _rope_edge_case(torch, ops, ro, randn, case, b, s, h, hk, d,
+                    dtype="bfloat16", per_slot=False, offset=0):
+    """_rope_case, forward and backward, on inputs of one ROPE_EDGE_CASES
+    row: q and k `offset` elements into their storage, per-slot [b, s, d]
+    tables of scattered positions or a shared [s, d] one."""
+    from paddle_tpu_torch.ops import rope_cos_sin
+    dt = getattr(torch, dtype)
+
+    def operand(*shape):
+        n = int(np.prod(shape))
+        return randn(n + offset, dtype=dt)[offset:].view(shape)
+
+    q, kk = operand(b, s, h, d), operand(b, s, hk, d)
+    dev = q.device
+    if per_slot:
+        pos = torch.arange(b, device=dev)[:, None] * 97 + torch.arange(
+            s, device=dev)[None]
+        cos, sin = rope_cos_sin(s, d, 10000.0, position_ids=pos)
+    else:
+        cos, sin = rope_cos_sin(s, d, 10000.0, device=dev)
+    return _rope_case(torch, ops, ro, case, q, kk, cos.contiguous(),
+                      sin.contiguous(), bwd=True)
+
+
+def _rope_case(torch, ops, ro, case, q, kk, cos, sin, bwd=False):
+    """RoPE forward (and, with bwd, its backward: sin's halves swapped,
+    neg_sin) at one shape: each launched twice and held bit-identical to
+    the plain version (the same fp32 products and sum, each rounded as
+    there, one cast), timed, with the plan the library took."""
+    d = q.shape[-1]
+    # q, k read and written once; each cos/sin row read once
+    nbytes = 2 * (q.numel() + kk.numel()) * q.element_size() \
+        + 2 * cos.numel() * 4
+    b_ms, b_by = bound(nbytes, 3 * (q.numel() + kk.numel()),
+                       BF16_FLOP_PER_S)
+    plan = _rope_plan(torch, q, kk, cos, sin)
+    out = []
+    dirs = [("rope", sin, False, ops.plain_apply_rope)]
+    if bwd:
+        sw = torch.cat([sin[..., d // 2:], sin[..., :d // 2]],
+                       dim=-1).contiguous()
+        dirs.append(("rope_bwd", sw, True, ops.plain_rope_bwd))
+    for name, tab, neg, plain in dirs:
+        k1 = ro._launch(q, kk, cos, tab, neg_sin=neg)
+        k2 = ro._launch(q, kk, cos, tab, neg_sin=neg)
+        refs = plain(q, kk, cos, sin)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b_) for a, b_ in zip(k1, k2)),
+              f"{name} {case} {list(q.shape)}: two launches differ")
+        c = dict(case=case, shape=list(q.shape),
+                 dtype=str(q.dtype).split(".")[-1],
+                 **_checked(list(k1), list(refs),
+                            [torch.zeros_like(t, dtype=torch.float32)
+                             for t in refs]),
+                 ms=time_ms(torch, lambda: ro._launch(q, kk, cos, tab,
+                                                      neg_sin=neg)),
+                 plain_ms=time_ms(torch, lambda: plain(q, kk, cos, sin)),
+                 library_ms=None, library=None, bound_ms=b_ms, bound_by=b_by,
+                 plan=plan)
+        log(f"[kernels] {name} {case} {list(q.shape)} hk {kk.shape[2]} "
+            f"{c['dtype']}: plan {plan}, {c['ms']:.4f} ms, "
+            f"{b_ms / c['ms']:.3f} of the {b_by} bound")
+        out.append(c)
+    return out
+
+
 def phase_kernels(torch, ops, dev):
-    from paddle_tpu_torch.ops import (plain_apply_rope, plain_paged_attention,
-                                      plain_rms_norm, rope_cos_sin)
+    from paddle_tpu_torch.ops import rope_cos_sin
     g = torch.Generator(device=dev)
     g.manual_seed(1234)
     bf16 = torch.bfloat16
@@ -195,31 +470,20 @@ def phase_kernels(torch, ops, dev):
     B, H, heads, hd = 8, 4096, 32, 128
     results = {"rms_norm": [], "rope": [], "paged_attention": [],
                "quant_matmul": []}
+    settle(torch, dev)
 
-    # -- rms_norm on [8*C, 4096] -------------------------------------------
+    # -- rms_norm on [8*C, 4096], then RMS_FWD_EDGE_CASES --------------------
+    rn = ops.kernel_module("rms_norm")
     for C in (1, 32):
-        x = randn(B * C, H)
-        w = (1.0 + 0.1 * randn(H, dtype=torch.float32)).to(bf16)
-        k = ops.rms_norm(x, w, 1e-5)
-        p = plain_rms_norm(x, w, 1e-5)
-        torch.cuda.synchronize()
-        # the kernel casts once after * w (as the TPU kernel); the plain
-        # version casts before * w (as the reference twin): one extra
-        # bf16 rounding, <= 3 2^-8 of each output, plus ~2^-12 from the
-        # fp32 sum order: 2^-6 |plain| per element
-        nbytes = 2 * x.numel() * 2 + H * 2
-        b_ms, b_by = bound(nbytes, 4 * x.numel(), BF16_FLOP_PER_S)
-        results["rms_norm"].append(dict(
-            shape=[B * C, H], **_checked([k], [p],
-                                         [2.0 ** -6 * p.float().abs()]),
-            ms=time_ms(torch, lambda: ops.rms_norm(x, w, 1e-5)),
-            plain_ms=time_ms(torch, lambda: plain_rms_norm(x, w, 1e-5)),
-            library_ms=time_ms(torch, lambda: torch.nn.functional.rms_norm(
-                x, (H,), w, 1e-5)),
-            library="torch.nn.functional.rms_norm",
-            bound_ms=b_ms, bound_by=b_by))
+        results["rms_norm"].append(_rms_fwd_case(
+            torch, ops, rn, randn, case="serve", rows=B * C, H=H))
+    for case in RMS_FWD_EDGE_CASES:
+        results["rms_norm"].append(_rms_fwd_case(torch, ops, rn, randn,
+                                                 **case))
+        torch.cuda.empty_cache()
 
     # -- rope on q/k [8, C, 32, 128], cos/sin [8, C, 128] --------------------
+    ro = ops.kernel_module("rope")
     pos = torch.tensor([0, 9, 100, 333, 517, 700, 990, 1023],
                        dtype=torch.int32, device=dev)
     for C in (1, 32):
@@ -228,23 +492,8 @@ def phase_kernels(torch, ops, dev):
                                                 device=dev)[None]
         cos, sin = rope_cos_sin(C, hd, 10000.0, position_ids=positions)
         cos, sin = cos.contiguous(), sin.contiguous()
-        kq, kk_ = ops.apply_rope(q, kk, cos, sin)
-        pq, pk = plain_apply_rope(q, kk, cos, sin)
-        torch.cuda.synchronize()
-        # same fp32 products and sum, each rounded as in the plain
-        # version, one final cast: expected bit-identical; tolerance one
-        # bf16 ulp of each output, 2^-7 |plain|
-        checked = _checked([kq, kk_], [pq, pk],
-                           [2.0 ** -7 * pq.float().abs(),
-                            2.0 ** -7 * pk.float().abs()])
-        nbytes = 2 * (q.numel() + kk.numel()) * 2 + 2 * cos.numel() * 4
-        b_ms, b_by = bound(nbytes, 3 * (q.numel() + kk.numel()),
-                           BF16_FLOP_PER_S)
-        results["rope"].append(dict(
-            shape=[B, C, heads, hd], **checked,
-            ms=time_ms(torch, lambda: ops.apply_rope(q, kk, cos, sin)),
-            plain_ms=time_ms(torch, lambda: plain_apply_rope(q, kk, cos, sin)),
-            library_ms=None, library=None, bound_ms=b_ms, bound_by=b_by))
+        results["rope"].append(_rope_case(torch, ops, ro, "serve", q, kk,
+                                          cos, sin)[0])
 
     # -- paged_attention: pool [529, 16, 32, 32, 128], table [8, 66] ---------
     P, ps, L, n_kv, P_slot, layer = 529, 16, 32, 32, 66, 17
@@ -1029,7 +1278,7 @@ def admit_trace(torch, model, dev, kv_dtype=None):
 TRACE_KINDS = {"flash_attention": ("flash_",),
                "paged_attention": ("paged_attention",),
                "quant_matmul": ("quant_matmul",),
-               "rms_norm": ("rms_norm", "rms_bwd", "rms_dw"),
+               "rms_norm": ("rms_norm", "rms_fwd", "rms_bwd", "rms_dw"),
                "rope": ("rope_kernel",), "fused_adamw": ("fused_adamw",),
                "cross_entropy": ("ce_rows",),
                "matmul": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
@@ -1168,6 +1417,28 @@ RMS_BWD_EDGE_CASES = [
     dict(case="widest H=58079", rows=256, H=58079),
     dict(case="unaligned x", rows=1024, H=2560, offset=1),
 ]
+
+
+# sha256 of add_rms_norm_kernel's source text in csrc/rms_norm.cu, from
+# its template line to its closing brace: the fused add's forward that
+# PERF.md's kernel table times.  An edit to it changes the digest and
+# must come with that row's new numbers.
+ADD_RMS_NORM_SHA256 = \
+    "542380841772355e0b53bfb930fd6694871adc4a037fbd621f9449171e09c771"
+
+
+def _check_add_rms_norm_source():
+    import hashlib
+    src = open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "paddle_tpu_torch", "csrc", "rms_norm.cu")).read()
+    start = src.index(
+        "template <typename T>\n__global__ void add_rms_norm_kernel(")
+    text = src[start:src.index("\n}\n", start) + 3]
+    digest = hashlib.sha256(text.encode()).hexdigest()
+    check(digest == ADD_RMS_NORM_SHA256,
+          f"add_rms_norm_kernel's source changed (sha256 {digest})")
+    log(f"[train-kernels] add_rms_norm_kernel source unchanged "
+        f"(sha256 {digest[:16]})")
 
 
 def _rms_bwd_bytes(x, resid):
@@ -1405,16 +1676,25 @@ def phase_train_kernels(torch, ops, dev):
 
     # -- RMSNorm forward and backward on [8192, 2560] ------------------------
     x, gy = randn(R, H), randn(R, H)
+    settle(torch, dev)
     w = (1.0 + 0.1 * randn(H, dtype=torch.float32)).to(bf16)
     # the kernel rounds once, after * w; the plain version before and
     # after: <= 3 2^-8 of each output, plus ~2^-12 from fp32 sum order
     p_out = ops.plain_rms_norm(x, w, eps)
-    add("rms_norm", [R, H], [rn._launch(x, w, eps)], [p_out],
-        [2.0 ** -6 * p_out.float().abs()],
-        time_ms(torch, lambda: rn._launch(x, w, eps)),
-        time_ms(torch, lambda: ops.plain_rms_norm(x, w, eps)),
-        time_ms(torch, lambda: F.rms_norm(x, (H,), w, eps)),
-        "torch.nn.functional.rms_norm", (2 * R * H + H) * 2, 4 * R * H)
+    k_out = rn._launch(x, w, eps)
+    check(torch.equal(k_out, rn._launch(x, w, eps)),
+          "rms_norm train: two launches on the same inputs differ")
+    c = add("rms_norm", [R, H], [k_out], [p_out],
+            [2.0 ** -6 * p_out.float().abs()],
+            time_ms(torch, lambda: rn._launch(x, w, eps)),
+            time_ms(torch, lambda: ops.plain_rms_norm(x, w, eps)),
+            time_ms(torch, lambda: F.rms_norm(x, (H,), w, eps)),
+            "torch.nn.functional.rms_norm", (2 * R * H + H) * 2, 4 * R * H,
+            case="train", plan=_rms_fwd_plan(torch, rn, x, w))
+    log(f"[train-kernels] rms_norm train {[R, H]}: plan {c['plan']}, "
+        f"{c['ms']:.4f} ms, {c['ms'] / c['library_ms']:.2f}x the library, "
+        f"{c['bound_ms'] / c['ms']:.3f} of the bytes bound")
+    del k_out
     xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
     lib_out = F.rms_norm(xr, (H,), wr, eps)
     refs = ops.plain_rms_norm_bwd(x, w, gy, eps)
@@ -1443,6 +1723,7 @@ def phase_train_kernels(torch, ops, dev):
         time_ms(torch, lambda: F.rms_norm(x + y, (H,), w, eps)),
         "x + y, then torch.nn.functional.rms_norm (two calls)",
         4 * R * H * 2 + H * 2, 5 * R * H)
+    _check_add_rms_norm_source()
     xr, yr = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
     wr = w.clone().requires_grad_(True)
     lib_res = xr + yr
@@ -1471,30 +1752,19 @@ def phase_train_kernels(torch, ops, dev):
         _rms_bwd_case(torch, ops, rn, randn, add, eps, **case)
     torch.cuda.empty_cache()
 
-    # -- RoPE forward and backward, q [4, 2048, 20, 128], k [.., 4, ..] ------
+    # -- RoPE forward and backward, q [4, 2048, 20, 128], k [.., 4, ..],
+    # then ROPE_EDGE_CASES -----------------------------------------------
     q, kk = randn(b, s, h, d), randn(b, s, hk, d)
     cos, sin = ops.rope_cos_sin(s, d, 10000.0, device=dev)
-    cos, sin = cos.contiguous(), sin.contiguous()
-    sw = torch.cat([sin[:, d // 2:], sin[:, :d // 2]], dim=-1).contiguous()
-    nbytes = 2 * (q.numel() + kk.numel()) * 2 + 2 * cos.numel() * 4
-    flops = 3 * (q.numel() + kk.numel())
-    # the same fp32 products and sum, each rounded as in the plain
-    # version, one final cast: expected bit-identical; tolerance one bf16
-    # ulp of each output
-    refs = ops.plain_apply_rope(q, kk, cos, sin)
-    add("rope", [b, s, h, d], list(ro._launch(q, kk, cos, sin)), list(refs),
-        [2.0 ** -7 * t.float().abs() for t in refs],
-        time_ms(torch, lambda: ro._launch(q, kk, cos, sin)),
-        time_ms(torch, lambda: ops.plain_apply_rope(q, kk, cos, sin)),
-        None, None, nbytes, flops)
-    refs = ops.plain_rope_bwd(q, kk, cos, sin)
-    add("rope_bwd", [b, s, h, d],
-        list(ro._launch(q, kk, cos, sw, neg_sin=True)), list(refs),
-        [2.0 ** -7 * t.float().abs() for t in refs],
-        time_ms(torch, lambda: ro._launch(q, kk, cos, sw, neg_sin=True)),
-        time_ms(torch, lambda: ops.plain_rope_bwd(q, kk, cos, sin)),
-        None, None, nbytes, flops)
-    del q, kk, refs
+    fwd, bwd = _rope_case(torch, ops, ro, "train", q, kk, cos.contiguous(),
+                          sin.contiguous(), bwd=True)
+    res["rope"], res["rope_bwd"] = [fwd], [bwd]
+    del q, kk
+    for case in ROPE_EDGE_CASES:
+        for name, c in zip(("rope", "rope_bwd"),
+                           _rope_edge_case(torch, ops, ro, randn, **case)):
+            res[name].append(c)
+        torch.cuda.empty_cache()
 
     # -- flash attention forward and backward: the training shape (causal
     # GQA, the head case of the kernels line), then the edge shapes -------

@@ -109,6 +109,33 @@ __device__ __forceinline__ void store_vec(T* p, const float* f) {
   *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(e);
 }
 
+// VW consecutive elements of T: one 16-byte vector, or one element
+template <typename T, int VW>
+struct alignas(VW * sizeof(T)) Chunk {
+  static_assert(VW == 1 || VW * sizeof(T) == 16, "a vector or an element");
+  T e[VW];
+  __device__ __forceinline__ void load(const T* p) {
+    if constexpr (VW == 1) {
+      e[0] = __ldg(p);
+    } else {
+      *reinterpret_cast<uint4*>(e) =
+          __ldg(reinterpret_cast<const uint4*>(p));
+    }
+  }
+  __device__ __forceinline__ float operator[](int u) const {
+    return to_f(e[u]);
+  }
+};
+
+template <typename T, int VW>
+__device__ __forceinline__ void store_chunk(T* p, const float* f) {
+  if constexpr (VW == 1) {
+    *p = from_f<T>(f[0]);
+  } else {
+    store_vec(p, f);
+  }
+}
+
 __host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }

@@ -2,7 +2,8 @@
 // for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/rms_norm.py:
-//   * rms_norm (:130) -> _rms2 (:78) -> _fwd_kernel (:43), below;
+//   * rms_norm (:130) -> _rms2 (:78) -> _fwd_kernel (:43):
+//     rms_fwd_rows_kernel (rms_fwd_wide_kernel for rows too wide for it);
 //   * its backward _rms_bwd (:105) -> _bwd_kernel (:50) and the fused
 //     add's backward _add_rms_bwd (:201) -> _add_bwd_kernel (:154): one
 //     body with an optional residual cotangent, rms_bwd_rows_kernel
@@ -10,24 +11,66 @@
 //     reduction;
 //   * fused_add_rms_norm (:228) -> _add_rms2 (:170) -> _add_fwd_kernel
 //     (:142): add_rms_norm_kernel.
-// The forward computes
+//
+// Forward (bytes: x read and the output written once, w read once; 84
+// MB, 0.0250 ms at 3.35 TB/s at the training shape [8192, 2560] bf16;
+// 0.13 MB, ~0.04 us at the decode shape [8, 4096], where the launch and
+// one dependent chain of loads, a barrier and a store set the time):
 //     y = x * rsqrt(mean(x^2, -1) + eps) * w
 // with fp32 statistics and ONE cast to the storage type at the end, as
 // _fwd_kernel does (the plain twin ops.xla_rms_norm casts before the
-// multiply by w, so in bf16 the two differ by one rounding).
+// multiply by w, so in bf16 the two differ by one rounding).  Two
+// bodies, chosen by shape alone, the rows a block by shape and the
+// card's occupancy (ptt_rms::fwd_plan, rms_norm_plan.cuh, which
+// ptt_rms_norm_plan reports and chip_smoke.py's phase 3 holds to the
+// tables below; never in reaction to an error):
 //
-// What bounds it on the H100: bytes.  Each row is read once for the
-// sum of squares and once more for the output (the second read hits
-// L1/L2), w is read once per row from L2, the output written once; the
-// least time is (2*rows*H + H) * sizeof(T) / 3.35 TB/s.  At the serve
-// decode shape [8, 4096] bf16 that is ~0.04 us, far under the launch
-// latency of a few us, so at decode the kernel is launch-bound; at the
-// prefill shape [256, 4096] it is ~1.3 us of traffic.
-//
-// Design: one block per row (rows are independent; the TPU's row
-// blocks of 256 become 256-thread blocks over one row), 16-byte vector
-// loads and stores when the row and the pointers allow them, a
-// warp-shuffle + shared-memory block reduction, no atomics.
+//   * rows body (rms_fwd_rows_kernel): the backward's rows body (below)
+//     without the cotangent and without its loop, on the same pieces
+//     (load_rows, warp_transpose_sum; ptt::Chunk, ptt::store_chunk).
+//       - Thread t owns vectors t, t + threads, ... (V of them) of a row,
+//         V = 1 or 2, the least that keeps the block within 512 threads;
+//         on the scalar path (H % (16 / sizeof(T)) != 0, or a pointer not
+//         16-byte aligned) a "vector" is one element.  Four vectors a
+//         thread spill under the register cap below and measured slower
+//         than the wide body.
+//       - A block takes one batch of R rows.  Its w vectors and the R
+//         rows' x vectors are loaded together, and x stays in registers
+//         from the sum of squares to the output: each row is read from
+//         device memory once.  The R sums go over the warp in one
+//         transposing butterfly (R - 1 + 5 - log2(R) shuffles) and over
+//         the block through shared memory behind ONE __syncthreads; then
+//         the outputs are formed and stored.
+//       - R from the plan: 1 while the rows fit on the card at once (the
+//         one-row body's blocks an SM from the occupancy API, asked once
+//         per device, body and block size and cached, as the SM count is:
+//         a launch makes no CUDA query), so a decode step's 8 rows take 8
+//         blocks and the chain is one round of loads, one barrier, the
+//         store; past that R = 4 / V, so a thread has 4 vectors (64 bytes)
+//         of x in flight.  __launch_bounds__(512, 2) keeps two of the
+//         widest blocks an SM.
+//       - One batch a block, not a persistent grid: the blocks resident
+//         on an SM overlap one another's chains, and the block scheduler
+//         evens out the tail.  A persistent grid (the blocks the card
+//         holds at once, each a contiguous share of the rows, the next
+//         batch's loads issued before this batch's outputs) measured
+//         slower on an H100 at [8192, 2560] and [8192, 4096] bf16 and
+//         [8192, 2560] fp32.
+//     shape                     V  threads  R (past the resident rows)
+//     bf16/fp16 H = 2560        1  320      4
+//     bf16/fp16 H = 4096        1  512      4
+//     bf16/fp16 H = 8192        2  512      2
+//     fp32 H = 2560             2  320      2
+//     scalar bf16 H = 1003      2  512      2
+//   * wide body (rms_fwd_wide_kernel): wider rows (bf16/fp16 H > 8192,
+//     fp32 H > 4096, scalar H > 1024), with no upper bound.  The first
+//     design: one block of <= 256 threads a row, which reads the row
+//     twice (the second time from L1/L2) around a block reduction.
+//     shape                     V  threads  R
+//     bf16/fp16 H = 16384       0  256      1
+//     bf16/fp16 H = 32768       0  256      1
+//     scalar bf16 H = 2048      0  256      1
+//     scalar bf16 H = 58079     0  256      1
 //
 // Backward (bytes: x and g read, dx written, plus g_resid read for the
 // fused add; 126 MB or 168 MB at the training shape [8192, 2560] bf16,
@@ -105,14 +148,139 @@
 // unfused `x + y`; the second pass recomputes it from x and y rather
 // than re-reading what it wrote.
 #include "common.cuh"
+#include "rms_norm_plan.cuh"
 
 namespace {
 
+using ptt::Chunk;
+using ptt::store_chunk;
+using ptt_rms::block_threads;
+using ptt_rms::kFwdRV;
+using ptt_rms::kRowsThreads;
+using ptt_rms::rows_threads;
+
+// ---- the rows bodies' pieces, shared by the forward and the backward ------
+
+// rows [base, base + R) of `a` (row stride H) that lie below r1, the
+// vectors k a thread owns, into c
+template <typename T, int VW, int V, int R>
+__device__ __forceinline__ void load_rows(Chunk<T, VW> (&c)[R][V],
+                                          const T* __restrict__ a,
+                                          long long base, long long r1, int H,
+                                          const bool* own, const int* col) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      if (base + i < r1 && own[k]) c[i][k].load(a + (base + i) * H + col[k]);
+}
+
+// Sum each of the M values v[] (M a power of two <= 32) over the warp; on
+// return v[0] of lane l holds the total of value l / (32 / M).  The
+// first log2(M) levels halve the values a lane keeps (each lane sends
+// its partner the half the partner keeps), the rest add all to all.
+template <int M>
+__device__ __forceinline__ void warp_transpose_sum(float* v, int lane) {
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const int off = 16 >> k;
+    const int h = M >> (k + 1);
+    if (h >= 1) {
+      const bool up = (lane & off) != 0;
+#pragma unroll
+      for (int j = 0; j < h; ++j) {
+        const float send = up ? v[j] : v[j + h];
+        const float keep = up ? v[j + h] : v[j];
+        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+      }
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
+    }
+  }
+}
+
+// ---- forward ----------------------------------------------------------------
+
+// The rows body: rows [blockIdx.x * R, blockIdx.x * R + R) of out [rows,
+// H], one batch a block.  VW elements a vector, V vectors of a row a
+// thread, R rows a batch.
+template <typename T, int VW, int V, int R>
+__global__ void __launch_bounds__(kRowsThreads, 2)
+rms_fwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    T* __restrict__ out, long long rows, int H, float eps) {
+  static_assert(R <= 32 && (R & (R - 1)) == 0, "R a power of two <= 32");
+  __shared__ float red[kRowsThreads / 32][R];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int vecs = H / VW;
+  const long long r0 = static_cast<long long>(blockIdx.x) * R;
+  const long long r1 = r0 + R < rows ? r0 + R : rows;
+  const float hf = static_cast<float>(H);
+  bool own[V];
+  int col[V];                          // first element of vector k
+  Chunk<T, VW> wa[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int c = tid + k * static_cast<int>(blockDim.x);
+    own[k] = c < vecs;
+    col[k] = c * VW;
+    if (own[k]) wa[k].load(w + col[k]);
+  }
+  // w and the batch's x go out together; x stays in registers.  The
+  // vectors no row or column owns stay zero, so the sums take no guard:
+  // one shared with the loads lets the compiler fuse each row's load with
+  // its sum, and then each load waits for the sum before it
+  Chunk<T, VW> xa[R][V] = {};
+  load_rows<T, VW, V, R>(xa, x, r0, r1, H, own, col);
+  float v[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+#pragma unroll
+      for (int u = 0; u < VW; ++u) {
+        const float a = xa[i][k][u];
+        ss = fmaf(a, a, ss);
+      }
+    v[i] = ss;
+  }
+  warp_transpose_sum<R>(v, lane);
+  if ((lane & (32 / R - 1)) == 0) red[warp][lane / (32 / R)] = v[0];
+  __syncthreads();
+  // every warp sums the warps' partials in the same order
+  float t = 0.f;
+  if (lane < R) {
+#pragma unroll
+    for (int j = 0; j < kRowsThreads / 32; ++j)
+      if (j < nwarps) t += red[j][lane];
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const float ss = __shfl_sync(0xffffffffu, t, i);
+    if (r0 + i >= r1) continue;
+    // mean then rsqrt, as jnp.mean + lax.rsqrt; 1/sqrtf is correctly
+    // rounded in each step (rsqrtf is an approximation)
+    const float r = 1.0f / sqrtf(ss / hf + eps);
+    T* orow = out + (r0 + i) * H;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      if (!own[k]) continue;
+      float f[VW];
+#pragma unroll
+      for (int u = 0; u < VW; ++u) f[u] = xa[i][k][u] * r * wa[k][u];
+      store_chunk<T, VW>(orow + col[k], f);
+    }
+  }
+}
+
+// The wide body: the same output for rows too wide for the rows body's
+// registers, one block a row.
 template <typename T>
-__global__ void rms_norm_kernel(const T* __restrict__ x,
-                                const T* __restrict__ w,
-                                T* __restrict__ out, int H, float eps,
-                                bool vec) {
+__global__ void rms_fwd_wide_kernel(const T* __restrict__ x,
+                                    const T* __restrict__ w,
+                                    T* __restrict__ out, int H, float eps,
+                                    bool vec) {
   __shared__ float scratch[33];
   const long long row = blockIdx.x;
   const T* xr = x + row * H;
@@ -218,74 +386,8 @@ __global__ void add_rms_norm_kernel(const T* __restrict__ x,
 // bytes in flight, and holds 2 R V more)
 constexpr int kRowsRV = 4;
 constexpr int kRowsRVResid = 2;
-constexpr int kRowsThreads = 512;      // the rows body's widest block
 constexpr int kWideSmem = 232448;      // the wide body's dw row + scratch
 constexpr int kSlices = 16;            // the reduction's row slices
-
-// VW consecutive elements of T: one 16-byte vector, or one element
-template <typename T, int VW>
-struct alignas(VW * sizeof(T)) Chunk {
-  static_assert(VW == 1 || VW * sizeof(T) == 16, "a vector or an element");
-  T e[VW];
-  __device__ __forceinline__ void load(const T* p) {
-    if constexpr (VW == 1) {
-      e[0] = __ldg(p);
-    } else {
-      *reinterpret_cast<uint4*>(e) =
-          __ldg(reinterpret_cast<const uint4*>(p));
-    }
-  }
-  __device__ __forceinline__ float operator[](int u) const {
-    return ptt::to_f(e[u]);
-  }
-};
-
-// rows [base, base + R) of `a` (row stride H) that lie below r1, the
-// vectors k a thread owns, into c
-template <typename T, int VW, int V, int R>
-__device__ __forceinline__ void load_rows(Chunk<T, VW> (&c)[R][V],
-                                          const T* __restrict__ a,
-                                          long long base, long long r1, int H,
-                                          const bool* own, const int* col) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < V; ++k)
-      if (base + i < r1 && own[k]) c[i][k].load(a + (base + i) * H + col[k]);
-}
-
-template <typename T, int VW>
-__device__ __forceinline__ void store_chunk(T* p, const float* f) {
-  if constexpr (VW == 1) {
-    *p = ptt::from_f<T>(f[0]);
-  } else {
-    ptt::store_vec(p, f);
-  }
-}
-
-// Sum each of the M values v[] (M a power of two <= 32) over the warp; on
-// return v[0] of lane l holds the total of value l / (32 / M).  The
-// first log2(M) levels halve the values a lane keeps (each lane sends
-// its partner the half the partner keeps), the rest add all to all.
-template <int M>
-__device__ __forceinline__ void warp_transpose_sum(float* v, int lane) {
-#pragma unroll
-  for (int k = 0; k < 5; ++k) {
-    const int off = 16 >> k;
-    const int h = M >> (k + 1);
-    if (h >= 1) {
-      const bool up = (lane & off) != 0;
-#pragma unroll
-      for (int j = 0; j < h; ++j) {
-        const float send = up ? v[j] : v[j + h];
-        const float keep = up ? v[j + h] : v[j];
-        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, off);
-      }
-    } else {
-      v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
-    }
-  }
-}
 
 // rows [r0, r1) of block `b` of `blocks`: contiguous shares whose sizes
 // differ by at most one
@@ -490,12 +592,6 @@ __global__ void rms_bwd_wide_kernel(const T* __restrict__ x,
     for (int u = 0; u < width; ++u) part[i + u] = dw_acc[i + u];
 }
 
-int block_threads(int H, bool vec, int N) {
-  const int work = vec ? H / N : H;
-  int threads = ((work + 31) / 32) * 32;
-  return threads < 32 ? 32 : (threads > 256 ? 256 : threads);
-}
-
 // dw [H] = sum over b of dw_part[b, :], rounded once to T.  Block: 32
 // columns x kSlices slices; slice s sums partials s, s + kSlices, ... in
 // order, then the slices are summed in order.
@@ -529,12 +625,6 @@ struct BwdPlan {
   int V, threads, R;
   size_t smem;
 };
-
-// threads of the rows body for V vectors (of VW elements) a thread
-int rows_threads(int H, int VW, int V) {
-  const int per = (H / VW + V - 1) / V;
-  return (per + 31) / 32 * 32;
-}
 
 // By shape alone: the rows body with the least V of 1, 2, 4 that keeps
 // the block within kRowsThreads, R = kRowsRV / V (kRowsRVResid / V, at
@@ -597,9 +687,83 @@ bool known_dtype(int dtype) {
   return dtype == ptt::kF32 || dtype == ptt::kBF16 || dtype == ptt::kF16;
 }
 
+// ---- the forward's launch -----------------------------------------------
+
+template <typename T, int VW>
+const void* fwd_rows_body_of(int V, int R) {
+  const void* fn = nullptr;
+  if (V == 1 && R == 1) fn = reinterpret_cast<const void*>(
+      rms_fwd_rows_kernel<T, VW, 1, 1>);
+  if (V == 1 && R == kFwdRV) fn = reinterpret_cast<const void*>(
+      rms_fwd_rows_kernel<T, VW, 1, kFwdRV>);
+  if (V == 2 && R == 1) fn = reinterpret_cast<const void*>(
+      rms_fwd_rows_kernel<T, VW, 2, 1>);
+  if (V == 2 && R == kFwdRV / 2) fn = reinterpret_cast<const void*>(
+      rms_fwd_rows_kernel<T, VW, 2, kFwdRV / 2>);
+  return fn;
+}
+
+// Blocks of a forward rows body an SM at `threads` threads: asked of the
+// occupancy API once per (device, body, block size) and cached, so a
+// launch makes no CUDA query.  `body` numbers the instantiation (dtype,
+// vector path, V).  Negative: a CUDA error.
+int fwd_rows_per_sm(int device, int body, const void* fn, int threads) {
+  constexpr int kBodies = 3 * 2 * 2, kSizes = kRowsThreads / 32 + 1;
+  static std::atomic<int> cached[64][kBodies][kSizes];   // zero: not asked
+  if (device < 0 || device >= 64 || body < 0 || body >= kBodies ||
+      threads <= 0 || threads % 32 || threads > kRowsThreads)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  std::atomic<int>& c = cached[device][body][threads / 32];
+  int n = c.load(std::memory_order_relaxed);
+  if (n > 0) return n;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, threads, 0);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (n <= 0) return -static_cast<int>(cudaErrorInvalidConfiguration);
+  c.store(n, std::memory_order_relaxed);
+  return n;
+}
+
+// What a forward launch runs: the plan, its kernel and the one-row
+// body's blocks an SM that the plan was made from (0 for the wide body).
+struct FwdLaunch {
+  ptt_rms::FwdPlan p;
+  const void* fn;
+  int per_sm;
+};
+
+template <typename T>
+cudaError_t fwd_launch_of(int device, int dtype, int H, bool vec,
+                          long long rows, FwdLaunch* L) {
+  constexpr int N = ptt::Vec<T>::N;
+  int V = 0, threads = 0;
+  if (!ptt_rms::fwd_body(H, sizeof(T), vec, &V, &threads))
+    return cudaErrorInvalidValue;
+  L->per_sm = 0;
+  int sms = 0;
+  if (V != 0) {
+    const void* one = vec ? fwd_rows_body_of<T, N>(V, 1)
+                          : fwd_rows_body_of<T, 1>(V, 1);
+    const int body = (dtype * 2 + (vec ? 1 : 0)) * 2 + V - 1;
+    L->per_sm = fwd_rows_per_sm(device, body, one, threads);
+    if (L->per_sm < 0) return static_cast<cudaError_t>(-L->per_sm);
+    sms = ptt::sm_count(device);
+    if (sms < 0) return static_cast<cudaError_t>(-sms);
+  }
+  ptt_rms::fwd_plan(H, sizeof(T), vec, rows, sms, L->per_sm, &L->p);
+  if (V == 0)
+    L->fn = reinterpret_cast<const void*>(rms_fwd_wide_kernel<T>);
+  else
+    L->fn = vec ? fwd_rows_body_of<T, N>(V, L->p.R)
+                : fwd_rows_body_of<T, 1>(V, L->p.R);
+  return L->fn != nullptr ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// x [rows, H], w [H], out [rows, H], all contiguous, one dtype.
+// x [rows, H], w [H], out [rows, H], all contiguous, one dtype.  The body
+// is the shape's plan (ptt_rms_norm_plan): the 16-byte vector path when
+// H is a multiple of 16 bytes' elements and every pointer is aligned.
 extern "C" int ptt_rms_norm(int device, int dtype, const void* x,
                             const void* w, void* out, long long rows,
                             int H, float eps, void* stream) {
@@ -610,14 +774,46 @@ extern "C" int ptt_rms_norm(int device, int dtype, const void* x,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   PTT_DISPATCH(dtype, T, {
     constexpr int N = ptt::Vec<T>::N;
-    const bool vec = (H % N == 0) && ptt::aligned16(x) &&
-                     ptt::aligned16(w) && ptt::aligned16(out);
-    rms_norm_kernel<T><<<static_cast<unsigned>(rows),
-                         block_threads(H, vec, N), 0, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w),
-        static_cast<T*>(out), H, eps, vec);
+    bool vec = (H % N == 0) && ptt::aligned16(x) && ptt::aligned16(w) &&
+               ptt::aligned16(out);
+    FwdLaunch L;
+    err = fwd_launch_of<T>(device, dtype, H, vec, rows, &L);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(static_cast<unsigned>(L.p.blocks)),
+        block(static_cast<unsigned>(L.p.threads));
+    if (L.p.V == 0) {                  // the wide body's parameters
+      void* args[] = {&x, &w, &out, &H, &eps, &vec};
+      err = cudaLaunchKernel(L.fn, grid, block, args, 0, s);
+    } else {                           // the rows body's
+      void* args[] = {&x, &w, &out, &rows, &H, &eps};
+      err = cudaLaunchKernel(L.fn, grid, block, args, 0, s);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
   });
   return static_cast<int>(cudaGetLastError());
+}
+
+// The forward's plan for (dtype, H, vec) over `rows` rows on `device`, as
+// a launch takes it: plan[0] vectors of a row a thread (0: the wide
+// body), plan[1] threads a block, plan[2] rows a block, plan[3] blocks,
+// plan[4] the one-row body's blocks an SM (0 for the wide body).
+extern "C" int ptt_rms_norm_plan(int device, int dtype, int H, int vec,
+                                 long long rows, int* plan) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!known_dtype(dtype) || plan == nullptr || rows <= 0 ||
+      rows > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FwdLaunch L;
+  PTT_DISPATCH(dtype, T,
+               { err = fwd_launch_of<T>(device, dtype, H, vec != 0, rows, &L); });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  plan[0] = L.p.V;
+  plan[1] = L.p.threads;
+  plan[2] = L.p.R;
+  plan[3] = static_cast<int>(L.p.blocks);
+  plan[4] = L.per_sm;
+  return 0;
 }
 
 // x, y, resid, out [rows, H], w [H], all contiguous, one dtype.

@@ -47,6 +47,7 @@ _F = ctypes.c_float
 # argument types of every C entry point (csrc/*.cu, extern "C")
 _SIGNATURES = {
     "ptt_rms_norm": (_I, _I, _P, _P, _P, _LL, _I, _F, _P),
+    "ptt_rms_norm_plan": (_I, _I, _I, _I, _LL, _P),
     "ptt_add_rms_norm": (_I, _I, _P, _P, _P, _P, _P, _LL, _I, _F, _P),
     "ptt_rms_norm_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
                          _I, _F, _P),
@@ -54,6 +55,7 @@ _SIGNATURES = {
     "ptt_rms_norm_bwd_plan": (_I, _I, _I, _I, _P),
     "ptt_rope": (_I, _I, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _LL, _I,
                  _P),
+    "ptt_rope_plan": (_I, _I, _I, _I, _LL, _LL, _P),
     "ptt_paged_attention": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _F, _I, _P),

@@ -17,9 +17,9 @@ quantized serve, which also profiles one admission chunk) twice in a
 fresh process; the second run is kept, so first-call costs fall on the
 first (which skips the profiled windows: its traces are never read, and
 the kept run's unprofiled serve comes before its own).  Each run reports decode and admission ms a step, tokens/s, TTFT
-p50, and from the traces the device ms a step, paged attention's and
-quant_matmul's among them.  With --train it runs the tree's
-training phase instead (phase 8: `bench.py::bench_llama`'s
+p50, and from the traces the device ms a step, paged attention's,
+quant_matmul's, RMSNorm's and RoPE's among them.  With --train it runs
+the tree's training phase instead (phase 8: `bench.py::bench_llama`'s
 configuration, 6 TrainStep steps from the same seeded weights and batch,
 then one profiled step) once in a fresh process.  With --kernels it
 runs the tree's phase 3 (each kernel against its plain version at the
@@ -98,16 +98,18 @@ for name, cases in cs.phase_kernels(torch, ops, dev).items():
 print("[kernels-ab] " + json.dumps(ms), flush=True)
 """
 
+# device ms a step of these kernel kinds, from the traces
+TRACE_KINDS = ("paged_attention", "quant_matmul", "rms_norm", "rope")
 METRICS = ("decode_ms_per_step", "admit_ms_per_step", "tok_per_s",
            "ttft_ms_p50", "trace_wall_ms_per_step",
-           "trace_device_ms_per_step", "paged_attention_ms_per_step",
-           "quant_matmul_ms_per_step")
+           "trace_device_ms_per_step") + tuple(
+               f"{k}_ms_per_step" for k in TRACE_KINDS)
 # the quantized serves also trace one admission chunk
 ADMIT_METRICS = ("admit_trace_wall_ms_per_step",
-                 "admit_trace_device_ms_per_step",
-                 "admit_paged_attention_ms_per_step",
-                 "admit_quant_matmul_ms_per_step")
-TRAIN_METRICS = ("step_ms_p50", "mfu", "busy_share", "rms_norm_ms")
+                 "admit_trace_device_ms_per_step") + tuple(
+                     f"admit_{k}_ms_per_step" for k in TRACE_KINDS)
+TRAIN_METRICS = ("step_ms_p50", "mfu", "busy_share", "rms_norm_ms",
+                 "rope_ms")
 
 
 def _last(lines, tag):
@@ -134,6 +136,7 @@ def run_train(tree):
                 mfu=train["mfu"], losses=train["losses"],
                 busy_share=trace["busy_share"],
                 rms_norm_ms=trace["by_kind_ms"]["rms_norm"],
+                rope_ms=trace["by_kind_ms"]["rope"],
                 by_kind_ms=trace["by_kind_ms"])
 
 
@@ -151,19 +154,15 @@ def run(tree, weight_only=None, kv_dtype=None):
                admit_ms_per_step=serve["admit_ms_per_step"],
                tok_per_s=serve["tok_per_s"], ttft_ms_p50=serve["ttft_ms_p50"],
                trace_wall_ms_per_step=trace["wall_ms_per_step"],
-               trace_device_ms_per_step=trace["device_ms_per_step"],
-               paged_attention_ms_per_step=trace["by_kind_ms_per_step"]
-               ["paged_attention"],
-               quant_matmul_ms_per_step=trace["by_kind_ms_per_step"]
-               ["quant_matmul"])
+               trace_device_ms_per_step=trace["device_ms_per_step"])
+    rec.update({f"{k}_ms_per_step": trace["by_kind_ms_per_step"][k]
+                for k in TRACE_KINDS})
     if weight_only:
         admit = _last(lines, f"[{tag}-admit-trace] ")
         rec.update(admit_trace_wall_ms_per_step=admit["wall_ms_per_step"],
-                   admit_trace_device_ms_per_step=admit["device_ms_per_step"],
-                   admit_paged_attention_ms_per_step=admit[
-                       "by_kind_ms_per_step"]["paged_attention"],
-                   admit_quant_matmul_ms_per_step=admit[
-                       "by_kind_ms_per_step"]["quant_matmul"])
+                   admit_trace_device_ms_per_step=admit["device_ms_per_step"])
+        rec.update({f"admit_{k}_ms_per_step": admit["by_kind_ms_per_step"][k]
+                    for k in TRACE_KINDS})
     return rec
 
 

@@ -424,3 +424,244 @@ def test_paged_attention_rejects_bad_gqa():
         tops.paged_attention(torch.from_numpy(q), torch.from_numpy(kp),
                              torch.from_numpy(vp), torch.from_numpy(pt),
                              torch.from_numpy(pos), 0)
+
+
+@pytest.fixture(scope="module")
+def norm_rope_plans(tmp_path_factory):
+    """The kernel library's plans of the RMSNorm forward
+    (csrc/rms_norm_plan.cuh) and of RoPE (csrc/rope_plan.cuh), plain C++
+    built by the host's C++ compiler: rms(H, elem, vec, rows, sms,
+    per_sm) -> (V, threads, R, blocks), None where no body takes the
+    shape; rope(elem, d, vec, rows, heads, sms) -> (VW, P, J, U, threads,
+    blocks)."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx, "the plan test needs a C++ compiler"
+    d = tmp_path_factory.mktemp("norm_rope_plans")
+    (d / "shim.cpp").write_text(
+        '#include "rms_norm_plan.cuh"\n'
+        '#include "rope_plan.cuh"\n'
+        'extern "C" int rms(int H, int elem, int vec, long long rows,\n'
+        '                   int sms, int per_sm, long long* out) {\n'
+        '  ptt_rms::FwdPlan p;\n'
+        '  if (!ptt_rms::fwd_plan(H, elem, vec != 0, rows, sms, per_sm, &p))\n'
+        '    return 1;\n'
+        '  out[0] = p.V; out[1] = p.threads; out[2] = p.R; out[3] = p.blocks;\n'
+        '  return 0;\n'
+        '}\n'
+        'extern "C" void rope(int elem, int d, int vec, long long rows,\n'
+        '                     long long heads, int sms, long long* out) {\n'
+        '  const ptt_rotary::Plan p =\n'
+        '      ptt_rotary::plan(elem, d, vec != 0, rows, heads, sms);\n'
+        '  out[0] = p.VW; out[1] = p.P; out[2] = p.J; out[3] = p.U;\n'
+        '  out[4] = p.threads; out[5] = p.blocks;\n'
+        '}\n')
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC",
+                    "-I", str(_build.CSRC), str(d / "shim.cpp"), "-o",
+                    str(d / "plans.so")], check=True)
+    so = ctypes.CDLL(str(d / "plans.so"))
+    so.rms.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong] \
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    so.rope.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2 \
+        + [ctypes.c_int, ctypes.c_void_p]
+    so.rope.restype = None
+
+    def rms(H, elem, vec, rows, sms=H100_SMS, per_sm=3):
+        out = (ctypes.c_longlong * 4)()
+        if so.rms(H, elem, int(vec), rows, sms, per_sm,
+                  ctypes.addressof(out)):
+            return None
+        return tuple(out)
+
+    def rope(elem, d, vec, rows, heads, sms=H100_SMS):
+        out = (ctypes.c_longlong * 6)()
+        so.rope(elem, d, int(vec), rows, heads, sms, ctypes.addressof(out))
+        return tuple(out)
+    return rms, rope
+
+
+@pytest.mark.parametrize("H,elem,vec,rows,sms,per_sm,want", [
+    (4096, 2, True, 8, 132, 3, (1, 512, 1, 8)),         # 7B decode
+    (4096, 2, True, 256, 132, 3, (1, 512, 1, 256)),     # 7B admission
+    (4096, 2, True, 8192, 132, 3, (1, 512, 4, 2048)),   # 7B prefill
+    (2560, 2, True, 8192, 132, 5, (1, 320, 4, 2048)),   # training
+    (2560, 2, True, 660, 132, 5, (1, 320, 1, 660)),     # all resident
+    (2560, 2, True, 661, 132, 5, (1, 320, 4, 166)),     # one past
+    (2560, 2, True, 661, 114, 5, (1, 320, 4, 166)),     # another SM count
+    (2560, 2, True, 570, 114, 5, (1, 320, 1, 570)),
+    (2560, 2, True, 1, 132, 5, (1, 320, 1, 1)),         # one row
+    (2560, 2, True, 8193, 132, 5, (1, 320, 4, 2049)),   # a ragged block
+    (8192, 2, True, 2048, 132, 2, (2, 512, 2, 1024)),
+    (16384, 2, True, 512, 132, 2, (0, 256, 1, 512)),    # the wide body
+    (2560, 4, True, 8192, 132, 3, (2, 320, 2, 4096)),   # fp32
+    (4096, 4, True, 8, 132, 2, (2, 512, 1, 8)),
+    (1003, 2, False, 4096, 132, 2, (2, 512, 2, 2048)),  # the scalar path
+    (1024, 2, False, 1024, 132, 2, (2, 512, 2, 512)),
+    (2048, 2, False, 1024, 132, 2, (0, 256, 1, 1024)),
+    (2560, 2, False, 1024, 132, 2, (0, 256, 1, 1024)),  # unaligned x: wide
+    (32768, 2, True, 256, 132, 2, (0, 256, 1, 256)),    # the wide body
+    (58079, 2, False, 64, 132, 2, (0, 256, 1, 64)),
+    (64, 2, True, 5, 132, 2, (1, 32, 1, 5)),
+    (1003, 2, True, 8, 132, 2, None),                   # no 16-byte path
+    (0, 2, False, 8, 132, 2, None),
+])
+def test_rms_norm_forward_plan(norm_rope_plans, H, elem, vec, rows, sms,
+                               per_sm, want):
+    """The RMSNorm forward's plan (csrc/rms_norm.cu's header tables): the
+    rows body with the least V of 1 or 2 vectors a thread that keeps a
+    block within 512 threads, one batch of R rows a block: R = 1 while
+    the rows fit on the card at once (per_sm blocks an SM), else 4 / V;
+    wider rows a block each on the wide body."""
+    got = norm_rope_plans[0](H, elem, vec, rows, sms, per_sm)
+    assert got == want
+    if got is not None and got[0]:
+        V, threads, R, blocks = got
+        assert threads <= 512 and blocks == -(-rows // R)
+        assert R == (1 if rows <= per_sm * sms else 4 // V)
+        assert threads * V * (16 // elem if vec else 1) >= H
+
+
+@pytest.mark.parametrize("elem,d,vec,rows,heads,sms,want", [
+    (2, 128, True, 8192, 24, 132, (8, 8, 1, 4, 128, 512)),     # training
+    (2, 128, True, 8, 64, 132, (8, 8, 64, 1, 128, 32)),        # 7B decode
+    (2, 128, True, 256, 64, 132, (8, 8, 32, 2, 128, 512)),     # admission
+    (4, 128, True, 4096, 24, 132, (4, 16, 1, 4, 128, 512)),    # fp32
+    (4, 128, True, 8192, 24, 132, (4, 16, 1, 4, 128, 1024)),
+    (4, 128, True, 8, 64, 132, (4, 16, 64, 1, 128, 64)),
+    (2, 64, True, 2048, 24, 132, (8, 4, 8, 2, 128, 512)),      # d = 64
+    (2, 64, True, 8192, 24, 132, (8, 4, 2, 4, 128, 512)),
+    (2, 96, True, 1024, 10, 132, (8, 6, 8, 2, 128, 384)),      # d = 96
+    (2, 96, True, 8192, 24, 114, (8, 6, 1, 4, 128, 384)),      # 114 SMs
+    (2, 100, False, 512, 10, 132, (1, 50, 4, 2, 128, 800)),    # scalar d
+    (2, 100, False, 512, 10, 114, (1, 50, 2, 4, 128, 400)),
+    (2, 128, False, 512, 24, 132, (1, 64, 2, 4, 128, 512)),    # unaligned
+    (2, 128, False, 8192, 24, 132, (1, 64, 1, 4, 128, 2112)),  # capped grid
+    (2, 128, False, 8192, 24, 114, (1, 64, 1, 4, 128, 1824)),
+    (2, 128, True, 8, 65, 132, (8, 8, 64, 2, 128, 32)),        # h + hk = 65
+    (2, 128, True, 1, 70000, 132, (8, 8, 8192, 4, 128, 512)),  # past 65535
+    (2, 128, True, 1, 64, 132, (8, 8, 64, 1, 128, 4)),         # one row
+    (2, 10, False, 3, 4, 132, (1, 5, 4, 1, 128, 1)),           # tiny d
+])
+def test_rope_plan(norm_rope_plans, elem, d, vec, rows, heads, sms, want):
+    """RoPE's plan (csrc/rope.cu's header table): VW pairs a thread (16
+    bytes, or 1 on the scalar path), P = d / 2 / VW threads a head, J
+    the least power of two giving 400 threads an SM (at most the heads),
+    U = 4 heads loaded before any is formed (2 or 1 when a split holds
+    fewer), blocks of 128 capped at 16 an SM."""
+    got = norm_rope_plans[1](elem, d, vec, rows, heads, sms)
+    assert got == want
+    VW, P, J, U, threads, blocks = got
+    assert VW * P * 2 == d and J <= heads and J & (J - 1) == 0
+    assert U == min(4, 2 ** int(np.log2(-(-heads // J))))
+    assert blocks == min(-(-rows * P * J // threads), 16 * sms)
+
+
+class _NormRopeLib:
+    """Stands in for the kernel library's ptt_rms_norm and ptt_rope:
+    checks each call's arguments against `_build._SIGNATURES`, then
+    writes the plain versions' results where the outputs point."""
+
+    CTYPE = {ctypes.c_void_p: int, ctypes.c_int: int, ctypes.c_longlong: int,
+             ctypes.c_float: float}
+    DTYPE = {code: dt for dt, code in _build.DTYPE_CODES.items()}
+
+    def __init__(self):
+        self.calls = []
+
+    def _record(self, name, args):
+        sig = _build._SIGNATURES[name]
+        assert len(args) == len(sig), name
+        for i, (a, c) in enumerate(zip(args, sig)):
+            assert type(a) is self.CTYPE[c], (name, i, a, c)
+        self.calls.append((name, args))
+
+    def ptt_rms_norm(self, *args):
+        self._record("ptt_rms_norm", args)
+        dev, code, x, w, out, rows, H, eps, stream = args
+        dt = self.DTYPE[code]
+        ref = tops.plain_rms_norm(_view(x, (rows, H), dt), _view(w, (H,), dt),
+                                  eps)
+        _view(out, (rows, H), dt).copy_(ref)
+        return 0
+
+    def ptt_rope(self, *args):
+        self._record("ptt_rope", args)
+        dev, code, q, k, cos, sin, oq, ok, rows, h, hk, d, cs_rows, neg, \
+            stream = args
+        dt = self.DTYPE[code]
+        c = _view(cos, (cs_rows, d), torch.float32)
+        s = _view(sin, (cs_rows, d), torch.float32)
+        rep = rows // cs_rows                     # [s, d] tables: batch rows
+        qo, ko = tops.plain_apply_rope(
+            _view(q, (rep, cs_rows, h, d), dt),
+            _view(k, (rep, cs_rows, hk, d), dt), c, -s if neg else s)
+        _view(oq, qo.shape, dt).copy_(qo)
+        _view(ok, ko.shape, dt).copy_(ko)
+        return 0
+
+
+@pytest.mark.parametrize("dt,rows,H,offset", [
+    ("bfloat16", 8, 4096, 0), ("bfloat16", 7, 1003, 0),
+    ("float16", 3, 2560, 1), ("float32", 1, 64, 0)])
+def test_rms_norm_launch_marshalling(monkeypatch, dt, rows, H, offset):
+    """`_launch` as the card runs it, with the kernel library stood in
+    for: one library call a launch, every argument in the C signature's
+    order and type (the library picks the body and grid itself, so no
+    plan or scratch crosses), the output as the kernel wrote it, one
+    launch counted."""
+    rn = tops.kernel_module("rms_norm")
+    lib = _NormRopeLib()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "cuda_device_index", lambda *t: 0)
+    monkeypatch.setattr(_build, "stream_of", lambda d: 5)
+    tdt = getattr(torch, dt)
+    rng = np.random.RandomState(rows + H)
+    x = torch.from_numpy(_rand(rng, rows * H + offset)).to(tdt)[offset:] \
+        .view(rows, H)
+    w = torch.from_numpy(1 + 0.1 * _rand(rng, H)).to(tdt)
+    before = tops.launch_counts()["rms_norm"]
+    out = rn._launch(x, w, 1e-5)
+    ((name, args),) = lib.calls
+    assert name == "ptt_rms_norm"
+    assert args == (0, _build.DTYPE_CODES[tdt], x.data_ptr(), w.data_ptr(),
+                    out.data_ptr(), rows, H, 1e-5, 5)
+    assert torch.equal(out, tops.plain_rms_norm(x, w, 1e-5))
+    assert tops.launch_counts()["rms_norm"] == before + 1
+
+
+@pytest.mark.parametrize("neg_sin", [False, True])
+@pytest.mark.parametrize("dt,b,s,h,hk,d,per_slot", [
+    ("bfloat16", 8, 1, 4, 4, 16, True),      # decode: per-slot tables
+    ("bfloat16", 2, 6, 5, 1, 32, False),     # shared tables
+    ("float32", 1, 3, 3, 2, 10, False),
+    ("float16", 2, 2, 70, 2, 8, True)])
+def test_rope_launch_marshalling(monkeypatch, neg_sin, dt, b, s, h, hk, d,
+                                 per_slot):
+    """`_launch` as the card runs it, with the kernel library stood in
+    for: one library call a launch, every argument in the C signature's
+    order and type (rows b*s, cs_rows s for a shared table and b*s for a
+    per-slot one, neg_sin as an int), the outputs as the kernel wrote
+    them, one launch counted under its direction."""
+    ro = tops.kernel_module("rope")
+    lib = _NormRopeLib()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "cuda_device_index", lambda *t: 0)
+    monkeypatch.setattr(_build, "stream_of", lambda dev: 3)
+    tdt = getattr(torch, dt)
+    rng = np.random.RandomState(b * s + h + d)
+    q = torch.from_numpy(_rand(rng, b, s, h, d)).to(tdt)
+    k = torch.from_numpy(_rand(rng, b, s, hk, d)).to(tdt)
+    shape = (b, s, d) if per_slot else (s, d)
+    cos = torch.from_numpy(_rand(rng, *shape))
+    sin = torch.from_numpy(_rand(rng, *shape))
+    name = "rope_bwd" if neg_sin else "rope"
+    before = tops.launch_counts()[name]
+    oq, ok = ro._launch(q, k, cos, sin, neg_sin=neg_sin)
+    ((called, args),) = lib.calls
+    assert called == "ptt_rope"
+    assert args == (0, _build.DTYPE_CODES[tdt], q.data_ptr(), k.data_ptr(),
+                    cos.data_ptr(), sin.data_ptr(), oq.data_ptr(),
+                    ok.data_ptr(), b * s, h, hk, d, b * s if per_slot else s,
+                    int(neg_sin), 3)
+    want = tops.plain_apply_rope(q, k, cos, -sin if neg_sin else sin)
+    assert torch.equal(oq, want[0]) and torch.equal(ok, want[1])
+    assert tops.launch_counts()[name] == before + 1

@@ -69,10 +69,14 @@ print("RESULT " + json.dumps(res), flush=True)
 """
 
 
-def main(trees):
+def main(trees, run=_RUN, name="quant_matmul_ab"):
+    """Run `run` (a script that prints one `RESULT {case: {"sha": ...,
+    metric: value}}` line) in each tree in turns; print each run, then per
+    case whether every tree's sha is the first tree's and each metric's
+    median by tree."""
     import torch
     if not torch.cuda.is_available():
-        print("quant_matmul_ab: no CUDA device is available", file=sys.stderr)
+        print(f"{name}: no CUDA device is available", file=sys.stderr)
         return 2
     print(subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -80,7 +84,7 @@ def main(trees):
         check=True).stdout.strip(), flush=True)
     runs = []
     for tree in trees:
-        proc = subprocess.run([sys.executable, "-c", _RUN], cwd=tree,
+        proc = subprocess.run([sys.executable, "-c", run], cwd=tree,
                               capture_output=True, text=True, timeout=900)
         if proc.returncode:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
@@ -95,7 +99,7 @@ def main(trees):
         med = {key: {t: statistics.median(r[case][key] for tt, r in runs
                                           if tt == t)
                      for t in dict.fromkeys(trees)}
-               for key in ("ms", "host_us", "host_us_min")}
+               for key in first[case] if key != "sha"}
         print(json.dumps({"case": case, "bit_identical": same, **med}),
               flush=True)
     return 0
