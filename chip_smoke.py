@@ -1894,26 +1894,94 @@ def _adamw_kernel_cases(torch, ops, gen, add):
                 kout, pout, tols, step_size
 
 
-def _ce_kernel_case(torch, ops, gen, add):
-    """The cross-entropy rows kernel against plain_ce_rows at the
-    training chunk [1024, 8192] (fp32 logits, bf16 dlogits), with 40
-    labels at -1 (ignored rows) and one at the last vocab entry."""
-    fce = ops.kernel_module("fused_cross_entropy")
-    C, V = 1024, 8192
-    x = torch.randn((C, V), generator=gen, device=gen.device) * 2.0
-    lbl = torch.randint(0, V, (C,), generator=gen, device=gen.device,
+# Cross-entropy rows of phase 6 beside the training chunk, each launched
+# twice (bit-identical): one row, rows that are not 16-byte aligned (V % 4
+# != 0), Llama-2's vocab with bf16 and fp32 dlog, GPT-2's (fp16 dlog),
+# Llama 3's, Qwen2's 151936 (past the largest cluster: the wide body),
+# every label -1 (scale 1), and logits at an offset pointer.  Labels are
+# random, every 26th -1, row 1's V - 1 and row 2's 0.
+CE_EDGE_CASES = [
+    dict(case="one row", C=1, V=8192),
+    dict(case="unaligned rows", C=1024, V=8191),
+    dict(case="llama-2 vocab", C=1024, V=32000),
+    dict(case="llama-2 vocab fp32", C=1024, V=32000, dtype="float32"),
+    dict(case="gpt-2 vocab fp16", C=256, V=50257, dtype="float16"),
+    dict(case="llama-3 vocab", C=64, V=128256),
+    dict(case="qwen2 vocab (wide)", C=256, V=151936),
+    dict(case="all labels -1", C=1024, V=8192, ignored=True),
+    dict(case="logits at x+1", C=1024, V=8192, offset=1),
+]
+
+# csrc/cross_entropy.cu's plan by case (ptt_ce_rows_plan): body, logits a
+# vector, threads a block, blocks a row
+CE_PLANS = {
+    "train": ("rows", 4, 256, 1),
+    "one row": ("rows", 4, 256, 1),
+    "unaligned rows": ("rows", 1, 256, 1),
+    "llama-2 vocab": ("cluster", 4, 512, 2),
+    "llama-2 vocab fp32": ("cluster", 4, 512, 2),
+    "gpt-2 vocab fp16": ("cluster", 1, 416, 4),
+    "llama-3 vocab": ("cluster", 4, 512, 8),
+    "qwen2 vocab (wide)": ("wide", 1, 256, 1),
+    "all labels -1": ("rows", 4, 256, 1),
+    "logits at x+1": ("rows", 1, 256, 1),
+}
+CE_BODIES = ("rows", "cluster", "wide")
+
+
+def _ce_plan(torch, x, dlog):
+    """The library's plan for a launch on these operands: (body, logits a
+    vector, threads, blocks a row, blocks, blocks an SM)."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    C, V = x.shape
+    plan = (ctypes.c_int * 6)()
+    rc = _build.library().ptt_ce_rows_plan(
+        0, _build.dtype_code(dlog.dtype), x.data_ptr(), dlog.data_ptr(), C,
+        V, ctypes.addressof(plan))
+    check(rc == 0, f"cross_entropy plan [{C}, {V}]: CUDA error {rc}")
+    return (CE_BODIES[plan[0]], *plan[1:])
+
+
+def _ce_case(torch, fce, gen, add, case, C, V, dtype="bfloat16",
+             ignored=False, offset=0):
+    """The cross-entropy rows kernel against plain_ce_rows at one shape
+    (fp32 logits ~ 2 N(0, 1), `dtype` dlogits): launched twice
+    (bit-identical), held per element, timed beside F.cross_entropy's
+    forward + backward, with the plan the library took."""
+    dt = getattr(torch, dtype)
+    dev = gen.device
+    x = (torch.randn((C * V + offset,), generator=gen, device=dev)
+         * 2.0)[offset:].view(C, V)
+    lbl = torch.randint(0, V, (C,), generator=gen, device=dev,
                         dtype=torch.int32)
-    lbl[::26] = -1
-    lbl[1] = V - 1
+    if ignored:
+        lbl.fill_(-1)
+    elif C == 1:
+        lbl[0] = V - 1
+    else:
+        lbl[::26] = -1
+        lbl[1] = V - 1
+        lbl[2] = 0
+    valid = int((lbl >= 0).sum())
     scale = 1.0 / (lbl >= 0).sum().clamp_min(1).float().reshape(1)
-    k_loss, k_d = fce._launch(x, lbl, scale, torch.bfloat16)
-    p_loss, p_d = fce.plain_ce_rows(x, lbl, scale, torch.bfloat16)
+    k_loss, k_d = fce._launch(x, lbl, scale, dt)
+    again = fce._launch(x, lbl, scale, dt)
+    p_loss, p_d = fce.plain_ce_rows(x, lbl, scale, dt)
     torch.cuda.synchronize()
+    check(torch.equal(k_loss, again[0]) and torch.equal(k_d, again[1]),
+          f"cross_entropy {case} [{C}, {V}] {dtype}: two launches on the "
+          f"same inputs differ")
+    check(not k_d[lbl < 0].any() and not k_loss[lbl < 0].any(),
+          f"cross_entropy {case}: a row with label -1 is not zero")
+    del again
     # per element: lse = m + log(s) with s summed in another order, each
     # side <= ~2^-19 relative, so the row loss within scale 2^-18
     # (|lse| + |picked| + 1) plus an ulp of itself; dlog's fp32 value
-    # p - onehot within scale p 2^-18 before its bf16 rounding, then one
-    # rounding that may flip, 2^-7 |plain|
+    # p - onehot within scale p 2^-18 before its rounding to `dtype`, then
+    # one rounding that may flip, 2u |plain| (2^-7 for bf16); fp16's
+    # subnormals start at 2^-14, where dlog's entries (~scale / V) lie, so
+    # a flip there moves one step, 2e (ROUNDING)
     m = x.amax(-1, keepdim=True)
     e = torch.exp(x - m)
     sm = e.sum(-1, keepdim=True)
@@ -1922,8 +1990,15 @@ def _ce_kernel_case(torch, ops, gen, add):
     picked = x.gather(-1, lbl.clamp_min(0).long()[:, None])[:, 0]
     loss_tol = scale * 2.0 ** -18 * (lse.abs() + picked.abs() + 1) \
         + 2.0 ** -22 * p_loss.abs()
-    d_tol = 2.0 ** -7 * p_d.float().abs() + scale * 2.0 ** -18 * p
-    del e, p, m, sm
+    u, eps = ROUNDING[dtype]
+    d_tol = 2.0 * u * p_d.float().abs() + scale * 2.0 ** -18 * p
+    if dtype == "float16":
+        d_tol += 2.0 * eps
+    del e, p, m, sm, lse, picked
+    plan = _ce_plan(torch, x, k_d)
+    want = CE_PLANS[case]
+    check(plan[:4] == want, f"cross_entropy {case} [{C}, {V}]: the library "
+          f"plans {plan[:4]}, CE_PLANS says {want}")
     F = torch.nn.functional
     xr = x.clone().requires_grad_(True)
     lbl64 = lbl.long()
@@ -1932,16 +2007,32 @@ def _ce_kernel_case(torch, ops, gen, add):
         loss = F.cross_entropy(xr, lbl64, ignore_index=-1)
         return torch.autograd.grad(loss, xr)
 
-    add("cross_entropy", [C, V], [k_loss, k_d], [p_loss, p_d],
-        [loss_tol, d_tol],
-        time_ms(torch, lambda: fce._launch(x, lbl, scale, torch.bfloat16)),
-        time_ms(torch, lambda: fce.plain_ce_rows(x, lbl, scale,
-                                                 torch.bfloat16)),
-        time_ms(torch, library),
-        "F.cross_entropy(ignore_index=-1) forward + backward, fp32 grad",
-        C * V * 4 + C * V * 2 + C * 4 * 2 + 4, 6 * C * V,
-        rate=FP32_FLOP_PER_S)
-    del x, xr, k_d, p_d
+    # bytes: the logits of the rows with a label (an ignored row's output
+    # is zero whatever its logits), dlog written, labels, losses, scale
+    c = add("cross_entropy", [C, V], [k_loss, k_d], [p_loss, p_d],
+            [loss_tol, d_tol],
+            time_ms(torch, lambda: fce._launch(x, lbl, scale, dt)),
+            time_ms(torch, lambda: fce.plain_ce_rows(x, lbl, scale, dt)),
+            time_ms(torch, library),
+            "F.cross_entropy(ignore_index=-1) forward + backward, fp32 grad",
+            valid * V * 4 + C * V * k_d.element_size() + C * 4 * 2 + 4,
+            6 * valid * V, rate=FP32_FLOP_PER_S, case=case, dtype=dtype,
+            x_offset=offset, plan=list(plan))
+    log(f"[train-kernels] cross_entropy {case} [{C}, {V}] {dtype}"
+        f"{' x+' + str(offset) if offset else ''}: plan {plan}, "
+        f"{c['ms']:.4f} ms, {c['ms'] / c['library_ms']:.2f}x the library, "
+        f"{c['bound_ms'] / c['ms']:.3f} of the {c['bound_by']} bound, "
+        f"tolerance share {c['tol_share']:.3f}")
+    del x, xr, k_d, p_d, k_loss, p_loss
+
+
+def _ce_kernel_case(torch, ops, gen, add):
+    """The cross-entropy rows kernel at the training chunk [1024, 8192]
+    (bf16 dlogits, the main path's), then at CE_EDGE_CASES."""
+    fce = ops.kernel_module("fused_cross_entropy")
+    for case in [dict(case="train", C=1024, V=8192), *CE_EDGE_CASES]:
+        _ce_case(torch, fce, gen, add, **case)
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------

@@ -109,17 +109,27 @@ __device__ __forceinline__ void store_vec(T* p, const float* f) {
   *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(e);
 }
 
-// VW consecutive elements of T: one 16-byte vector, or one element
+// The unsigned type of one load or store of B bytes (2, 4, 8 or 16)
+template <int B> struct Raw;
+template <> struct Raw<2> { using type = unsigned short; };
+template <> struct Raw<4> { using type = unsigned int; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<16> { using type = uint4; };
+
+// VW consecutive elements of T: one vector of 4, 8 or 16 bytes, or one
+// element
 template <typename T, int VW>
 struct alignas(VW * sizeof(T)) Chunk {
-  static_assert(VW == 1 || VW * sizeof(T) == 16, "a vector or an element");
+  static_assert(VW == 1 || VW * sizeof(T) == 4 || VW * sizeof(T) == 8 ||
+                    VW * sizeof(T) == 16,
+                "a vector of 4, 8 or 16 bytes, or an element");
   T e[VW];
   __device__ __forceinline__ void load(const T* p) {
     if constexpr (VW == 1) {
       e[0] = __ldg(p);
     } else {
-      *reinterpret_cast<uint4*>(e) =
-          __ldg(reinterpret_cast<const uint4*>(p));
+      using R = typename Raw<VW * sizeof(T)>::type;
+      *reinterpret_cast<R*>(e) = __ldg(reinterpret_cast<const R*>(p));
     }
   }
   __device__ __forceinline__ float operator[](int u) const {
@@ -127,12 +137,26 @@ struct alignas(VW * sizeof(T)) Chunk {
   }
 };
 
-template <typename T, int VW>
+// VW values rounded to T and stored as one vector (or one element);
+// STREAM: with st.global.cs (evict first), for an output written once
+// and not read back by the kernel
+template <typename T, int VW, bool STREAM = false>
 __device__ __forceinline__ void store_chunk(T* p, const float* f) {
-  if constexpr (VW == 1) {
+  if constexpr (VW == 1 && !STREAM) {
     *p = from_f<T>(f[0]);
   } else {
-    store_vec(p, f);
+    static_assert(VW == 1 || VW * sizeof(T) == 4 || VW * sizeof(T) == 8 ||
+                      VW * sizeof(T) == 16,
+                  "a vector of 4, 8 or 16 bytes, or an element");
+    using R = typename Raw<VW * sizeof(T)>::type;
+    alignas(VW * sizeof(T)) T e[VW];
+#pragma unroll
+    for (int u = 0; u < VW; ++u) e[u] = from_f<T>(f[u]);
+    if constexpr (STREAM) {
+      __stcs(reinterpret_cast<R*>(p), *reinterpret_cast<const R*>(e));
+    } else {
+      *reinterpret_cast<R*>(p) = *reinterpret_cast<const R*>(e);
+    }
   }
 }
 

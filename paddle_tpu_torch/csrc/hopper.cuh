@@ -128,6 +128,17 @@ __device__ __forceinline__ void cluster_sync() {
           : "memory");
 }
 
+// cluster_sync split in two: arrive (relaxed: it orders no memory) as
+// soon as the block starts, wait before the first store to another
+// block's shared memory, which then exists
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
 // the address in block `rank`'s shared memory of the variable at this
 // block's shared address `addr`
 __device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
@@ -143,6 +154,12 @@ __device__ __forceinline__ void st_cluster_f4(uint32_t addr, float4 v) {
   asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
                    addr),
                "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_cluster_f2(uint32_t addr, float2 v) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
+               "f"(v.x), "f"(v.y)
                : "memory");
 }
 

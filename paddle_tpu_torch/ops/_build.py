@@ -68,6 +68,7 @@ _SIGNATURES = {
     "ptt_fused_adamw": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _LL, _F, _F,
                         _F, _F, _F, _F, _F, _F, _F, _I, _P),
     "ptt_ce_rows": (_I, _I, _P, _P, _P, _P, _P, _LL, _I, _P),
+    "ptt_ce_rows_plan": (_I, _I, _P, _P, _LL, _I, _P),
     "ptt_quant_matmul": (_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _P),
     "ptt_quant_matmul_clusters": (_I, _I, _I, _I),

@@ -18,8 +18,10 @@ Per row chunk c (of `chunk_rows`, 1024 by default):
                                       to W's dtype at the end
 
 `ce_rows` replaces the TPU kernel `_ce_rows_pallas` (:95), body
-`_ce_kernel` (:78), with csrc/cross_entropy.cu; `plain_ce_rows` is its
-plain version, the math of the reference's twin `_ce_rows_jnp` (:116).
+`_ce_kernel` (:78), with csrc/cross_entropy.cu, which picks its body,
+vector width, block and cluster from the shape and the operands'
+alignment (csrc/cross_entropy_plan.cuh); `plain_ce_rows` is its plain
+version, the math of the reference's twin `_ce_rows_jnp` (:116).
 The matmuls stay plain PyTorch, as the reference leaves them to XLA.
 The logits are fp32 products of the operands, as the reference's
 `jnp.dot(..., preferred_element_type=f32)`: on the card

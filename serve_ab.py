@@ -4,7 +4,7 @@ turns, on one card.
 
     python3 serve_ab.py [--weight-only int8|int4] [--kv-dtype int8]
                         TREE [TREE ...]
-    python3 serve_ab.py --train TREE [TREE ...]
+    python3 serve_ab.py --train [--fused-ce] TREE [TREE ...]
     python3 serve_ab.py --kernels TREE [TREE ...]
 
 Each TREE is a checkout of this repository: `.` for this one, or another
@@ -21,7 +21,10 @@ p50, and from the traces the device ms a step, paged attention's,
 quant_matmul's, RMSNorm's and RoPE's among them.  With --train it runs
 the tree's training phase instead (phase 8: `bench.py::bench_llama`'s
 configuration, 6 TrainStep steps from the same seeded weights and batch,
-then one profiled step) once in a fresh process.  With --kernels it
+then one profiled step) once in a fresh process; with --fused-ce also
+phase 9 after it (the same with FLAGS_fused_ce and bf16 AdamW moments,
+phase 8 its reference) and reports phase 9's step, with the
+`cross_entropy` kernels' device ms in its profiled step.  With --kernels it
 runs the tree's phase 3 (each kernel against its plain version at the
 serving shapes, from the same seed) once in a fresh process and reports
 each case's kernel ms, keyed by kernel, case, shape, pool or format,
@@ -73,7 +76,9 @@ torch.backends.cudnn.allow_tf32 = False
 dev = torch.device("cuda", 0)
 torch.cuda.set_device(dev)
 _build.library()
-cs.phase_train(torch, ops, dev)
+train = cs.phase_train(torch, ops, dev)[0]
+if {fused!r}:
+    cs.phase_train(torch, ops, dev, mode="fused", ref=train)
 """
 
 _RUN_KERNELS = """
@@ -110,6 +115,7 @@ ADMIT_METRICS = ("admit_trace_wall_ms_per_step",
                      f"admit_{k}_ms_per_step" for k in TRACE_KINDS)
 TRAIN_METRICS = ("step_ms_p50", "mfu", "busy_share", "rms_norm_ms",
                  "rope_ms")
+FUSED_CE_METRICS = TRAIN_METRICS + ("cross_entropy_ms",)
 
 
 def _last(lines, tag):
@@ -128,16 +134,20 @@ def _output(tree, code):
     return proc.stdout.splitlines()
 
 
-def run_train(tree):
-    lines = _output(tree, _RUN_TRAIN)
-    train = _last(lines, "[train] ")
-    trace = _last(lines, "[train-trace] ")
-    return dict(tree=tree, step_ms_p50=train["step_ms_p50"],
-                mfu=train["mfu"], losses=train["losses"],
-                busy_share=trace["busy_share"],
-                rms_norm_ms=trace["by_kind_ms"]["rms_norm"],
-                rope_ms=trace["by_kind_ms"]["rope"],
-                by_kind_ms=trace["by_kind_ms"])
+def run_train(tree, fused=False):
+    lines = _output(tree, _RUN_TRAIN.format(fused=fused))
+    tag = "train-fused" if fused else "train"
+    train = _last(lines, f"[{tag}] ")
+    trace = _last(lines, f"[{tag}-trace] ")
+    rec = dict(tree=tree, step_ms_p50=train["step_ms_p50"],
+               mfu=train["mfu"], losses=train["losses"],
+               busy_share=trace["busy_share"],
+               rms_norm_ms=trace["by_kind_ms"]["rms_norm"],
+               rope_ms=trace["by_kind_ms"]["rope"],
+               by_kind_ms=trace["by_kind_ms"])
+    if fused:
+        rec["cross_entropy_ms"] = trace["by_kind_ms"]["cross_entropy"]
+    return rec
 
 
 def run_kernels(tree):
@@ -168,11 +178,13 @@ def run(tree, weight_only=None, kv_dtype=None):
 
 def main(argv):
     opts = {"--weight-only": None, "--kv-dtype": None}
-    trees, mode = [], "serve"
+    trees, mode, fused = [], "serve", False
     it = iter(argv)
     for a in it:
         if a in opts:
             opts[a] = next(it)
+        elif a == "--fused-ce":
+            fused = True
         elif a in ("--train", "--kernels"):
             mode = a[2:]
         else:
@@ -193,7 +205,7 @@ def main(argv):
         text=True, timeout=60).stdout.strip(), flush=True)
     runs = []
     for tree in trees:
-        runs.append(run_train(tree) if mode == "train" else
+        runs.append(run_train(tree, fused) if mode == "train" else
                     run_kernels(tree) if mode == "kernels" else
                     run(tree, opts["--weight-only"], opts["--kv-dtype"]))
         print(json.dumps(runs[-1]), flush=True)
@@ -201,7 +213,8 @@ def main(argv):
         metrics = [k for k in runs[0] if k != "tree"
                    and all(k in r for r in runs)]
     else:
-        metrics = TRAIN_METRICS if mode == "train" else METRICS + (
+        metrics = (FUSED_CE_METRICS if fused else TRAIN_METRICS) \
+            if mode == "train" else METRICS + (
             ADMIT_METRICS if opts["--weight-only"] else ())
     by_tree = {t: {m: [r[m] for r in runs if r["tree"] == t]
                    for m in metrics} for t in dict.fromkeys(trees)}

@@ -4,7 +4,11 @@ CPU.
   * `plain_ce_rows` (the math of the Hopper kernel, what a CPU tensor
     takes) against the reference's Pallas `_ce_rows_pallas` in
     interpret mode and its jnp twin `_ce_rows_jnp`, with some labels
-    negative, fp32 and bf16 gradients;
+    negative or all of them, V = 300, 257 and 1, fp32 and bf16
+    gradients;
+  * the kernel's plan (csrc/cross_entropy_plan.cuh, built by the host's
+    C++ compiler) held to its table, and `_launch`'s arguments to the
+    C signature through a stand-in library;
   * `ops.fused_linear_cross_entropy` (loss, dh, dW, db) against the
     reference's `fused_linear_cross_entropy` with `use_pallas=True`
     (interpret) and `use_pallas=False`: ragged rows with `ignore_index`
@@ -35,6 +39,10 @@ Tolerances, with their reasons:
   * rows: loss rows rtol 1e-5, fp32 dlog atol 1e-7 (entries <= scale),
     bf16 dlog one ulp (2^-7 relative) plus 1e-7.
 """
+import ctypes
+import shutil
+import subprocess
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -53,6 +61,7 @@ from paddle_tpu_torch import ops
 from paddle_tpu_torch.framework import flags as tflags
 from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny_config,
                                      load_numpy_state_dict)
+from paddle_tpu_torch.ops import _build
 
 fce = ops.kernel_module("fused_cross_entropy")
 
@@ -73,14 +82,29 @@ def _grad_close(port, ref, dt, name):
     np.testing.assert_allclose(p, r, atol=tol, rtol=0, err_msg=name)
 
 
-@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-def test_plain_ce_rows_matches_pallas_and_twin(dt):
+# (dt, C, V, labels): "some" random labels with rows 0, 5 and 17 at -1,
+# "all" every label -1 (scale 1); V = 257 and 1 are not multiples of a
+# vector, V = 1 puts every label on the only column
+ROWS_CASES = [
+    pytest.param("float32", 24, 300, "some", id="float32"),
+    pytest.param("bfloat16", 24, 300, "some", id="bfloat16"),
+    pytest.param("float32", 24, 257, "some", id="float32-V257"),
+    pytest.param("bfloat16", 24, 257, "some", id="bfloat16-V257"),
+    pytest.param("float32", 24, 1, "some", id="float32-V1"),
+    pytest.param("bfloat16", 24, 1, "some", id="bfloat16-V1"),
+    pytest.param("float32", 24, 300, "all", id="float32-all-ignored"),
+    pytest.param("bfloat16", 24, 257, "all", id="bfloat16-all-ignored"),
+]
+
+
+@pytest.mark.parametrize("dt,C,V,labels", ROWS_CASES)
+def test_plain_ce_rows_matches_pallas_and_twin(dt, C, V, labels):
     rng = np.random.RandomState(0)
-    C, V = 24, 300
     x = (rng.randn(C, V) * 3).astype(np.float32)
     lbl = rng.randint(0, V, C).astype(np.int32)
-    lbl[[0, 5, 17]] = -1
-    scale = np.float32(1.0 / (lbl >= 0).sum())
+    ignored = [0, 5, 17] if labels == "some" else list(range(C))
+    lbl[ignored] = -1
+    scale = np.float32(1.0 / max((lbl >= 0).sum(), 1))
     got = ops.plain_ce_rows(torch.from_numpy(x), torch.from_numpy(lbl),
                             torch.tensor(scale), TDT[dt])
     jx, jl, js = jnp.asarray(x), jnp.asarray(lbl), jnp.asarray(scale)
@@ -92,8 +116,159 @@ def test_plain_ce_rows_matches_pallas_and_twin(dt):
             _np(got[1]), _np(ref[1]), atol=1e-7,
             rtol=2.0 ** -7 if dt == "bfloat16" else 1e-6)
     assert got[1].dtype == TDT[dt]
-    assert not _np(got[1])[[0, 5, 17]].any()
-    assert not _np(got[0])[[0, 5, 17]].any()
+    assert not _np(got[1])[ignored].any()
+    assert not _np(got[0])[ignored].any()
+
+
+@pytest.fixture(scope="module")
+def ce_plan(tmp_path_factory):
+    """The kernel library's plan of the cross-entropy rows
+    (csrc/cross_entropy_plan.cuh), plain C++ built by the host's C++
+    compiler: plan(V, rows, align) -> (body, VW, threads, cluster, slice,
+    blocks), None where no body takes the shape."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx, "the plan test needs a C++ compiler"
+    d = tmp_path_factory.mktemp("ce_plan")
+    (d / "shim.cpp").write_text(
+        '#include "cross_entropy_plan.cuh"\n'
+        'extern "C" int plan(long long V, long long rows, int align,\n'
+        '                    long long* out) {\n'
+        '  ptt_ce::Plan p;\n'
+        '  if (!ptt_ce::plan(V, rows, align, &p)) return 1;\n'
+        '  out[0] = p.body; out[1] = p.VW; out[2] = p.threads;\n'
+        '  out[3] = p.cluster; out[4] = p.slice; out[5] = p.blocks;\n'
+        '  return 0;\n'
+        '}\n')
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I",
+                    str(_build.CSRC), str(d / "shim.cpp"), "-o",
+                    str(d / "plan.so")], check=True)
+    so = ctypes.CDLL(str(d / "plan.so"))
+    so.plan.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_void_p]
+
+    def plan(V, rows, align):
+        out = (ctypes.c_longlong * 6)()
+        if so.plan(V, rows, align, ctypes.addressof(out)):
+            return None
+        return tuple(out)
+    return plan
+
+
+ROWS, CLUSTER, WIDE = 0, 1, 2
+
+
+@pytest.mark.parametrize("V,rows,align,want", [
+    (8192, 1024, 4, (ROWS, 4, 256, 1, 2048, 1024)),         # training
+    (8192, 1, 4, (ROWS, 4, 256, 1, 2048, 1)),               # one row
+    (8191, 1024, 4, (ROWS, 1, 256, 1, 8191, 1024)),         # V % 4 != 0
+    (8192, 1024, 1, (ROWS, 1, 256, 1, 8192, 1024)),         # logits x + 1
+    (8192, 1024, 2, (ROWS, 2, 256, 1, 4096, 1024)),         # 8-byte aligned
+    (8194, 64, 4, (ROWS, 2, 288, 1, 4097, 64)),             # V % 4 == 2
+    (32000, 1024, 4, (CLUSTER, 4, 512, 2, 4000, 2048)),     # Llama-2
+    (32000, 1024, 2, (CLUSTER, 2, 512, 2, 8000, 2048)),
+    (50257, 256, 4, (CLUSTER, 1, 416, 4, 12565, 1024)),     # GPT-2
+    (128256, 64, 4, (CLUSTER, 4, 512, 8, 4008, 512)),       # Llama 3
+    (151936, 256, 4, (WIDE, 1, 256, 1, 0, 256)),            # Qwen2: wide
+    (16384, 10, 4, (ROWS, 4, 512, 1, 4096, 10)),            # widest rows
+    (16388, 10, 4, (CLUSTER, 4, 288, 2, 2049, 20)),         # one past
+    (131072, 3, 4, (CLUSTER, 4, 512, 8, 4096, 24)),         # widest cluster
+    (131072, 3, 1, (CLUSTER, 1, 512, 8, 16384, 24)),
+    (131076, 3, 4, (WIDE, 1, 256, 1, 0, 3)),                # one past
+    (257, 24, 4, (ROWS, 1, 32, 1, 257, 24)),                # one warp
+    (1, 5, 4, (ROWS, 1, 32, 1, 1, 5)),
+    (4096, 2 ** 31 - 1, 4, (ROWS, 4, 128, 1, 1024, 2 ** 31 - 1)),
+    (0, 8, 4, None),
+    (8192, 0, 4, None),
+])
+def test_ce_rows_plan(ce_plan, V, rows, align, want):
+    """The cross-entropy rows kernel's plan (csrc/cross_entropy.cu's
+    header table): the widest vector (4, 2 or 1 logits) that V and the
+    addresses allow; 32 logits a thread in registers, so a block of <= 512
+    threads holds 16384; a wider row splits into the fewest slices of
+    that size, up to a cluster of 8; past that the wide body, a 256-thread
+    block a row.  The card's SM count takes no part: a block is a row or a
+    slice of one, and the grid rows x cluster blocks."""
+    got = ce_plan(V, rows, align)
+    assert got == want
+    if got is None or got[0] == WIDE:
+        return
+    body, VW, threads, cluster, slice_, blocks = got
+    vecs = V // VW
+    assert threads % 32 == 0 and threads <= 512 and cluster <= 8
+    assert threads * (32 // VW) >= slice_           # a slice in registers
+    assert (threads - 32) * (32 // VW) < slice_     # the fewest warps
+    assert cluster * slice_ >= vecs > (cluster - 1) * slice_   # none empty
+    assert blocks == rows * cluster and (body == CLUSTER) == (cluster > 1)
+
+
+def _view(ptr, shape, dtype):
+    """A tensor over the CPU memory at address `ptr`."""
+    n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+    buf = (ctypes.c_char * n).from_address(ptr)
+    return torch.frombuffer(buf, dtype=dtype).view(shape)
+
+
+class _CELib:
+    """Stands in for the kernel library's ptt_ce_rows: checks each call's
+    arguments against `_build._SIGNATURES`, then writes the plain
+    version's results where the outputs point."""
+
+    CTYPE = {ctypes.c_void_p: int, ctypes.c_int: int, ctypes.c_longlong: int,
+             ctypes.c_float: float}
+    DTYPE = {code: dt for dt, code in _build.DTYPE_CODES.items()}
+
+    def __init__(self):
+        self.calls = []
+
+    def ptt_ce_rows(self, *args):
+        sig = _build._SIGNATURES["ptt_ce_rows"]
+        assert len(args) == len(sig)
+        for i, (a, c) in enumerate(zip(args, sig)):
+            assert type(a) is self.CTYPE[c], (i, a, c)
+        self.calls.append(args)
+        dev, code, x, lbl, scale, loss, dlog, rows, V, stream = args
+        dt = self.DTYPE[code]
+        ref = fce.plain_ce_rows(_view(x, (rows, V), torch.float32),
+                                _view(lbl, (rows,), torch.int32),
+                                _view(scale, (1,), torch.float32), dt)
+        _view(loss, (rows,), torch.float32).copy_(ref[0])
+        _view(dlog, (rows, V), dt).copy_(ref[1])
+        return 0
+
+
+@pytest.mark.parametrize("dt,C,V,offset", [
+    ("bfloat16", 8, 64, 0), ("float16", 5, 257, 0),    # V % 4 != 0
+    ("float32", 3, 300, 1),                              # logits x + 1
+    ("bfloat16", 4, 1, 2)])
+def test_ce_rows_launch_marshalling(monkeypatch, dt, C, V, offset):
+    """`_launch` as the card runs it, with the kernel library stood in
+    for: one library call a launch, every argument in the C signature's
+    order and type (the library picks body, vector width and cluster
+    from the shape and the addresses, so no plan crosses; an offset
+    logits pointer goes as it is), the outputs as the kernel wrote them,
+    one launch counted."""
+    lib = _CELib()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "cuda_device_index", lambda *t: 0)
+    monkeypatch.setattr(_build, "stream_of", lambda d: 7)
+    rng = np.random.RandomState(C + V)
+    x = torch.from_numpy((rng.randn(C * V + offset) * 3)
+                         .astype(np.float32))[offset:].view(C, V)
+    lbl = torch.from_numpy(rng.randint(0, V, C).astype(np.int32))
+    lbl[0] = -1
+    scale = torch.tensor([1.0 / max(int((lbl >= 0).sum()), 1)])
+    before = ops.launch_counts()["cross_entropy"]
+    loss, dlog = fce._launch(x, lbl, scale, getattr(torch, dt))
+    (args,) = lib.calls
+    assert args == (0, _build.DTYPE_CODES[dlog.dtype], x.data_ptr(),
+                    lbl.data_ptr(), scale.data_ptr(), loss.data_ptr(),
+                    dlog.data_ptr(), C, V, 7)
+    assert x.data_ptr() - x.untyped_storage().data_ptr() == 4 * offset
+    assert loss.shape == (C,) and loss.dtype == torch.float32
+    assert dlog.shape == (C, V) and dlog.dtype == getattr(torch, dt)
+    want = fce.plain_ce_rows(x, lbl, scale, dlog.dtype)
+    assert torch.equal(loss, want[0]) and torch.equal(dlog, want[1])
+    assert ops.launch_counts()["cross_entropy"] == before + 1
 
 
 CASES = {

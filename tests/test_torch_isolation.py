@@ -68,7 +68,8 @@ def test_sources_never_import_the_reference():
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "serve_ab.py",
                                     "tools/quant_matmul_ab.py",
-                                    "tools/norm_rope_ab.py"])
+                                    "tools/norm_rope_ab.py",
+                                    "tools/ce_rows_ab.py"])
 def test_card_scripts_stand_alone_and_refuse_without_cuda(script, tmp_path):
     """The card scripts import nothing of the reference, and with no CUDA
     device (as here) exit 2 and print no result."""

@@ -69,11 +69,20 @@ print("RESULT " + json.dumps(res), flush=True)
 """
 
 
+def _median(values):
+    """The median of numbers; of anything else (a plan), the first."""
+    if not values:                   # a tree that does not report it
+        return None
+    if all(isinstance(v, (int, float)) for v in values):
+        return statistics.median(values)
+    return values[0]
+
+
 def main(trees, run=_RUN, name="quant_matmul_ab"):
     """Run `run` (a script that prints one `RESULT {case: {"sha": ...,
     metric: value}}` line) in each tree in turns; print each run, then per
     case whether every tree's sha is the first tree's and each metric's
-    median by tree."""
+    median by tree (a value that is not a number: the tree's first)."""
     import torch
     if not torch.cuda.is_available():
         print(f"{name}: no CUDA device is available", file=sys.stderr)
@@ -96,8 +105,8 @@ def main(trees, run=_RUN, name="quant_matmul_ab"):
     first = runs[0][1]
     for case in first:
         same = all(r[case]["sha"] == first[case]["sha"] for _, r in runs)
-        med = {key: {t: statistics.median(r[case][key] for tt, r in runs
-                                          if tt == t)
+        med = {key: {t: _median([r[case][key] for tt, r in runs
+                                 if tt == t and key in r[case]])
                      for t in dict.fromkeys(trees)}
                for key in first[case] if key != "sha"}
         print(json.dumps({"case": case, "bit_identical": same, **med}),
