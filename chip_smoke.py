@@ -126,6 +126,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              admission step among them
   11. serve, int4  the same with weight_only_dtype="int4" (group 64) and
              the bf16 pool.
+  12. train, ZeRO-3  `init_parallel_env()` (a one-rank NCCL group), then
+             bench.py's call: ShardedTrainStep(model, opt,
+             build_mesh(devices=[dev]), sharding_stage=3,
+             rematerialize=False) on phase 8's configuration, seed,
+             weights and batch for 6 steps: each loss within phase 9's
+             tolerance (2^-7 max|logit|) of phase 8's, the launches equal
+             to phase 8's (129 fused AdamW launches a step, one a
+             parameter shard), the parameter all-gathers, gradient
+             reduce-scatters and all-reduces a step equal to the
+             structure's; step ms and peak memory beside phase 8's, and a
+             profiled step.  Then 2 layers, 2 steps with FLAGS_fused_ce
+             and FLAGS_bf16_adamw_moments through the same stage 3
+             (cross_entropy and the ef AdamW variant on the sharded path)
+             against TrainStep on the same weights; then
+             destroy_process_group().
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1275,7 +1290,8 @@ def admit_trace(torch, model, dev, kv_dtype=None):
 # trace kinds: the first kind whose pattern a kernel's name holds;
 # PyTorch's own kernels split by what they are (an int8 pool's page write
 # is index/gather/scatter, elementwise and reduce kernels)
-TRACE_KINDS = {"flash_attention": ("flash_",),
+TRACE_KINDS = {"nccl": ("nccl",), "memcpy": ("Memcpy",),
+               "flash_attention": ("flash_",),
                "paged_attention": ("paged_attention",),
                "quant_matmul": ("quant_matmul",),
                "rms_norm": ("rms_norm", "rms_fwd", "rms_bwd", "rms_dw"),
@@ -2236,6 +2252,207 @@ def phase_train(torch, ops, dev, mode="bench", ref=None, steps=6):
     return train, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: bench_llama through ShardedTrainStep (ZeRO-3) over NCCL
+# ---------------------------------------------------------------------------
+def phase_sharded(torch, ops, dev, ref, ref_counts, steps=6):
+    """bench.py's call, `ShardedTrainStep(model, opt, build_mesh(devices=
+    [dev]), sharding_stage=3, rematerialize=False)`, over a one-rank NCCL
+    group: phase 8's configuration, seed, weights and batch, each step's
+    loss held to phase 8's, its launches to phase 8's, its gathers and
+    reduce-scatters to the structure's; then 2 layers, 2 steps with
+    FLAGS_fused_ce and FLAGS_bf16_adamw_moments through the same one-rank
+    stage 3, held against TrainStep on the same weights (each
+    parameter's change within lr / 100 of TrainStep's), and a planted
+    control whose sharded update never runs, which that check must
+    catch.  Returns (phase 12's record, the launches of both sharded
+    runs: the main path's)."""
+    import gc
+    from paddle_tpu_torch.distributed import build_mesh, init_parallel_env
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaForCausalLM, numpy_state_dict
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ShardedTrainStep, sharded_trainer
+    env = init_parallel_env()
+    check(env.world_size == 1 and torch.distributed.get_backend() == "nccl",
+          f"phase 12 wants one NCCL rank, got {env.world_size} "
+          f"{torch.distributed.get_backend()}")
+    mesh = build_mesh(devices=[dev])
+    fam = ops.kernel_module("fused_adamw")
+
+    def sharded(model, lr):
+        return ShardedTrainStep(
+            model, AdamW(lr, parameters=model.parameters(), weight_decay=0.1,
+                         moment_dtype="bfloat16"),
+            mesh, sharding_stage=3, rematerialize=False)
+
+    # 12: phase 8's run through stage 3.  Phases 3-11 can leave objects
+    # in reference cycles; collected here, the collector's passes over
+    # them stay out of the timed steps, which at stage 3 are partly
+    # host-bound (tools/zero3_host.py)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    R = TRAIN_RECOMPUTE
+    cfg = train_config(recompute=True, recompute_layers=R,
+                       recompute_granularity="selective")
+    model = LlamaForCausalLM(cfg, device=dev, seed=2025)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_tensors = sum(1 for _ in model.parameters())
+    L = cfg.num_hidden_layers
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    rng = np.random.RandomState(2025)
+    batch = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s))
+                             .astype(np.int32)).to(dev)
+    step = sharded(model, 3e-4)
+    ops.reset_launch_counts()
+    fam.variant_launches.update(dict.fromkeys(fam.variant_launches, 0))
+    losses, walls = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(batch, batch).item())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    counts = ops.launch_counts()
+    variants = dict(fam.variant_launches)
+    comm = dict(step.comm_counts)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    step_ms = statistics.median(walls[1:])
+    trace = train_trace(torch, step, batch, step_ms)
+    # the parameters ZeRO-3 shards: 7 matrices a layer, the embedding and
+    # the lm head, moved a unit at a time (a layer's, the root's); each
+    # layer's are gathered for its forward and again for its backward,
+    # the root's once a step; the vectors' gradients are all-reduced
+    matrices = 7 * L + 2
+    want_comm = dict(all_gather=2 * L + 1, reduce_scatter=L + 1,
+                     all_reduce=n_tensors - matrices)
+    check(comm == want_comm, f"phase 12 collectives a step {comm} != "
+          f"predicted {want_comm}")
+    check(counts == ref_counts, f"phase 12 launch counts {counts} != phase "
+          f"8's {ref_counts}")
+    check(variants["fp32"] == steps * n_tensors
+          and sum(variants.values()) == steps * n_tensors,
+          f"phase 12 fused_adamw variants {variants}: want "
+          f"{steps * n_tensors} fp32 launches, one a parameter shard a step")
+    tol = 2.0 ** -7 * ref["logit_max"]
+    diffs = [abs(a - r) for a, r in zip(losses, ref["losses"])]
+    check(all(np.isfinite(losses)) and max(diffs) <= tol,
+          f"phase 12 losses {losses} differ from phase 8's {ref['losses']} "
+          f"by up to {max(diffs)} > {tol}")
+    tok_s = b * s / (step_ms / 1e3)
+    zero3 = dict(
+        layers=L, recompute_layers=R, params=n_params, tensors=n_tensors,
+        batch=b, seq=s, steps=steps, losses=losses, loss_diff_max=max(diffs),
+        loss_tol=tol, step_ms=walls, step_ms_p50=step_ms, tokens_per_s=tok_s,
+        mfu=6 * n_params * tok_s / BF16_FLOP_PER_S, peak_mem_gb=peak,
+        collectives_per_step=comm, launches=counts, adamw_variants=variants,
+        phase8=dict(step_ms_p50=ref["step_ms_p50"], mfu=ref["mfu"],
+                    peak_mem_gb=ref["peak_mem_gb"]),
+        vs_phase8=dict(step_ms=step_ms / ref["step_ms_p50"],
+                       peak_mem_gb=peak - ref["peak_mem_gb"]))
+    log("[train-zero3] " + json.dumps(zero3))
+    log("[train-zero3-trace] " + json.dumps(trace))
+    step.close()
+    del step, model, batch
+    torch.cuda.empty_cache()
+
+    # 12b: 2 layers, fused CE + bf16 moments with ef, against TrainStep.
+    # One rank runs the same ops on the same values as TrainStep (its
+    # gathers and reduce-scatters are copies), so the losses may differ
+    # by a few roundings at most and each parameter's change by far less
+    # than one update (Adam moves an entry by ~lr a step): lr / 100.
+    cfg2 = train_config(num_hidden_layers=2)
+    lr = 3e-4
+    rng = np.random.RandomState(12)
+    batches = [torch.from_numpy(rng.randint(0, cfg2.vocab_size, (b, s))
+                                .astype(np.int32)).to(dev) for _ in range(2)]
+
+    def opt_of(model):
+        return AdamW(lr, parameters=model.parameters(), weight_decay=0.1,
+                     moment_dtype="bfloat16")
+
+    def train2(make_step):
+        """(losses, parameters after, launches, variants, collectives)
+        of 2 steps from the seed-12 weights."""
+        model = LlamaForCausalLM(cfg2, device=dev, seed=12)
+        step = make_step(model)
+        ops.reset_launch_counts()
+        fam.variant_launches.update(dict.fromkeys(fam.variant_launches, 0))
+        losses = [step(bt, bt).item() for bt in batches]
+        out = (losses, numpy_state_dict(model), ops.launch_counts(),
+               dict(fam.variant_launches),
+               dict(getattr(step, "comm_counts", {})))
+        if hasattr(step, "close"):
+            step.close()
+        del step, model
+        torch.cuda.empty_cache()
+        return out
+
+    set_flags({"FLAGS_fused_ce": True, "FLAGS_bf16_adamw_moments": True})
+    real_update = sharded_trainer.apply_shard_updates
+    try:
+        before = numpy_state_dict(LlamaForCausalLM(cfg2, device=dev,
+                                                   seed=12))
+        (fused_losses, got, fused_counts, fused_variants,
+         fused_comm) = train2(lambda m: sharded(m, lr))
+        plain_losses, want, *_ = train2(
+            lambda m: TrainStep(m, m.compute_loss, opt_of(m)))
+        # the planted control: the sharded update never runs
+        sharded_trainer.apply_shard_updates = lambda *a, **k: None
+        control_losses, control, *_ = train2(lambda m: sharded(m, lr))
+    finally:
+        sharded_trainer.apply_shard_updates = real_update
+        set_flags({"FLAGS_fused_ce": False,
+                   "FLAGS_bf16_adamw_moments": False})
+
+    def change_diff(params):
+        """The largest gap between a parameter's change over the 2 steps
+        and TrainStep's change of it."""
+        return max(float(np.abs((params[n] - before[n])
+                                - (want[n] - before[n])).max())
+                   for n in want)
+
+    n2 = 2 + 7 * 2 + 5
+    chunks = -(-b * (s - 1) // 1024)
+    check(fused_counts["cross_entropy"] == 2 * chunks,
+          f"phase 12b cross_entropy launches {fused_counts['cross_entropy']}"
+          f" != {2 * chunks}")
+    check(fused_variants["fp32_ef"] == 2 * n2
+          and sum(fused_variants.values()) == 2 * n2,
+          f"phase 12b fused_adamw variants {fused_variants}: want "
+          f"{2 * n2} fp32_ef")
+    check(fused_comm["all_gather"] > 0 and fused_comm["reduce_scatter"] > 0,
+          f"phase 12b collectives {fused_comm}")
+    loss_tol = 4 * 2.0 ** -23 * max(abs(x) for x in plain_losses)
+    param_tol = lr / 100
+    moved = max(float(np.abs(want[n] - before[n]).max()) for n in want)
+    ldiff = max(abs(a - c) for a, c in zip(fused_losses, plain_losses))
+    pdiff, control_pdiff = change_diff(got), change_diff(control)
+    control_ldiff = max(abs(a - c)
+                        for a, c in zip(control_losses, plain_losses))
+    check(moved >= lr, f"phase 12b: TrainStep moved no parameter by lr "
+          f"({moved})")
+    check(ldiff <= loss_tol and pdiff <= param_tol,
+          f"phase 12b sharded vs TrainStep: losses {fused_losses} vs "
+          f"{plain_losses} (tol {loss_tol}), parameters' changes up to "
+          f"{pdiff} apart (tol {param_tol})")
+    check(control_pdiff > param_tol,
+          f"phase 12b's planted control (no sharded update) passed the "
+          f"parameter check: {control_pdiff} <= {param_tol}")
+    log("[train-zero3-fused] " + json.dumps(dict(
+        layers=2, steps=2, losses=fused_losses, train_step_losses=plain_losses,
+        loss_diff_max=ldiff, loss_tol=loss_tol, change_diff_max=pdiff,
+        change_tol=param_tol, train_step_change_max=moved,
+        control_change_diff_max=control_pdiff,
+        control_loss_diff_max=control_ldiff,
+        collectives_per_step=fused_comm, launches=fused_counts,
+        adamw_variants=fused_variants)))
+    torch.distributed.destroy_process_group()
+    total = {n: counts[n] + fused_counts[n] for n in counts}
+    return zero3, total
+
+
 def train_trace(torch, step, batch, wall_ms):
     """Where a train step's time goes: one more step under torch.profiler
     (after the counted steps), device time by kernel and by kind; the
@@ -2246,9 +2463,16 @@ def train_trace(torch, step, batch, wall_ms):
                              ProfilerActivity.CUDA]) as prof:
         step(batch, batch)
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    # the device ranges c10d annotates its collectives with
+    # ("nccl:_all_gather_base") span the copies or kernels that do the
+    # work: they are listed on their own and not added to the busy time
+    rows, annotations = [], []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            (annotations if getattr(e, "is_user_annotation", False)
+             else rows).append((e.key, e.self_device_time_total / 1e3,
+                                e.count))
+    rows.sort(key=lambda r: -r[1])
     # kernel events seen per kind: a trace that dropped events (the
     # counts fall short of the launch counters' structure) is not read
     by_kind, events = _by_kind(rows)
@@ -2256,7 +2480,9 @@ def train_trace(torch, step, batch, wall_ms):
     return dict(wall_ms=wall_ms, device_ms=busy if rows else None,
                 busy_share=busy / wall_ms if rows else None,
                 by_kind_ms=by_kind, events=events,
-                top=[(k[:60], round(ms, 3), n) for k, ms, n in rows[:20]])
+                top=[(k[:60], round(ms, 3), n) for k, ms, n in rows[:20]],
+                annotations=[(k[:60], round(ms, 3), n)
+                             for k, ms, n in annotations])
 
 
 def main():
@@ -2301,7 +2527,7 @@ def main():
                 + (" | " + nxt.strip() if "spill" in line and "Used" in nxt
                    else ""))
 
-    # 3-9, each phase's wall time logged
+    # 3-12, each phase's wall time logged
     walls = {}
 
     def timed(name, fn, *a, **k):
@@ -2334,10 +2560,14 @@ def main():
     _, int4_counts, int4_var = timed(
         "11 serve (int4 g64 weights, bf16 KV)", phase_serve, torch, ops,
         dev, weight_only="int4", tag="serve-int4")
-    # launches on the main path: the serves (5, 10, 11) and both
-    # trainings (8, 9)
+    _, zero3_counts = timed("12 train (ShardedTrainStep stage 3, NCCL)",
+                            phase_sharded, torch, ops, dev, train,
+                            train_counts)
+    # launches on the main path: the serves (5, 10, 11) and the trainings
+    # (8, 9, 12)
     counts = {n: counts[n] + train_counts[n] + fused_counts[n]
-              + int8_counts[n] + int4_counts[n] for n in counts}
+              + int8_counts[n] + int4_counts[n] + zero3_counts[n]
+              for n in counts}
     variants = {n: {v: variants[n][v] + int8_var[n][v] + int4_var[n][v]
                     for v in variants[n]} for n in variants}
     check(all(counts[n] > 0 for n in ops.KERNELS),

@@ -15,14 +15,17 @@ finds counterparts by path:
                decode surface, weight and optimizer-state carry-over
   optimizer/   Adam / AdamW: the fused AdamW kernel or the pure rule,
                in place
-  distributed/ fleet.recompute (activation checkpointing)
+  distributed/ the process-group environment, the mesh
+               (DeviceMesh), fleet's DistributedStrategy and recompute
   jit/         TrainStep
+  parallel/    ShardedTrainStep: ZeRO stages 0-3 over torch.distributed
   inference/   paged KV allocator, greedy generate, ContinuousBatcher
 
 Device rule: entry points (model constructors, ContinuousBatcher,
 generate) run on `cuda` unless the caller passes `device="cpu"`; with no
 CUDA device and no explicit CPU request they raise.  A TrainStep runs
-where its model lives.
+where its model lives; `distributed.init_parallel_env` starts NCCL on
+the rank's card, and gloo only for `device="cpu"`.
 
 Importing this package builds nothing and touches no GPU: kernels are
 compiled on first launch (ops/_build.py).
@@ -30,4 +33,4 @@ compiled on first launch (ops/_build.py).
 from __future__ import annotations
 
 __all__ = ["framework", "ops", "nn", "models", "optimizer", "jit",
-           "inference", "distributed"]
+           "inference", "distributed", "parallel"]

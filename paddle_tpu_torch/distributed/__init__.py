@@ -1,4 +1,11 @@
-"""paddle_tpu_torch.distributed — the pieces the ported slices use."""
+"""paddle_tpu_torch.distributed — the pieces the ported slices use:
+the process-group environment, the mesh, fleet's DistributedStrategy
+and recompute."""
 from . import fleet
+from .env import (ParallelEnv, get_rank, get_world_size, init_parallel_env,
+                  is_initialized)
+from .topology import AXIS_ORDER, Mesh, batch_partition_spec, build_mesh
 
-__all__ = ["fleet"]
+__all__ = ["fleet", "init_parallel_env", "is_initialized", "get_rank",
+           "get_world_size", "ParallelEnv", "AXIS_ORDER", "Mesh",
+           "build_mesh", "batch_partition_spec"]

@@ -1,3 +1,4 @@
+from .base import DistributedStrategy
 from .recompute import recompute
 
-__all__ = ["recompute"]
+__all__ = ["DistributedStrategy", "recompute"]

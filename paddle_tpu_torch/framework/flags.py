@@ -6,9 +6,12 @@ defaults, the same `FLAGS_<name>` environment pickup at import, and
 the three paged-KV flags (reference :179-190), the weight-only
 quantization flags `weight_only_dtype` and `weight_only_group_size`
 (:216-226), the training fusions
-`fused_ce` and `bf16_adamw_moments` (:150-161) and the fused-AdamW
+`fused_ce` and `bf16_adamw_moments` (:150-161), the fused-AdamW
 dispatch flags `use_fused_adamw` and `multi_tensor_adamw`
-(`paddle_tpu/optimizer/jit_update.py:42-56`).  The reference's
+(`paddle_tpu/optimizer/jit_update.py:42-56`), and the flags
+`ShardedTrainStep` reads at construction: `skip_nonfinite_steps`
+(:109), `comm_overlap` (:120), `comm_bucket_mb` (:127) and
+`grad_comm_dtype` (:141).  The reference's
 `fused_adamw_interpret` (Pallas interpret mode off the TPU) has no
 counterpart: a CPU tensor already takes the kernel's plain version.
 """
@@ -116,3 +119,22 @@ define_flag("multi_tensor_adamw", False,
             "fused AdamW call (reference: fused_adam_kernel.cu "
             "multi-tensor); large params keep per-param calls.  Default "
             "OFF, as in the reference")
+
+# read by parallel/sharded_trainer.py at construction, with the
+# reference's names and defaults; the nonfinite-step guard and the
+# comm-overlap engine (whose buckets and wire dtype the last two shape)
+# are not ported yet, so the trainer raises when skip_nonfinite_steps or
+# comm_overlap is on, or comm_bucket_mb or grad_comm_dtype differs from
+# its default
+define_flag("skip_nonfinite_steps", False,
+            "train steps whose loss or grad-norm is nonfinite leave "
+            "params and optimizer state untouched (skip-step)")
+define_flag("comm_overlap", False,
+            "bucket gradient collectives and issue them with the "
+            "backward (Paddle sharding_configs comm_overlap)")
+define_flag("comm_bucket_mb", 32.0,
+            "size target in MB for one fused gradient bucket "
+            "(Paddle's DistributedStrategy.fuse_grad_size_in_MB)")
+define_flag("grad_comm_dtype", "auto",
+            "wire dtype for fused gradient collectives: 'auto' keeps "
+            "each grad's own width")

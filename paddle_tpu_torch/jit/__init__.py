@@ -15,7 +15,10 @@ automatic name where it has one (`p.name or n` there).
 The reference compiles the whole step into one program with donated
 buffers; here the step is eager and the parameters and optimizer state
 are updated in place.  CUDA-graph capture, `run_steps` and the
-checkpoint/telemetry hooks are not ported yet.
+checkpoint/telemetry hooks are not ported yet.  `parallel.
+ShardedTrainStep` is this step with its batch, loss, gradient and update
+parts (`_to_device`, `_loss`, `_forward_backward`, `_grads`,
+`_apply_updates`) extended for ZeRO.
 """
 from __future__ import annotations
 
@@ -61,14 +64,28 @@ class TrainStep:
         opt._step_count += 1
         lr, step_i = opt.get_lr(), opt._step_count
         upd, hp = type(opt)._update, opt._hyper()
-        loss = self.loss_fn(self.model(*inputs), label)
-        loss.backward()
-        # a parameter the loss does not reach has a zero gradient, as in
-        # the reference's value_and_grad
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self._params]
-        apply_updates(upd, self._params, grads, self._opt_states, lr,
-                      self._wds, step_i, hp)
+        loss = self._forward_backward(inputs, label)
+        self._apply_updates(upd, self._grads(), lr, step_i, hp)
         for p in self._params:
             p.grad = None
+        return loss
+
+    # the parts of a step that parallel.ShardedTrainStep extends
+    def _loss(self, inputs, label):
+        return self.loss_fn(self.model(*inputs), label)
+
+    def _forward_backward(self, inputs, label):
+        """The loss of this batch (detached), its gradients in `.grad`."""
+        loss = self._loss(inputs, label)
+        loss.backward()
         return loss.detach()
+
+    def _grads(self):
+        # a parameter the loss does not reach has a zero gradient, as in
+        # the reference's value_and_grad
+        return [p.grad if p.grad is not None else torch.zeros_like(p)
+                for p in self._params]
+
+    def _apply_updates(self, upd, grads, lr, step_i, hp):
+        apply_updates(upd, self._params, grads, self._opt_states, lr,
+                      self._wds, step_i, hp)

@@ -13,7 +13,9 @@ Quantize the port model at the same configuration first; its packed
 parameters then take the reference's int8 arrays as they are (an int8
 parameter takes only an int8 array, and an int8 array loads only into
 one), and
-`numpy_state_dict` hands int8 parameters out as int8.
+`numpy_state_dict` hands int8 parameters out as int8.  It also gathers
+the shards of a model that a ZeRO-3 `parallel.ShardedTrainStep` trains,
+so it returns whole tensors on every rank.
 
 `load_numpy_opt_state(step, {name: {key: ndarray}}, step_count)` does
 the same for a train step's optimizer state: the reference
@@ -70,9 +72,16 @@ def load_numpy_state_dict(model: torch.nn.Module,
 def numpy_state_dict(model: torch.nn.Module):
     """{name: ndarray} of every parameter — float32, or int8 for a
     weight-only packed parameter — the inverse view, for round-trip
-    checks and carrying a model to another device."""
-    return {n: (p.detach() if p.dtype == torch.int8 else p.detach().float())
-            .cpu().numpy() for n, p in model.named_parameters()}
+    checks and carrying a model to another device.  A parameter that a
+    ZeRO-3 `parallel.ShardedTrainStep` holds as shards (its
+    `zero_shard`) is gathered whole: then every rank of the group calls
+    this together."""
+    out = {}
+    for n, p in model.named_parameters():
+        shard = getattr(p, "zero_shard", None)
+        t = p.detach() if shard is None else shard.gathered_copy()
+        out[n] = (t if t.dtype == torch.int8 else t.float()).cpu().numpy()
+    return out
 
 
 def load_numpy_opt_state(step, states: Mapping[str, Mapping[str, object]],

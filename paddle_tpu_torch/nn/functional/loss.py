@@ -6,7 +6,8 @@ Counterpart of `paddle_tpu/nn/functional/loss.py::fused_cross_entropy`
   * weight None (:134-152): `input` IS the logits.  fp32 `logsumexp −
     picked logit`, with the picked logit taken from the compute-dtype
     logits and only then upcast, and a masked mean over labels that are
-    non-negative and differ from `ignore_index`;
+    non-negative and differ from `ignore_index` (under a data-parallel
+    trainer, over the group's labels: framework/data_parallel.py);
   * weight given (:154-173): `input` is the HIDDEN states and the
     lm-head matmul folds into the chunked fused linear + cross-entropy
     (`ops.fused_linear_cross_entropy`, the cross-entropy rows a Hopper
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ...framework.data_parallel import mean_denominator
 from ...ops.fused_cross_entropy import fused_linear_cross_entropy
 
 __all__ = ["fused_cross_entropy"]
@@ -50,4 +52,4 @@ def fused_cross_entropy(input, label, weight=None, bias=None, *,
     picked = torch.gather(x, -1, tgt.clamp_min(0)[..., None])[..., 0]
     lse = torch.logsumexp(x.float(), dim=-1)
     mask = (tgt >= 0).float()
-    return ((lse - picked.float()) * mask).sum() / mask.sum().clamp_min(1.0)
+    return ((lse - picked.float()) * mask).sum() / mean_denominator(mask.sum())

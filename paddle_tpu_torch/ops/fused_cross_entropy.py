@@ -27,7 +27,8 @@ The logits are fp32 products of the operands, as the reference's
 `jnp.dot(..., preferred_element_type=f32)`: on the card
 `torch.mm(..., out_dtype=torch.float32)`, on the CPU fp32 operands.
 `scale` = 1 / max(#valid labels, 1) over the padded labels, a tensor on
-the device: nothing synchronises with the host.
+the device: nothing synchronises with the host (under a data-parallel
+trainer the count is the group's: framework/data_parallel.py).
 
 The online `vocab_chunk` variant folds a running (max, denominator,
 picked logit) over vocab slices and never holds a [chunk, V] buffer; it
@@ -42,6 +43,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build
+from ..framework.data_parallel import mean_denominator
 
 __all__ = ["fused_linear_cross_entropy", "ce_rows", "plain_ce_rows",
            "launches"]
@@ -244,7 +246,7 @@ def _pad_rows(hidden, labels, chunk):
 
 def _scale_of(labels):
     valid = (labels >= 0).float()
-    return 1.0 / torch.clamp_min(valid.sum(), 1.0).reshape(1)
+    return 1.0 / mean_denominator(valid.sum()).reshape(1)
 
 
 class _FLCE(torch.autograd.Function):

@@ -1,6 +1,6 @@
-from .jit_update import (apply_update, apply_updates, maybe_master_state,
-                         wants_master)
+from .jit_update import (apply_shard_updates, apply_update, apply_updates,
+                         maybe_master_state, wants_master)
 from .optimizer import Adam, AdamW, Optimizer
 
 __all__ = ["Optimizer", "Adam", "AdamW", "apply_update", "apply_updates",
-           "maybe_master_state", "wants_master"]
+           "apply_shard_updates", "maybe_master_state", "wants_master"]

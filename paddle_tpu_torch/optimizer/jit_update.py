@@ -1,8 +1,8 @@
 """The per-parameter updates of a train step.
 
 Counterpart of `paddle_tpu/optimizer/jit_update.py`: `wants_master` /
-`maybe_master_state` (:63-75), `_fusable` (:82-93), the single-device
-branches of `apply_update` (:96-156) and `apply_updates` (:162-236).
+`maybe_master_state` (:63-75), `_fusable` (:82-93), `apply_update`
+(:96-156) with its sharded branch, and `apply_updates` (:162-236).
 
   - Adam/AdamW hyper-parameters with `FLAGS_use_fused_adamw` on and the
     fused state layout — {moment1, moment2[, ef]} with an fp32 param,
@@ -18,9 +18,13 @@ branches of `apply_update` (:96-156) and `apply_updates` (:162-236).
     reference does.
 
 Everything is updated IN PLACE: parameters and state tensors are
-overwritten, nothing is returned.  The reference's shard_map branch
-(`fused_ok=False` with a mesh) belongs to `ShardedTrainStep` and is not
-ported yet.
+overwritten, nothing is returned.
+
+The reference's shard_map branch (`fused_ok=False` with a mesh: each
+chip runs the fused kernel on its local shard) is `apply_shard_updates`:
+under `parallel.ShardedTrainStep` at ZeRO stage >= 1 each rank holds a
+flat shard of a parameter's state (and at stage 3 of the parameter), and
+updates that shard alone, one fused launch per parameter shard.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ from ..framework.flags import get_flag
 from ..ops.fused_adamw import fused_adamw
 
 __all__ = ["wants_master", "maybe_master_state", "apply_update",
-           "apply_updates"]
+           "apply_updates", "apply_shard_updates"]
 
 _HALF = (torch.bfloat16, torch.float16)
 
@@ -143,3 +147,20 @@ def apply_updates(upd, params, grads, states, lr, wds, step_i, hp,
     for i in range(len(params)):
         if i not in grouped:
             one(i)
+
+
+@torch.no_grad()
+def apply_shard_updates(upd, shards, grads, states, lr, wds, step_i, hp):
+    """The sharded branch, in place: `shards[i]` is this rank's flat
+    shard of parameter i (a view into the replicated parameter at
+    stages 1-2, the parameter's only copy at stage 3), `grads[i]` and
+    every tensor of `states[i]` the same slice of its gradient and
+    state.  One update (one fused AdamW launch) per shard; no
+    multi-tensor grouping, which stays with replicated parameters."""
+    for i, (p, g, s) in enumerate(zip(shards, grads, states)):
+        if any(t.shape != p.shape or not t.is_contiguous()
+               for t in (p, g, *s.values())):
+            raise ValueError(
+                f"shard {i}: parameter, gradient and state shards must "
+                f"be contiguous tensors of one shape {tuple(p.shape)}")
+        apply_update(upd, p, g, s, lr, wds[i], step_i, hp)

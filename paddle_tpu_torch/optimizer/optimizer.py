@@ -68,11 +68,17 @@ class Optimizer:
 
     def _decay_of(self, name: str, p) -> float:
         """The weight decay of parameter `p` (structural name `name`), 0
-        where apply_decay_param_fun excludes it.  The function sees the
-        reference's automatic name where `p` has one (nn/layer.py), else
-        `name`: the reference's `p.name or n`."""
+        where apply_decay_param_fun leaves it out or an optimizer's
+        `_exclude_fn` (the reference's exclude_from_weight_decay_fn)
+        excludes it.  Both see the reference's automatic name where `p`
+        has one (nn/layer.py), else `name`: the reference's
+        `p.name or n`."""
+        key = auto_name(p) or name
         fn = getattr(self, "_apply_decay_param_fun", None)
-        if fn is not None and not fn(auto_name(p) or name):
+        if fn is not None and not fn(key):
+            return 0.0
+        ex = getattr(self, "_exclude_fn", None)
+        if ex is not None and ex(key):
             return 0.0
         return self._wd_value(p)
 

@@ -3,14 +3,15 @@
   * importing the package and every submodule pulls in neither `jax`
     nor `paddle_tpu` (checked in a fresh interpreter);
   * the device rule: with no CUDA device, an entry point given no
-    `device=` raises instead of running on the CPU;
+    `device=` raises instead of running on the CPU (init_parallel_env
+    and build_mesh too);
   * the kernel wrappers have no fallback: a tensor that is not on the
     CPU goes to the kernel or raises, and no `try` in ops/ can swallow
-    a launch or build error;
+    a launch or build error, nor one in the trainer a collective;
   * a build with no nvcc raises with the reason;
-  * the card scripts (chip_smoke.py, serve_ab.py, tools/*_ab.py) import
-    nothing of the reference and, with no CUDA device, exit 2 without a
-    result.
+  * the card scripts (chip_smoke.py, serve_ab.py, tools/*_ab.py,
+    tools/zero_ranks.py, tools/zero3_host.py) import nothing of the
+    reference and, with no CUDA device, exit 2 without a result.
 """
 import ast
 import os
@@ -27,7 +28,10 @@ from paddle_tpu_torch import ops
 from paddle_tpu_torch.framework import flags as tflags
 from paddle_tpu_torch.inference import ContinuousBatcher, generate
 from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+from paddle_tpu_torch.distributed import build_mesh, init_parallel_env
 from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.parallel import ShardedTrainStep
 
 PKG = pathlib.Path(paddle_tpu_torch.__file__).resolve().parent
 
@@ -69,7 +73,9 @@ def test_sources_never_import_the_reference():
 @pytest.mark.parametrize("script", ["chip_smoke.py", "serve_ab.py",
                                     "tools/quant_matmul_ab.py",
                                     "tools/norm_rope_ab.py",
-                                    "tools/ce_rows_ab.py"])
+                                    "tools/ce_rows_ab.py",
+                                    "tools/zero_ranks.py",
+                                    "tools/zero3_host.py"])
 def test_card_scripts_stand_alone_and_refuse_without_cuda(script, tmp_path):
     """The card scripts import nothing of the reference, and with no CUDA
     device (as here) exit 2 and print no result."""
@@ -97,6 +103,20 @@ def test_constructor_without_device_raises(no_cuda):
         LlamaForCausalLM(llama_tiny_config())
     with pytest.raises(RuntimeError, match="no CUDA"):
         LlamaForCausalLM(llama_tiny_config(), device="cuda")
+
+
+def test_parallel_env_and_mesh_without_device_raise(no_cuda):
+    """No process group and no mesh on the CPU unless it is asked for;
+    a ShardedTrainStep runs where its model and mesh are."""
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_parallel_env()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_mesh()
+    assert not torch.distributed.is_initialized()
+    m = LlamaForCausalLM(llama_tiny_config(), device="cpu")
+    mesh = build_mesh(devices=[torch.device("cpu")])
+    assert ShardedTrainStep(m, AdamW(1e-3, parameters=m.parameters()),
+                            mesh).device.type == "cpu"
 
 
 def test_batcher_and_generate_without_device_raise(no_cuda):
@@ -182,13 +202,28 @@ def test_training_flags_match_reference_defaults():
     assert tflags.get_flag("fused_adamw_interpret") is None
 
 
+def _tries(f):
+    return [n.lineno for n in ast.walk(ast.parse(f.read_text()))
+            if isinstance(n, (ast.Try, ast.ExceptHandler))
+            or type(n).__name__ == "TryStar"]
+
+
 def test_ops_have_no_try():
     for f in sorted((PKG / "ops").glob("*.py")):
-        tree = ast.parse(f.read_text())
-        tries = [n.lineno for n in ast.walk(tree)
-                 if isinstance(n, (ast.Try, ast.ExceptHandler))
-                 or type(n).__name__ == "TryStar"]
+        tries = _tries(f)
         assert not tries, f"{f.name}: try/except at lines {tries}"
+
+
+def test_trainer_and_distributed_have_no_try():
+    """No `try` can swallow a failed collective or a kernel launch in
+    the trainer, its update or the distributed environment."""
+    files = sorted((PKG / "parallel").glob("*.py")) \
+        + sorted((PKG / "distributed").rglob("*.py")) \
+        + [PKG / "optimizer" / "jit_update.py",
+           PKG / "framework" / "data_parallel.py"]
+    for f in files:
+        tries = _tries(f)
+        assert not tries, f"{f}: try/except at lines {tries}"
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
