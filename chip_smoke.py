@@ -10,7 +10,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   1. card    print `nvidia-smi --query-gpu=name,power.limit` for card 0
   2. build   compile the hand-written kernels (csrc/*.cu, nvcc sm_90a)
   3. kernels each kernel against its plain PyTorch version on the card,
-             at the serving path's shapes in bf16: every element against
+             at the serving path's shapes in bf16 (query widths 1 of a
+             decode step, 5 of a speculative verify pass, 32 of an
+             admission step): every element against
              its own tolerance from the kernel's rounding model (the
              share of it used and median tol / median |plain| logged),
              the kernel's, the plain version's and a library
@@ -141,6 +143,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              (cross_entropy and the ef AdamW variant on the sharded path)
              against TrainStep on the same weights; then
              destroy_process_group().
+  13. serve, request plane  Llama-2-7B in bf16 (phase 5's seed, geometry
+             and requests): 13a speculative decoding as bench.py runs it
+             (spec_tokens 4, an early-exit draft of 8 layers): every
+             request completes, every emitted token is re-scored by one
+             teacher-forced forward of the target (its logit within the
+             bf16 rounding tolerance of its row's maximum), the launches
+             equal the structure's (a verify step 2L+1 rms_norm, L rope,
+             L paged_attention with 5 query rows; a draft step and the
+             draft's prefill in each admission step their norms and
+             ropes); accept rate, accepted per step, tokens/s and decode
+             ms per step beside phase 5's, and a profiled window of
+             speculative decode steps.  13b the target as its own
+             draft on 4 requests: accept rate > 0.5, accepted per step >
+             1, each emitted token equal to its verify pass's target
+             (every pass spied on the device) and re-scored as 13a's,
+             each rejected draft's gap from its row's maximum logged in
+             units of that tolerance.  13c ten requests of mixed SLO classes under
+             FLAGS_serve_queue_depth=4 (the shed set the queue rule
+             predicts), one poisoned slot (FLAGS_fault_injection
+             "serve.decode:times=1": evicted, requeued, completed), every
+             id once in run()'s results, submitted == completed + shed,
+             the on_token bursts joined equal to each output.  13d
+             generate: every top_k=1 token a maximum of its own step's
+             logits (its history replayed step by step; greedy's replay
+             equal to greedy), a seed repeats its sample, ids in the
+             vocabulary.  All four count toward the kernels line.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -354,6 +382,7 @@ ROPE_EDGE_CASES = [
 ROPE_PLANS = {
     ("bfloat16", 128, True, 8192, 24): (8, 8, 1, 4, 128, 512),
     ("bfloat16", 128, True, 8, 64): (8, 8, 64, 1, 128, 32),
+    ("bfloat16", 128, True, 40, 64): (8, 8, 64, 1, 128, 160),
     ("bfloat16", 128, True, 256, 64): (8, 8, 32, 2, 128, 512),
     ("float16", 128, True, 256, 64): (8, 8, 32, 2, 128, 512),
     ("float32", 128, True, 4096, 24): (4, 16, 1, 4, 128, 512),
@@ -487,9 +516,13 @@ def phase_kernels(torch, ops, dev):
                "quant_matmul": []}
     settle(torch, dev)
 
+    # serve widths: a decode step (1), a speculative verify pass (K + 1)
+    # and an admission step (32)
+    widths = (1, SPEC_TOKENS + 1, 32)
+
     # -- rms_norm on [8*C, 4096], then RMS_FWD_EDGE_CASES --------------------
     rn = ops.kernel_module("rms_norm")
-    for C in (1, 32):
+    for C in widths:
         results["rms_norm"].append(_rms_fwd_case(
             torch, ops, rn, randn, case="serve", rows=B * C, H=H))
     for case in RMS_FWD_EDGE_CASES:
@@ -501,7 +534,7 @@ def phase_kernels(torch, ops, dev):
     ro = ops.kernel_module("rope")
     pos = torch.tensor([0, 9, 100, 333, 517, 700, 990, 1023],
                        dtype=torch.int32, device=dev)
-    for C in (1, 32):
+    for C in widths:
         q, kk = randn(B, C, heads, hd), randn(B, C, heads, hd)
         positions = pos[:, None] + torch.arange(C, dtype=torch.int32,
                                                 device=dev)[None]
@@ -515,7 +548,7 @@ def phase_kernels(torch, ops, dev):
     kpool, vpool = randn(P, ps, L, n_kv, hd), randn(P, ps, L, n_kv, hd)
     perm = torch.randperm(P - 1, generator=g, device=dev)[: B * P_slot] + 1
     pt = perm.reshape(B, P_slot).to(torch.int32).contiguous()
-    for C in (1, 32):
+    for C in widths:
         for group in (1, 4):
             q = randn(B, C, n_kv * group, hd)
             results["paged_attention"].append(_paged_case(
@@ -523,7 +556,7 @@ def phase_kernels(torch, ops, dev):
     # the int8 pools: the bf16 pools quantized per page
     k8, ks = _quantize_pool(torch, kpool)
     v8, vs = _quantize_pool(torch, vpool)
-    for C in (1, 32):
+    for C in widths:
         for group in (1, 4):
             q = randn(B, C, n_kv * group, hd)
             results["paged_attention"].append(_paged_case(
@@ -1102,6 +1135,21 @@ def _parity_case(torch, dev, fmt, kv):
 # ---------------------------------------------------------------------------
 # phase 5: serve Llama-2-7B at full width and depth
 # ---------------------------------------------------------------------------
+def serve_requests(V):
+    """Phase 5's 16 requests (seed 2024): 8 of 64-512 random tokens and 8
+    of a shared 256-token system prefix plus 32-256 of their own, in the
+    order they are submitted; 64 new tokens each."""
+    rng = np.random.RandomState(2024)
+    system = rng.randint(1, V, 256).astype(np.int32)
+    shared = [np.concatenate([system, rng.randint(1, V, L).astype(np.int32)])
+              for L in np.linspace(32, 256, 8).astype(int)]   # 288..512
+    plain = [rng.randint(1, V, L).astype(np.int32)
+             for L in np.linspace(64, 512, 8).astype(int)]    # 64..512
+    # the first wave holds one shared-prefix request, so the seven that
+    # follow find its prefix pages complete and resident
+    return [shared[0]] + plain[:7] + shared[1:] + plain[7:], 64
+
+
 def phase_serve(torch, ops, dev, weight_only=None, kv_dtype=None,
                 tag="serve"):
     """Serve Llama-2-7B through ContinuousBatcher: phase 5 (bf16, as
@@ -1125,17 +1173,8 @@ def phase_serve(torch, ops, dev, weight_only=None, kv_dtype=None,
                             device=dev)
     torch.cuda.synchronize()
     quantize_s = time.perf_counter() - t0
-    rng = np.random.RandomState(2024)
     V = cfg.vocab_size
-    system = rng.randint(1, V, 256).astype(np.int32)
-    shared = [np.concatenate([system, rng.randint(1, V, L).astype(np.int32)])
-              for L in np.linspace(32, 256, 8).astype(int)]   # 288..512
-    plain = [rng.randint(1, V, L).astype(np.int32)
-             for L in np.linspace(64, 512, 8).astype(int)]    # 64..512
-    # the first wave holds one shared-prefix request, so the seven that
-    # follow find its prefix pages complete and resident
-    prompts = [shared[0]] + plain[:7] + shared[1:] + plain[7:]
-    new = 64
+    prompts, new = serve_requests(V)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     rids = [bat.submit(p, new) for p in prompts]
@@ -1200,17 +1239,17 @@ def phase_serve(torch, ops, dev, weight_only=None, kv_dtype=None,
     return serve, counts, variants
 
 
-def decode_trace(torch, model, dev, chunk, kv_dtype=None):
+def decode_trace(torch, model, dev, chunk, kv_dtype=None, **batcher_kw):
     """Where a decode step's time goes: 8 slots in pure decode, two
     chunks timed without a profiler (wall), then two more under
     torch.profiler (device time per kernel name and kind).  busy_share
     is the profiled device time over the unprofiled wall of as many
-    steps."""
+    steps.  batcher_kw: the speculation arguments of phase 13."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference import ContinuousBatcher
     bat = ContinuousBatcher(model, max_batch_size=8, max_len=1024,
                             prefill_chunk=32, chunk=chunk, kv_dtype=kv_dtype,
-                            device=dev)
+                            device=dev, **batcher_kw)
     rng = np.random.RandomState(99)
     for _ in range(8):
         bat.submit(rng.randint(1, model.config.vocab_size, 100), 200)
@@ -2485,6 +2524,441 @@ def train_trace(torch, step, batch, wall_ms):
                              for k, ms, n in annotations])
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the serving request plane — speculative decoding, SLO classes,
+# shedding, fault recovery, streaming, and sampling in generate
+# ---------------------------------------------------------------------------
+SPEC_TOKENS, SPEC_DRAFT_LAYERS = 4, 8      # bench.py:1106-1107, L // 4
+
+
+def _spec_want(counts, A, S, L, n, K):
+    """Launches of a speculative serve: A admission steps, each the
+    target's (2L+1 norms, L ropes, L paged attentions) and the draft's
+    prefill over n layers (2n+1 norms, n ropes); S draft/verify steps,
+    each K+1 draft steps of n layers and one verify pass of the target."""
+    want = dict.fromkeys(counts, 0)
+    want.update({"rms_norm": A * (2 * L + 1 + 2 * n + 1)
+                 + S * (2 * L + 1 + (K + 1) * (2 * n + 1)),
+                 "rope": A * (L + n) + S * (L + (K + 1) * n),
+                 "paged_attention": (A + S) * L})
+    return want
+
+
+def _spec_serve(torch, ops, dev, model, prompts, new, tag, verify=None,
+                **kw):
+    """Serve `prompts` speculatively (kw: the draft) from zeroed launch
+    counters; check completion and the launches the structure predicts.
+    With a list `verify`, every verify pass appends what it saw (see
+    _verify_spy).  Returns (the batcher, the outputs, the record, the
+    launches)."""
+    from paddle_tpu_torch.inference import ContinuousBatcher
+    cfg = model.config
+    torch.cuda.reset_peak_memory_stats(dev)
+    bat = ContinuousBatcher(model, max_batch_size=8, max_len=1024,
+                            prefill_chunk=32, chunk=16,
+                            spec_tokens=SPEC_TOKENS, device=dev, **kw)
+    if verify is not None:
+        _verify_spy(torch, bat, verify)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [bat.submit(p, new) for p in prompts]
+    out = bat.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    pa_var = dict(ops.kernel_module("paged_attention").variant_launches)
+    st = bat.stats()
+    V, L = cfg.vocab_size, cfg.num_hidden_layers
+    check(len(out) == len(prompts) and all(len(out[r]) == new for r in rids),
+          f"{tag}: not every request completed with {new} tokens")
+    check(all(((out[r] >= 0) & (out[r] < V)).all() for r in rids),
+          f"{tag}: token ids outside the vocabulary")
+    A = st["admit_chunks"] * bat.admit_steps
+    S = st["decode_chunks"] * bat.chunk
+    check(st["forward_steps"] == A + S, f"{tag}: forward steps")
+    n = getattr(bat._draft, "num_layers", L)
+    want = _spec_want(counts, A, S, L, n, SPEC_TOKENS)
+    check(counts == want, f"{tag} launch counts {counts} != predicted {want}")
+    check(pa_var == {"fp": (A + S) * L, "int8": 0},
+          f"{tag} paged_attention variants {pa_var}")
+    acc = st["spec_accepted_per_step"]
+    rec = dict(requests=len(prompts), new_tokens_each=new,
+               spec_tokens=SPEC_TOKENS, draft_layers=n,
+               accept_rate=st["spec_accept_rate"],
+               accepted_per_step_mean=acc["mean"],
+               accepted_per_step_p50=acc["p50"],
+               drafted=st["spec_drafted"], accepted=st["spec_accepted"],
+               wall_s=wall, tok_per_s=st["tokens_produced"] / wall,
+               decode_ms_per_step=st["decode_chunk_time_p50"] / bat.chunk
+               * 1e3,
+               decode_ms_per_token=st["decode_chunk_time_p50"] / bat.chunk
+               * 1e3 / max(acc["mean"], 1e-9),
+               admit_ms_per_step=st["admit_chunk_time_p50"]
+               / bat.admit_steps * 1e3,
+               admission_steps=A, spec_steps=S,
+               prefix_sharing=bat.prefix_sharing,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               target_kv_gb=st["kv_bytes"] / 1e9,
+               draft_kv_gb=st["draft_kv_bytes"] / 1e9,
+               verify_spy=verify is not None, launches=counts)
+    log(f"[{tag}] " + json.dumps(rec))
+    return bat, [out[r] for r in rids], rec, counts
+
+
+def _verify_spy(torch, bat, verify):
+    """Wrap the batcher's target pass so that each verify pass (width
+    K+1; an admission step is prefill_chunk wide) appends, as device
+    tensors: the drafts [B, K], the verify's targets (argmax of lanes
+    0..K-1), its row maxima and its logit of each draft, the slots' pos
+    and done before the step, and each slot's request id.  It adds device
+    work to the steps and no host transfer."""
+    target, K = bat._target, bat.spec_k
+
+    def spy(x, pos):
+        lg = target(x, pos)
+        if x.shape[1] == K + 1:
+            lgf = lg[:, :K].float()
+            drafts = x[:, 1:]
+            verify.append((
+                drafts.clone(), lgf.argmax(-1), lgf.amax(-1),
+                lgf.gather(2, drafts[..., None].long())[..., 0],
+                pos.clone(), bat._done.clone(),
+                [r.req_id if r is not None else None for r in bat._slots]))
+        return lg
+
+    bat._target = spy
+
+
+def _verify_probes(verify, rids, prompts, outs, K):
+    """From the spied verify passes: hold each live slot's emitted tokens
+    to the verify's targets (lane i's target is output pos + i + 1 -
+    len(prompt) of the slot's request, for every accepted lane and the
+    first rejected one), and list each rejected draft as (output index,
+    the draft, the verify's gap from its row maximum to the draft's
+    logit).  Returns (probes per request, lanes checked, rejected drafts
+    past the request's last output)."""
+    index = {r: i for i, r in enumerate(rids)}
+    probes = [[] for _ in rids]
+    checked = past = 0
+    for rec in verify:
+        drafts, tgt, vmax, vd, pos, done = (t.cpu().numpy()
+                                            for t in rec[:6])
+        for b, rid in enumerate(rec[6]):
+            if rid is None or done[b]:
+                continue
+            i = index[rid]
+            acc = int(np.cumprod(drafts[b] == tgt[b]).sum())
+            base = int(pos[b]) + 1 - len(prompts[i])
+            for lane in range(min(acc + 1, K)):
+                j = base + lane
+                if j < len(outs[i]):
+                    check(int(outs[i][j]) == int(tgt[b, lane]),
+                          f"request {rid}: output {j} is "
+                          f"{int(outs[i][j])}, the verify pass's target "
+                          f"{int(tgt[b, lane])}")
+                    checked += 1
+            if acc < K:
+                j = base + acc
+                if j < len(outs[i]):
+                    probes[i].append((j, int(drafts[b, acc]),
+                                      float(vmax[b, acc] - vd[b, acc])))
+                else:
+                    past += 1
+    return probes, checked, past
+
+
+def _rescore(torch, model, prompts, outs, probes=None):
+    """Hold every emitted token to one teacher-forced forward of the
+    target over prompt + output: its logit must lie within the bf16
+    rounding tolerance of its row's maximum (`_rounding_tolerance` of the
+    lm head's product, its weights rounded, then its hidden states
+    rounded, for the emitted token and the row's argmax).  The serve
+    computed the same logits at other widths (verify 5, admission 32) on
+    other kernels, so a near-tied argmax may flip; a token outside the
+    tolerance is an error.  `probes`, a list a request of (output index,
+    token, the verify's gap): each such token's gap from the same row's
+    maximum, in the teacher-forced row and in the verify's, over the
+    same tolerance (reported, not checked)."""
+    W = model.lm_head.detach().float()
+    bf16 = torch.bfloat16
+    shares, n_top, n_tok = [], 0, 0
+    tf_shares, v_shares = [], []
+    probes = probes or [[] for _ in outs]
+    with torch.inference_mode():
+        for p, o, pr in zip(prompts, outs, probes):
+            seq = torch.as_tensor(np.concatenate([p, o]), dtype=torch.int32,
+                                  device=W.device)[None]
+            h = model.llama(seq)[0, len(p) - 1: len(p) - 1 + len(o)]
+            ref = model._lm_logits(h).float()
+            hf = h.float()
+            tol = _rounding_tolerance(torch, bf16, ref, lambda w, x: x @ w,
+                                      W, hf)[0] \
+                + _rounding_tolerance(torch, bf16, ref, lambda w, x: w @ x,
+                                      hf, W)[0]
+            tok = torch.as_tensor(o, dtype=torch.int64,
+                                  device=W.device)[:, None]
+            top = ref.argmax(-1, keepdim=True)
+            gap = (ref.gather(1, top) - ref.gather(1, tok))[:, 0]
+            allowed = (tol.gather(1, top) + tol.gather(1, tok))[:, 0]
+            shares.append((gap / allowed).cpu())
+            n_top += int((top == tok).sum())
+            n_tok += len(o)
+            for j, t, vgap in pr:
+                a = float(tol[j, top[j, 0]] + tol[j, t])
+                tf_shares.append(float(ref[j, top[j, 0]] - ref[j, t]) / a)
+                v_shares.append(vgap / a)
+    shares = torch.cat(shares)
+    out = dict(tokens=n_tok, rescored_argmax=n_top,
+               worst_share=float(shares.max()),
+               over_tolerance=int((shares > 1).sum()))
+    if tf_shares:
+        out["rejected_drafts"] = dict(
+            count=len(tf_shares),
+            teacher_forced_shares=sorted(round(x, 4) for x in tf_shares),
+            verify_shares=sorted(round(x, 4) for x in v_shares),
+            teacher_forced_over_tolerance=sum(x > 1 for x in tf_shares),
+            verify_over_tolerance=sum(x > 1 for x in v_shares))
+    return out
+
+
+def _queue_rule(slos, depth):
+    """The shed set FLAGS_serve_queue_depth predicts for requests
+    submitted in this order with no admission between them: past `depth`
+    queued, the lowest class's newest arrival goes (the incoming one when
+    nothing queued ranks below it)."""
+    order = {"interactive": 0, "batch": 1, "best_effort": 2}
+    queue, shed = [], set()
+    for rid, slo in enumerate(slos):
+        if len(queue) >= depth:
+            victim = max(queue + [rid], key=lambda r: (order[slos[r]], r))
+            shed.add(victim)
+            if victim == rid:
+                continue
+            queue.remove(victim)
+        queue.append(rid)
+    return shed
+
+
+def _robust_serve(torch, ops, dev, model):
+    """13c: mixed SLO classes under FLAGS_serve_queue_depth=4, one
+    poisoned slot (FLAGS_fault_injection "serve.decode:times=1") and a
+    streaming callback on every request."""
+    from paddle_tpu_torch.distributed import fault
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.inference import ContinuousBatcher
+    cfg = model.config
+    V, L = cfg.vocab_size, cfg.num_hidden_layers
+    rng = np.random.RandomState(13)
+    slos = ["batch", "best_effort", "interactive", "best_effort", "batch",
+            "interactive", "best_effort", "batch", "interactive", "batch"]
+    prompts = [rng.randint(1, V, n).astype(np.int32)
+               for n in rng.randint(16, 96, len(slos))]
+    new = 24
+    events = {}
+
+    def cb(rid, toks, done):
+        events.setdefault(rid, []).append(([int(t) for t in toks], done))
+
+    bat = ContinuousBatcher(model, max_batch_size=8, max_len=256,
+                            prefill_chunk=32, chunk=16, device=dev)
+    ops.reset_launch_counts()
+    set_flags({"FLAGS_serve_queue_depth": 4})
+    with fault.scope("serve.decode:times=1"):
+        rids = [bat.submit(p, new, slo=s, on_token=cb)
+                for p, s in zip(prompts, slos)]
+        out = bat.run()
+        fired = fault.fired_counts().get("serve.decode", 0)
+    set_flags({"FLAGS_serve_queue_depth": 0})
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    st = bat.stats()
+    reqs = bat.finished_requests
+    want_shed = _queue_rule(slos, 4)
+    shed = {r for r in rids if reqs[r].shed}
+    check(shed == want_shed and all(reqs[r].shed_reason == "queue_full"
+                                    for r in shed),
+          f"13c shed {sorted(shed)} != the queue rule's {sorted(want_shed)}")
+    check(sorted(out) == rids, "13c: an id missing from run()'s results")
+    check(st["requests_submitted"] == st["requests_completed"]
+          + st["requests_shed"], f"13c leaked a request: {st}")
+    requeued = [r for r in rids if reqs[r].requeues]
+    check(fired == 1 and st["requests_requeued"] == 1 and len(requeued) == 1
+          and not reqs[requeued[0]].shed
+          and len(out[requeued[0]]) == new,
+          f"13c: fault fired {fired}, requeued {requeued}")
+    for r in rids:
+        bursts = events.get(r, [])
+        check([t for b, _ in bursts for t in b] == [int(t) for t in out[r]]
+              and [d for _, d in bursts].count(True) == 1,
+              f"13c: request {r}'s streamed bursts differ from its output")
+        if r not in shed:
+            check(len(out[r]) == new and ((out[r] >= 0) & (out[r] < V)).all(),
+                  f"13c: request {r} incomplete")
+    want = dict.fromkeys(counts, 0)
+    steps = st["forward_steps"]
+    want.update({"rms_norm": steps * (2 * L + 1), "rope": steps * L,
+                 "paged_attention": steps * L})
+    check(counts == want, f"13c launch counts {counts} != predicted {want}")
+    rec = dict(submitted=st["requests_submitted"],
+               completed=st["requests_completed"], shed=sorted(shed),
+               shed_by_class=st["shed_by_class"], requeued=requeued,
+               decode_faults=fired, callback_bursts=sum(
+                   len(b) for b in events.values()),
+               forward_steps=steps)
+    log("[spec-serve-robust] " + json.dumps(rec))
+    return counts
+
+
+def _replay_logits(torch, model, prompt, n, dev, forced=None):
+    """generate's computation step by step (the same cache depth, shapes
+    and kernels), feeding back greedy's argmax or, given `forced` [b, n],
+    those tokens: (tokens [b, n], the logits of each step [n] x [b, V] in
+    the compute dtype)."""
+    ids = torch.as_tensor(prompt, dtype=torch.int32, device=dev)
+    b, s = ids.shape
+    cache = model.init_cache(b, s + n)
+
+    def pick(step, row):
+        if forced is not None:
+            return forced[:, step].to(torch.int32)
+        return torch.argmax(row.float(), dim=-1).to(torch.int32)
+
+    with torch.inference_mode():
+        lg, _ = model.forward_cached(ids, cache, 0)
+        rows = [lg[:, -1]]
+        toks = [pick(0, rows[-1])]
+        for step in range(n - 1):
+            lg, _ = model.forward_cached(toks[-1][:, None], cache, s + step)
+            rows.append(lg[:, 0])
+            toks.append(pick(step + 1, rows[-1]))
+    return torch.stack(toks, dim=1), rows
+
+
+def _sampling(torch, ops, dev, model):
+    """13d: generate on the card — top_k=1 is greedy (a sampler keeps
+    every logit tied at the top, as the reference's does, so each
+    top_k=1 token must be a maximum of its own step's logits, replayed
+    step by step on its own history), a seed repeats its draw, every id
+    in the vocabulary."""
+    from paddle_tpu_torch.inference import generate
+    cfg = model.config
+    V, L = cfg.vocab_size, cfg.num_hidden_layers
+    prompt = np.random.RandomState(7).randint(1, V, (2, 16)).astype(np.int32)
+    n = 16
+    ops.reset_launch_counts()
+    greedy = generate(model, prompt, n, device=dev)
+    top1 = generate(model, prompt, n, temperature=1.0, top_k=1, seed=3,
+                    device=dev)
+    a = generate(model, prompt, n, temperature=0.8, top_p=0.9, seed=7,
+                 device=dev)
+    b = generate(model, prompt, n, temperature=0.8, top_p=0.9, seed=7,
+                 device=dev)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    replay, _ = _replay_logits(torch, model, prompt, n, dev)
+    check(torch.equal(replay, greedy),
+          "13d: greedy generate differs from its step-by-step replay")
+    _, rows = _replay_logits(torch, model, prompt, n, dev, forced=top1)
+    ties = 0
+    for j, lg in enumerate(rows):
+        lg = lg.float()
+        mx = lg.amax(-1)
+        drawn = lg.gather(1, top1[:, j:j + 1].long())[:, 0]
+        check(torch.equal(drawn, mx),
+              f"13d: top_k=1's token at step {j} is not a maximum of its "
+              f"logits: {drawn.tolist()} against {mx.tolist()}")
+        ties += int(((lg == mx[:, None]).sum(-1) > 1).sum())
+    check(torch.equal(a, b), "13d: one seed drew two different outputs")
+    check(all(int(t.min()) >= 0 and int(t.max()) < V
+              for t in (greedy, top1, a)),
+          "13d: a token outside the vocabulary")
+    want = dict.fromkeys(counts, 0)
+    want.update({"rms_norm": 4 * n * (2 * L + 1), "rope": 4 * n * L})
+    check(counts == want, f"13d launch counts {counts} != predicted {want}")
+    rec = dict(greedy=greedy.tolist(), top_k1=top1.tolist(),
+               top_k1_steps_at_a_tie=ties, sampled=a.tolist(),
+               sampled_equal_greedy=bool(torch.equal(a, greedy)))
+    log("[spec-generate] " + json.dumps(rec))
+    return counts
+
+
+def phase_spec(torch, ops, dev, serve5):
+    """Phase 13 at Llama-2-7B width and depth (bf16, seed 2024, phase 5's
+    geometry and requests): 13a speculative serve as bench.py runs it
+    (4 draft tokens, an 8-layer early-exit draft), every token re-scored;
+    13b self-speculation (the target as its own draft) on 4 requests;
+    13c SLO classes, shedding, a decode fault and streaming; 13d
+    sampling in generate.  Returns the launches of all four (the main
+    path's) and paged_attention's variant launches."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
+    cfg = llama_7b_config()
+    model = LlamaForCausalLM(cfg, device=dev, seed=2024)
+    prompts, new = serve_requests(cfg.vocab_size)
+    total = None
+
+    def add(counts):
+        nonlocal total
+        total = counts if total is None else {
+            k: total[k] + counts[k] for k in total}
+
+    # 13a
+    bat, outs, rec, counts = _spec_serve(
+        torch, ops, dev, model, prompts, new, "spec-serve",
+        draft_layers=SPEC_DRAFT_LAYERS)
+    add(counts)
+    del bat
+    trace = decode_trace(torch, model, dev, 16, spec_tokens=SPEC_TOKENS,
+                         draft_layers=SPEC_DRAFT_LAYERS)
+    log("[spec-serve-trace] " + json.dumps(trace))
+    t0 = time.perf_counter()
+    rs = _rescore(torch, model, prompts, outs)
+    rs["seconds"] = time.perf_counter() - t0
+    log("[spec-serve-rescore] " + json.dumps(rs))
+    check(rs["over_tolerance"] == 0,
+          f"13a: {rs['over_tolerance']} tokens outside the rounding "
+          f"tolerance of their row's maximum")
+    log("[spec-serve-vs-phase5] " + json.dumps(dict(
+        tok_per_s=(rec["tok_per_s"], serve5["tok_per_s"]),
+        decode_ms_per_step=(rec["decode_ms_per_step"],
+                            serve5["decode_ms_per_step"]),
+        peak_mem_gb=(rec["peak_mem_gb"], serve5["peak_mem_gb"]))))
+    # 13b: every emitted token held to its verify pass and re-scored;
+    # each rejected draft's gap from its row's maximum logged
+    verify = []
+    bat, outs_b, rec_b, counts = _spec_serve(
+        torch, ops, dev, model, prompts[:4], new, "spec-serve-self",
+        verify=verify, draft_model=model)
+    add(counts)
+    rids_b = sorted(bat.finished_requests)
+    del bat
+    check(rec_b["accept_rate"] > 0.5 and rec_b["accepted_per_step_mean"] > 1,
+          f"13b: self-speculation accept rate {rec_b['accept_rate']}, "
+          f"accepted per step {rec_b['accepted_per_step_mean']}")
+    t0 = time.perf_counter()
+    probes, checked, past = _verify_probes(verify, rids_b, prompts[:4],
+                                           outs_b, SPEC_TOKENS)
+    del verify
+    rs = _rescore(torch, model, prompts[:4], outs_b, probes)
+    rs.update(verify_lanes_checked=checked,
+              rejected_past_the_output=past,
+              seconds=time.perf_counter() - t0)
+    log("[spec-serve-self-rescore] " + json.dumps(rs))
+    check(rs["over_tolerance"] == 0 and checked > 0,
+          f"13b: {rs['over_tolerance']} tokens outside the rounding "
+          f"tolerance of their row's maximum ({checked} held to their "
+          f"verify pass)")
+    torch.cuda.empty_cache()
+    # 13c, 13d
+    add(_robust_serve(torch, ops, dev, model))
+    add(_sampling(torch, ops, dev, model))
+    del model
+    torch.cuda.empty_cache()
+    variants = {"paged_attention": {"fp": total["paged_attention"],
+                                    "int8": 0},
+                "quant_matmul": {"int8": 0, "int4": 0}}
+    return total, variants
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2539,7 +3013,8 @@ def main():
 
     kern = timed("3 kernels", phase_kernels, torch, ops, dev)
     timed("4 parity", phase_parity, torch, dev)
-    _, counts, variants = timed("5 serve", phase_serve, torch, ops, dev)
+    serve5, counts, variants = timed("5 serve", phase_serve, torch, ops,
+                                     dev)
     train_kern = timed("6 train kernels", phase_train_kernels, torch, ops,
                        dev)
     for name in ("rms_norm", "rope"):       # the forwards at train shapes
@@ -2563,13 +3038,17 @@ def main():
     _, zero3_counts = timed("12 train (ShardedTrainStep stage 3, NCCL)",
                             phase_sharded, torch, ops, dev, train,
                             train_counts)
-    # launches on the main path: the serves (5, 10, 11) and the trainings
-    # (8, 9, 12)
+    spec_counts, spec_var = timed(
+        "13 serve (speculative, SLO classes, faults, streaming, sampling)",
+        phase_spec, torch, ops, dev, serve5)
+    # launches on the main path: the serves (5, 10, 11, 13) and the
+    # trainings (8, 9, 12)
     counts = {n: counts[n] + train_counts[n] + fused_counts[n]
               + int8_counts[n] + int4_counts[n] + zero3_counts[n]
-              for n in counts}
+              + spec_counts[n] for n in counts}
     variants = {n: {v: variants[n][v] + int8_var[n][v] + int4_var[n][v]
-                    for v in variants[n]} for n in variants}
+                    + spec_var[n][v] for v in variants[n]}
+                for n in variants}
     check(all(counts[n] > 0 for n in ops.KERNELS),
           f"a kernel never launched on the main path: {counts}")
     check(all(c > 0 for v in variants.values() for c in v.values()),

@@ -11,7 +11,12 @@ dispatch flags `use_fused_adamw` and `multi_tensor_adamw`
 (`paddle_tpu/optimizer/jit_update.py:42-56`), and the flags
 `ShardedTrainStep` reads at construction: `skip_nonfinite_steps`
 (:109), `comm_overlap` (:120), `comm_bucket_mb` (:127) and
-`grad_comm_dtype` (:141).  The reference's
+`grad_comm_dtype` (:141); the serving tier's request plane:
+`serve_queue_depth` and `serve_default_deadline_ms` (:200, :205),
+`serve_spec_tokens` and `serve_draft_layers` (:228, :236),
+`serve_retry_budget` (:334) and `fault_injection` (:104), with the
+watchdog's `stop_check_timeout` and `comm_watchdog_abort`
+(`paddle_tpu/distributed/watchdog.py:31-35`).  The reference's
 `fused_adamw_interpret` (Pallas interpret mode off the TPU) has no
 counterpart: a CPU tensor already takes the kernel's plain version.
 """
@@ -138,3 +143,51 @@ define_flag("comm_bucket_mb", 32.0,
 define_flag("grad_comm_dtype", "auto",
             "wire dtype for fused gradient collectives: 'auto' keeps "
             "each grad's own width")
+
+# serving request plane (inference/serving.py): SLO-aware admission,
+# deadlines, load shedding, fault recovery and speculative decoding —
+# all off by default, as in the reference
+define_flag("serve_queue_depth", 0,
+            "bound on the serving admission queue (all SLO classes "
+            "combined); a submit() past the bound load-sheds the "
+            "lowest-SLO newest-arrival queued request (best_effort "
+            "first, never an in-flight decode).  0 = unbounded")
+define_flag("serve_default_deadline_ms", 0.0,
+            "default arrival deadline for serving requests that don't "
+            "pass deadline_ms: a request still QUEUED when its "
+            "deadline passes is shed (serve.deadline_miss).  In-flight "
+            "requests are never deadline-shed.  0 disables")
+define_flag("serve_spec_tokens", 0,
+            "speculative decoding: draft tokens per verify step in the "
+            "serving decode scan.  K>0 drafts K tokens with the draft "
+            "model and verifies them in ONE target pass of width K+1 "
+            "through the same compiled chunked scan; the longest "
+            "matching prefix (plus the target's bonus token) is "
+            "accepted per step.  Greedy output is bit-exact vs "
+            "non-speculative decode.  0 disables")
+define_flag("serve_draft_layers", 0,
+            "self-drafting: build the speculative draft from the "
+            "target model's own first N layers (early exit) instead "
+            "of a separate draft model — no extra weights resident.  "
+            "Used when FLAGS_serve_spec_tokens > 0 and no draft_model "
+            "is passed; 0 requires an explicit draft_model")
+define_flag("serve_retry_budget", 3,
+            "per-request bound on serve-plane fault recoveries "
+            "(injected/real admission faults retried FIFO-in-place, "
+            "faulted-slot requeues): past the budget the request is "
+            "shed instead of retried — a poisoned request cannot spin "
+            "the batch forever")
+define_flag("fault_injection", "",
+            "deterministic fault-injection spec(s), e.g. "
+            "\"ckpt.write:step=3:mode=truncate\" — see "
+            "paddle_tpu_torch/distributed/fault.py for the grammar; empty "
+            "disables injection entirely")
+
+# the host-side watchdog (distributed/watchdog.py)
+define_flag("stop_check_timeout", 0,
+            "seconds before an in-flight host-side collective/step is "
+            "declared hung (0 disables the watchdog; reference "
+            "FLAGS_stop_check_timeout)")
+define_flag("comm_watchdog_abort", False,
+            "abort the process when a watched task times out (reference "
+            "CommTaskManager abort-on-timeout behavior)")

@@ -8,7 +8,9 @@ forward of `LlamaAttention` (:197-246), `LlamaMLP` (:362),
 (`LlamaDecoderLayer.forward` / `_forward_selective`, :377-425),
 `LlamaModel.forward` (:532) and `LlamaForCausalLM.forward` (:649) /
 `compute_loss` (:708) in both loss modes; and the cached decode paths
-(:248-310, :475-515, :554-634, :673-692).  Not ported yet (they raise
+(:248-310, :475-515, :554-634, :673-692), with the early-exit draft
+of speculative decoding (`early_exit_draft` :694, `EarlyExitDraft`
+:749-785).  Not ported yet (they raise
 NotImplementedError): MoE experts and sequence-parallel ring attention.
 
 Recompute (`recompute=True`, the first `recompute_layers` layers, all
@@ -62,6 +64,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 from torch import nn
@@ -74,7 +77,7 @@ from ..framework.device import resolve_device
 from ..framework.flags import get_flag
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
-           "llama_tiny_config", "llama_7b_config"]
+           "EarlyExitDraft", "llama_tiny_config", "llama_7b_config"]
 
 
 def _wo_mm(layer, name, x):
@@ -367,15 +370,26 @@ class LlamaModel(Layer):
         x = self.embed_tokens[input_ids.to(torch.int64)].to(cfg.compute_dtype)
         return x, cos.contiguous(), sin.contiguous()
 
-    def init_cache(self, batch: int, max_len: int):
-        """Per-layer dense KV ring buffers [batch, max_len, n_kv, hd] in
-        the compute dtype."""
+    def _depth(self, num_layers):
+        """The decoder blocks a cached walk runs: all, or the first
+        `num_layers` (an early-exit draft's)."""
+        n = len(self.layers) if num_layers is None else int(num_layers)
+        if not 0 < n <= len(self.layers):
+            raise ValueError(f"num_layers must be 1..{len(self.layers)} "
+                             f"(got {n})")
+        return n
+
+    def init_cache(self, batch: int, max_len: int,
+                   num_layers: Optional[int] = None):
+        """Dense KV ring buffers [batch, max_len, n_kv, hd] in the
+        compute dtype, one pair a layer of the first `num_layers` (None:
+        every layer)."""
         cfg = self.config
         shape = (batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
         dev = self.embed_tokens.device
         return [(torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
                  torch.zeros(shape, dtype=cfg.compute_dtype, device=dev))
-                for _ in self.layers]
+                for _ in range(self._depth(num_layers))]
 
     def init_paged_cache(self, num_pages: int, page_size: int,
                          kv_dtype=None):
@@ -416,12 +430,18 @@ class LlamaModel(Layer):
                                            pos, li, where)
         return self.norm(x), cache
 
-    def forward_cached(self, input_ids, cache, pos):
-        """input_ids [b, s]; cache from init_cache (updated in place);
-        pos an int (uniform depth) or a [b] tensor.  Returns (hidden,
-        cache)."""
+    def forward_cached(self, input_ids, cache, pos,
+                       num_layers: Optional[int] = None):
+        """input_ids [b, s]; cache from init_cache with the same
+        num_layers (updated in place); pos an int (uniform depth) or a
+        [b] tensor.  Runs the first `num_layers` blocks (None: all), then
+        the final norm.  Returns (hidden, cache)."""
+        n = self._depth(num_layers)
+        if len(cache) != n:
+            raise ValueError(f"a cache of {len(cache)} layers for a walk "
+                             f"of {n}")
         x, cos, sin = self._embed_rope(input_ids, pos)
-        for layer, (kc, vc) in zip(self.layers, cache):
+        for layer, (kc, vc) in zip(self.layers[:n], cache):
             x = layer.forward_cached(x, cos, sin, kc, vc, pos)
         return self.norm(x), cache
 
@@ -486,8 +506,9 @@ class LlamaForCausalLM(Layer):
                                          transpose_weight=tw, shift=True)
         return F.fused_cross_entropy(logits, labels, shift=True)
 
-    def init_cache(self, batch: int, max_len: int):
-        return self.llama.init_cache(batch, max_len)
+    def init_cache(self, batch: int, max_len: int,
+                   num_layers: Optional[int] = None):
+        return self.llama.init_cache(batch, max_len, num_layers)
 
     def init_paged_cache(self, num_pages: int, page_size: int,
                          kv_dtype=None):
@@ -511,8 +532,51 @@ class LlamaForCausalLM(Layer):
         return self._lm_logits(x), cache
 
     @torch.no_grad()
-    def forward_cached(self, input_ids, cache, pos):
+    def forward_cached(self, input_ids, cache, pos,
+                       num_layers: Optional[int] = None):
         """Returns (logits [b, s, V], cache) — the ring buffers updated
-        in place; no graph is recorded."""
-        x, cache = self.llama.forward_cached(input_ids, cache, pos)
+        in place; no graph is recorded.  num_layers: the first blocks
+        only (LlamaModel.forward_cached), as an early-exit draft runs."""
+        x, cache = self.llama.forward_cached(input_ids, cache, pos,
+                                             num_layers)
         return self._lm_logits(x), cache
+
+    @torch.no_grad()
+    def fill_cache(self, input_ids, cache, pos,
+                   num_layers: Optional[int] = None):
+        """forward_cached without the lm head: writes the KV rows of
+        input_ids into the dense cache and returns it.  A draft's
+        prefill needs only its cache, and eager PyTorch, unlike the
+        reference's compiler, would not drop an unused [b, s, V]
+        product."""
+        self.llama.forward_cached(input_ids, cache, pos, num_layers)
+        return cache
+
+    def early_exit_draft(self, num_layers: int) -> "EarlyExitDraft":
+        """Self-drafting draft of speculative decoding: a decode-capable
+        view over this model's FIRST `num_layers` decoder blocks + the
+        final norm and lm head — no weights of its own."""
+        return EarlyExitDraft(self, num_layers)
+
+
+class EarlyExitDraft:
+    """Early-exit draft over a LlamaForCausalLM: embed -> layers[:n] ->
+    final norm -> lm head, with its OWN dense KV cache (n layers deep).
+    A plain adapter, not a Layer: it owns no parameters and reads the
+    target's."""
+
+    def __init__(self, model: LlamaForCausalLM, num_layers: int):
+        self._model = model
+        self.num_layers = model.llama._depth(num_layers)
+        self.config = model.config
+
+    def init_cache(self, batch: int, max_len: int):
+        return self._model.init_cache(batch, max_len, self.num_layers)
+
+    def forward_cached(self, input_ids, cache, pos):
+        return self._model.forward_cached(input_ids, cache, pos,
+                                          self.num_layers)
+
+    def fill_cache(self, input_ids, cache, pos):
+        return self._model.fill_cache(input_ids, cache, pos,
+                                      self.num_layers)

@@ -38,6 +38,9 @@ PKG = pathlib.Path(paddle_tpu_torch.__file__).resolve().parent
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 import paddle_tpu_torch, paddle_tpu_torch.inference.serving
+import paddle_tpu_torch.inference.generation
+import paddle_tpu_torch.distributed.fault, paddle_tpu_torch.distributed.guard
+import paddle_tpu_torch.distributed.watchdog
 for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch."):
     importlib.import_module(m.name)
 bad = sorted(n for n in sys.modules
