@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   3. kernels each kernel against its plain PyTorch version on the card,
              at the serving path's shapes in bf16 (query widths 1 of a
              decode step, 5 of a speculative verify pass, 32 of an
-             admission step): every element against
+             admission step over 8 slots; 1 and 32 over a phase-14
+             replica's 4 slots): every element against
              its own tolerance from the kernel's rounding model (the
              share of it used and median tol / median |plain| logged),
              the kernel's, the plain version's and a library
@@ -32,7 +33,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              the library takes for it logged, then at PAGED_EDGE_CASES
              (one slot of 4096 keys, 32 slots, every pos 0, the table's
              last row, ragged C 5 and 17, group 8, two row tiles, d 64,
-             fp16, pages of 8 and 32 rows, an fp32 pool on the CUDA-core
+             fp16, pages of 8 and 32 rows, a phase-14 replica's decode
+             step and admission chunk over 4 slots of 32-row pages at
+             P_slot 12, 20 and 24, an fp32 pool on the CUDA-core
              body), each on a pool of q's dtype and its int8 copy,
              beside SDPA on the gathered view;
              quant_matmul int8 and int4 (group 64) at M = 8 and 256 and
@@ -169,6 +172,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              logits (its history replayed step by step; greedy's replay
              equal to greedy), a seed repeats its sample, ids in the
              vocabulary.  All four count toward the kernels line.
+  14. serve fleet  Llama-2-7B in bf16 (seed 2024), every replica a
+             ContinuousBatcher over the one model (4 slots each,
+             bench.py's TPU geometry of each fleet leg, prompts from its
+             RandomState seeds): 14a 16 staggered requests sharing a
+             256-token system prompt through ServeRouter over 2
+             replicas, then through one (all complete, both replicas
+             routed, prefix route hits, nothing requeued or shed; tok/s
+             of both, decision ms, peak memory); 14b the same 2 replicas
+             split prefill / decode against symmetric (hand-offs out ==
+             in, none staged, cross-replica prefix hits, no prefill on
+             the decode side, both pools leak-free, every page an import
+             wrote equal to its export (torch.equal), each deduplicated
+             page compared, a hand-off's bytes n_pages x 16 MiB, its
+             host ms and the device ms of its copies (CUDA events), TTFT
+             and TPOT of both fleets); 14c 4 of 14b's requests on int8
+             pools (the scales travel and land equal; int8
+             paged_attention decodes over them; tokens re-scored through
+             an int8 pool); 14d 4 streaming requests with replica 1
+             killed at the first round it holds one mid-stream (every
+             id completes, bursts equal outputs, >= 1 requeued); 14e the
+             autoscaler over DiurnalLoadSim (1..3 replicas, 8 ticks and
+             4 drain ticks; every id completed or shed, no pending
+             record, unique epochs, no flap).  Every token is re-scored
+             as 13a's; token equality across fleets is counted, not
+             required.  The launches equal the replicas' forward steps
+             times the structure's and count toward the kernels line.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -384,6 +413,8 @@ ROPE_PLANS = {
     ("bfloat16", 128, True, 8, 64): (8, 8, 64, 1, 128, 32),
     ("bfloat16", 128, True, 40, 64): (8, 8, 64, 1, 128, 160),
     ("bfloat16", 128, True, 256, 64): (8, 8, 32, 2, 128, 512),
+    ("bfloat16", 128, True, 4, 64): (8, 8, 64, 1, 128, 16),
+    ("bfloat16", 128, True, 128, 64): (8, 8, 64, 1, 128, 512),
     ("float16", 128, True, 256, 64): (8, 8, 32, 2, 128, 512),
     ("float32", 128, True, 4096, 24): (4, 16, 1, 4, 128, 512),
     ("bfloat16", 64, True, 2048, 24): (8, 4, 8, 2, 128, 512),
@@ -517,27 +548,29 @@ def phase_kernels(torch, ops, dev):
     settle(torch, dev)
 
     # serve widths: a decode step (1), a speculative verify pass (K + 1)
-    # and an admission step (32)
+    # and an admission step (32) over 8 slots, then a fleet replica's
+    # decode step and admission step over its FLEET_SLOTS slots (phase 14)
     widths = (1, SPEC_TOKENS + 1, 32)
+    serve = [(B, C) for C in widths] + [(FLEET_SLOTS, 1), (FLEET_SLOTS, 32)]
 
-    # -- rms_norm on [8*C, 4096], then RMS_FWD_EDGE_CASES --------------------
+    # -- rms_norm on [slots*C, 4096], then RMS_FWD_EDGE_CASES ----------------
     rn = ops.kernel_module("rms_norm")
-    for C in widths:
+    for b, C in serve:
         results["rms_norm"].append(_rms_fwd_case(
-            torch, ops, rn, randn, case="serve", rows=B * C, H=H))
+            torch, ops, rn, randn, case="serve", rows=b * C, H=H))
     for case in RMS_FWD_EDGE_CASES:
         results["rms_norm"].append(_rms_fwd_case(torch, ops, rn, randn,
                                                  **case))
         torch.cuda.empty_cache()
 
-    # -- rope on q/k [8, C, 32, 128], cos/sin [8, C, 128] --------------------
+    # -- rope on q/k [slots, C, 32, 128], cos/sin [slots, C, 128] ------------
     ro = ops.kernel_module("rope")
     pos = torch.tensor([0, 9, 100, 333, 517, 700, 990, 1023],
                        dtype=torch.int32, device=dev)
-    for C in widths:
-        q, kk = randn(B, C, heads, hd), randn(B, C, heads, hd)
-        positions = pos[:, None] + torch.arange(C, dtype=torch.int32,
-                                                device=dev)[None]
+    for b, C in serve:
+        q, kk = randn(b, C, heads, hd), randn(b, C, heads, hd)
+        positions = pos[:b, None] + torch.arange(C, dtype=torch.int32,
+                                                 device=dev)[None]
         cos, sin = rope_cos_sin(C, hd, 10000.0, position_ids=positions)
         cos, sin = cos.contiguous(), sin.contiguous()
         results["rope"].append(_rope_case(torch, ops, ro, "serve", q, kk,
@@ -729,6 +762,14 @@ PAGED_EDGE_CASES = (
     ("fp16", 8, 32, 1, 128, "float16", 16, 66, "spread"),
     ("ps 8", 8, 1, 1, 128, "bfloat16", 8, 132, "spread"),
     ("ps 32", 8, 32, 1, 128, "bfloat16", 32, 33, "spread"),
+    # a phase-14 fleet replica: FLEET_SLOTS slots, ps 32, a decode step and
+    # an admission chunk, at max_len 384, 640 and 768 (P_slot 12, 20, 24)
+    ("fleet decode, P_slot 12", 4, 1, 1, 128, "bfloat16", 32, 12, "spread"),
+    ("fleet decode, P_slot 20", 4, 1, 1, 128, "bfloat16", 32, 20, "spread"),
+    ("fleet decode, P_slot 24", 4, 1, 1, 128, "bfloat16", 32, 24, "spread"),
+    ("fleet chunk, P_slot 12", 4, 32, 1, 128, "bfloat16", 32, 12, "spread"),
+    ("fleet chunk, P_slot 20", 4, 32, 1, 128, "bfloat16", 32, 20, "spread"),
+    ("fleet chunk, P_slot 24", 4, 32, 1, 128, "bfloat16", 32, 24, "spread"),
     ("fp32 pool (CUDA-core body)", 8, 1, 1, 128, "float32", 16, 66,
      "spread"),
 )
@@ -2680,7 +2721,6 @@ def _rescore(torch, model, prompts, outs, probes=None):
     maximum, in the teacher-forced row and in the verify's, over the
     same tolerance (reported, not checked)."""
     W = model.lm_head.detach().float()
-    bf16 = torch.bfloat16
     shares, n_top, n_tok = [], 0, 0
     tf_shares, v_shares = [], []
     probes = probes or [[] for _ in outs]
@@ -2689,19 +2729,9 @@ def _rescore(torch, model, prompts, outs, probes=None):
             seq = torch.as_tensor(np.concatenate([p, o]), dtype=torch.int32,
                                   device=W.device)[None]
             h = model.llama(seq)[0, len(p) - 1: len(p) - 1 + len(o)]
-            ref = model._lm_logits(h).float()
-            hf = h.float()
-            tol = _rounding_tolerance(torch, bf16, ref, lambda w, x: x @ w,
-                                      W, hf)[0] \
-                + _rounding_tolerance(torch, bf16, ref, lambda w, x: w @ x,
-                                      hf, W)[0]
-            tok = torch.as_tensor(o, dtype=torch.int64,
-                                  device=W.device)[:, None]
-            top = ref.argmax(-1, keepdim=True)
-            gap = (ref.gather(1, top) - ref.gather(1, tok))[:, 0]
-            allowed = (tol.gather(1, top) + tol.gather(1, tok))[:, 0]
-            shares.append((gap / allowed).cpu())
-            n_top += int((top == tok).sum())
+            share, top, ref, tol = _lm_shares(torch, model, W, h, o)
+            shares.append(share)
+            n_top += int((top[:, 0].cpu().numpy() == np.asarray(o)).sum())
             n_tok += len(o)
             for j, t, vgap in pr:
                 a = float(tol[j, top[j, 0]] + tol[j, t])
@@ -2719,6 +2749,75 @@ def _rescore(torch, model, prompts, outs, probes=None):
             teacher_forced_over_tolerance=sum(x > 1 for x in tf_shares),
             verify_over_tolerance=sum(x > 1 for x in v_shares))
     return out
+
+
+def _lm_shares(torch, model, W, h, o):
+    """For hidden rows h [n, hidden] whose logits emitted tokens o [n]:
+    each token's gap from its row's maximum over the bf16 rounding
+    tolerance of the lm head's product (`_rounding_tolerance`, its
+    weights rounded, then its hidden states rounded, for the token and
+    the argmax).  Returns (shares [n] on the host, argmax [n, 1], the
+    fp32 logits, the tolerance)."""
+    bf16 = torch.bfloat16
+    ref = model._lm_logits(h).float()
+    hf = h.float()
+    tol = _rounding_tolerance(torch, bf16, ref, lambda w, x: x @ w, W,
+                              hf)[0] \
+        + _rounding_tolerance(torch, bf16, ref, lambda w, x: w @ x, hf,
+                              W)[0]
+    tok = torch.as_tensor(np.asarray(o), dtype=torch.int64,
+                          device=W.device)[:, None]
+    top = ref.argmax(-1, keepdim=True)
+    gap = (ref.gather(1, top) - ref.gather(1, tok))[:, 0]
+    allowed = (tol.gather(1, top) + tol.gather(1, tok))[:, 0]
+    return (gap / allowed).cpu(), top, ref, tol
+
+
+def _rescore_paged(torch, model, prompts, outs, kv_dtype, page_size,
+                   chunk):
+    """`_rescore` for tokens a serve emitted over a quantized page pool:
+    the teacher-forced reference runs through the same paged path and
+    pool precision (`forward_cached_paged` on a fresh pool of
+    `kv_dtype`, the prompt written in admission chunks of `chunk` rows,
+    then the output one row a step, as a slot's decode writes it), so
+    the pool's quantization is in the reference and each token's logit
+    is held to the bf16 rounding tolerance of the lm head, as
+    `_rescore`'s are."""
+    W = model.lm_head.detach().float()
+    dev = W.device
+    shares, n_top, n_tok = [], 0, 0
+    with torch.inference_mode():
+        for p, o in zip(prompts, outs):
+            n = len(p) + len(o)
+            pages = -(-(n + chunk) // page_size)
+            cache = model.init_paged_cache(pages + 1, page_size, kv_dtype)
+            table = torch.arange(1, pages + 1, dtype=torch.int32,
+                                 device=dev)[None]
+            seq = torch.as_tensor(np.concatenate([p, o]),
+                                  dtype=torch.int32, device=dev)
+            rows = []
+            for s in range(0, len(p), chunk):
+                x = seq[s: min(s + chunk, len(p))][None]
+                pos = torch.full((1,), s, dtype=torch.int32, device=dev)
+                h, _ = model.llama.forward_cached_paged(x, cache, table,
+                                                        pos)
+            rows.append(h[0, -1:])
+            for j in range(len(o) - 1):
+                pos = torch.full((1,), len(p) + j, dtype=torch.int32,
+                                 device=dev)
+                h, _ = model.llama.forward_cached_paged(
+                    seq[len(p) + j: len(p) + j + 1][None], cache, table,
+                    pos)
+                rows.append(h[0])
+            share, top, _, _ = _lm_shares(torch, model, W,
+                                          torch.cat(rows), o)
+            shares.append(share)
+            n_top += int((top[:, 0].cpu().numpy() == np.asarray(o)).sum())
+            n_tok += len(o)
+    shares = torch.cat(shares)
+    return dict(tokens=n_tok, rescored_argmax=n_top,
+                worst_share=float(shares.max()),
+                over_tolerance=int((shares > 1).sum()))
 
 
 def _queue_rule(slos, depth):
@@ -2959,6 +3058,576 @@ def phase_spec(torch, ops, dev, serve5):
     return total, variants
 
 
+# phase 14: the serve fleet.  bench.py's TPU geometry of each fleet leg,
+# with 4 slots a replica (bench.py's batch // 2 at BENCH_BATCH 8)
+FLEET_SLOTS = 4
+
+
+def _fleet_prompts(V, seed, tails):
+    """bench.py's fleet prompts: a 256-token system prompt from
+    RandomState(seed) over the vocabulary, then each tail's own
+    tokens."""
+    rng = np.random.RandomState(seed)
+    system = rng.randint(0, V, 256).astype(np.int32)
+    return [np.concatenate([system, rng.randint(0, V, L).astype(np.int32)])
+            for L in tails]
+
+
+def _fleet_counts(torch, ops, tag, bats, L, kv="fp"):
+    """The launches since the last reset against what the replicas'
+    forward steps predict: each step 2L+1 rms_norm, L rope and L
+    paged_attention launches, on the `kv` pool variant."""
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    var = dict(ops.kernel_module("paged_attention").variant_launches)
+    steps = sum(b.stats()["forward_steps"] for b in bats)
+    want = dict.fromkeys(counts, 0)
+    want.update({"rms_norm": steps * (2 * L + 1), "rope": steps * L,
+                 "paged_attention": steps * L})
+    check(counts == want, f"{tag} launch counts {counts} != predicted {want}")
+    want_var = {"fp": 0, "int8": 0}
+    want_var[kv] = steps * L
+    check(var == want_var, f"{tag} paged_attention variants {var}")
+    return counts, var, steps
+
+
+def _staggered(torch, front, prompts, new, stagger, n_first):
+    """bench.py's fleet_once / single_once: the first n_first requests,
+    `stagger` scheduling rounds, then the rest; returns (outputs in
+    submission order, wall seconds from the first round)."""
+    ids = [front.submit(p, new) for p in prompts[:n_first]]
+    t0 = time.perf_counter()
+    for _ in range(stagger):
+        front.step()
+    ids += [front.submit(p, new) for p in prompts[n_first:]]
+    out = front.run()
+    torch.cuda.synchronize()
+    return [out[i] for i in ids], time.perf_counter() - t0
+
+
+def _complete(outs, news, V):
+    return len(outs) == len(news) and all(
+        len(o) == n and ((o >= 0) & (o < V)).all()
+        for o, n in zip(outs, news))
+
+
+def _handoff_spy(torch, pre, dec, rec):
+    """Wrap a prefill batcher's export_handoff and a decode batcher's
+    import_handoff: CUDA events around each call (their span holds the
+    host's work between the copies too, so it bounds the copies' device
+    time from above; `_page_copy_ms` times the copies alone), and a
+    device copy of the pages each import mapped, taken right after
+    it on the same stream (no host sync inside the router's timed
+    window); `_handoff_record` holds every page the import wrote to the
+    exported data (torch.equal, every buffer: K, V and an int8 pool's
+    scales) and compares each page it deduplicated (logged)."""
+    export, import_ = pre.export_handoff, dec.import_handoff
+    pending = {}
+
+    def spy_export(rid):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        meta, data = export(rid)
+        e1.record()
+        pending[id(meta)] = (e0, e1, time.perf_counter() - t0)
+        return meta, data
+
+    def spy_import(meta, data, on_token=None):
+        e2, e3 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e2.record()
+        lid = import_(meta, data, on_token=on_token)
+        e3.record()
+        host = time.perf_counter() - t0
+        if lid is None:
+            return lid
+        i = next(i for i, r in enumerate(dec._slots)
+                 if r is not None and r.req_id == lid)
+        plan = dec._plans[i]
+        n = int(meta["n_pages"])
+        idx = torch.as_tensor(plan.pages[:n], device=dec.device)
+        e0, e1, host_export = pending.pop(id(meta))
+        rec["handoffs"].append(dict(
+            events=(e0, e1, e2, e3), host_ms=(host_export + host) * 1e3,
+            n_pages=n,
+            nbytes=int(meta["nbytes"]), buffers=sorted(data), data=data,
+            mapped={k: dec._cache[k].index_select(0, idx) for k in data},
+            shared=plan.n_shared_pages))
+        return lid
+
+    pre.export_handoff, dec.import_handoff = spy_export, spy_import
+
+
+def _handoff_record(torch, hs, kv_bytes):
+    """Per hand-off: its bytes against n_pages pages of `kv_bytes`, the
+    span of the CUDA events around its export and import calls (host
+    gaps included: not the copies' device time) beside the copies' bound
+    (each page read and written on both sides), and each page it wrote
+    (equal to the export, or the record fails) or deduplicated (counted
+    bit-equal or not)."""
+    torch.cuda.synchronize()
+    for h in hs:
+        same = [all(torch.equal(h["mapped"][k][j], h["data"][k][j])
+                    for k in h["data"]) for j in range(h["n_pages"])]
+        h["written_equal"] = same[h["shared"]:]
+        h["dedup_equal"] = same[:h["shared"]]
+        del h["mapped"], h["data"]
+    ms = [a.elapsed_time(b) + c.elapsed_time(d)
+          for a, b, c, d in (h["events"] for h in hs)]
+    moved = [4 * h["nbytes"] for h in hs]
+    return dict(
+        count=len(hs), n_pages=[h["n_pages"] for h in hs],
+        bytes_per_page=sorted({h["nbytes"] // h["n_pages"] for h in hs}),
+        bytes_per_page_predicted=kv_bytes,
+        event_span_ms=sorted(round(x, 4) for x in ms),
+        event_span_ms_p50=sorted(ms)[len(ms) // 2] if ms else 0.0,
+        host_ms=sorted(round(h["host_ms"], 4) for h in hs),
+        bound_ms_p50=sorted(m / HBM_BYTES_PER_S * 1e3
+                            for m in moved)[len(moved) // 2]
+        if moved else 0.0,
+        written_pages=sum(len(h["written_equal"]) for h in hs),
+        written_equal=sum(sum(h["written_equal"]) for h in hs),
+        dedup_pages=sum(len(h["dedup_equal"]) for h in hs),
+        dedup_bit_equal=sum(sum(h["dedup_equal"]) for h in hs),
+        buffers=hs[0]["buffers"] if hs else [])
+
+
+def _page_copy_ms(torch, pre, dec, n):
+    """The hand-off's two copies alone, warm: `pre`'s gather of n pages
+    and `dec`'s scatter of them into n other pages (CUDA events, median
+    of 20 after 3), beside their bound (each side reads and writes the
+    pages once); and the same two copies over int64 views of the
+    buffers (the copy sees 8-byte elements; the bytes must come out
+    equal).  Run after the serve: the scatter overwrites pages of a
+    pool nobody reads again."""
+    pages = list(range(1, n + 1))
+    data = pre._gather_pages(pages)
+    dst = list(range(n + 1, 2 * n + 1))
+    src_i = torch.as_tensor(pages, device=pre.device)
+    dst_i = torch.as_tensor(dst, device=dec.device)
+    wide = {k: v.view(torch.int64) for k, v in data.items()}
+
+    def gather_wide():
+        return {k: b.view(torch.int64).index_select(0, src_i)
+                for k, b in pre._cache.items()}
+
+    def scatter_wide():
+        for k, b in dec._cache.items():
+            b.view(torch.int64).index_copy_(0, dst_i, wide[k])
+
+    def timed(fn):
+        for _ in range(3):
+            fn()
+        out = []
+        for _ in range(20):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            out.append(a.elapsed_time(b))
+        return sorted(out)[len(out) // 2]
+
+    got = gather_wide()
+    check(all(torch.equal(got[k], wide[k]) for k in data),
+          "the int64-view gather moved other bytes than the gather")
+    nbytes = sum(t.numel() * t.element_size() for t in data.values())
+    return dict(n_pages=n, bytes=nbytes,
+                gather_ms=timed(lambda: pre._gather_pages(pages)),
+                scatter_ms=timed(lambda: dec._scatter_pages(dst, data, 0)),
+                gather_int64_view_ms=timed(gather_wide),
+                scatter_int64_view_ms=timed(scatter_wide),
+                bound_ms_each=2 * nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def _fleet_latency(st):
+    lat = st["latency"]
+    return {k: round(lat[k]["p50"], 3) for k in ("ttft_ms", "tpot_ms")
+            if k in lat}
+
+
+def _fleet_a(torch, ops, dev, model, add):
+    """14a (bench.py:1200-1238): 16 staggered requests sharing a
+    256-token system prompt through 2 replicas, then through one."""
+    from paddle_tpu_torch.inference import ContinuousBatcher, ServeRouter
+    cfg = model.config
+    V, L = cfg.vocab_size, cfg.num_hidden_layers
+    tails = [16, 48, 32, 64] * 4
+    prompts, new = _fleet_prompts(V, 4, tails), 128
+    geom = dict(max_batch_size=FLEET_SLOTS, max_len=640, chunk=64,
+                prefill_chunk=32, page_size=32, device=dev)
+    stagger = max(1, -(-256 // ((64 // 4) * 32)) + 1)
+    n_first = 2 * FLEET_SLOTS
+    torch.cuda.reset_peak_memory_stats(dev)
+    router = ServeRouter(batchers=[ContinuousBatcher(model, **geom)
+                                   for _ in range(2)])
+    ops.reset_launch_counts()
+    outs, wall = _staggered(torch, router, prompts, new, stagger, n_first)
+    counts, var, steps = _fleet_counts(torch, ops, "14a",
+                                       [r.bat for r in router._reps], L)
+    add(counts, var)
+    st = router.stats()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(_complete(outs, [new] * 16, V),
+          "14a: not every request completed with 128 tokens")
+    check(all(v > 0 for v in st["routed_by_replica"].values()),
+          f"14a: a replica routed nothing {st['routed_by_replica']}")
+    check(st["prefix_route_hit_rate"] > 0, "14a: no prefix route hit")
+    check(st["requests_requeued"] == 0 and st["requests_shed"] == 0,
+          f"14a: requeued {st['requests_requeued']} shed "
+          f"{st['requests_shed']}")
+    del router
+    single = ContinuousBatcher(model, **geom)
+    ops.reset_launch_counts()
+    souts, swall = _staggered(torch, single, prompts, new, stagger, n_first)
+    counts, var, ssteps = _fleet_counts(torch, ops, "14a single", [single],
+                                        L)
+    add(counts, var)
+    check(_complete(souts, [new] * 16, V), "14a: one replica incomplete")
+    del single
+    rs = _rescore(torch, model, prompts, outs)
+    rs1 = _rescore(torch, model, prompts, souts)
+    check(rs["over_tolerance"] == 0 and rs1["over_tolerance"] == 0,
+          f"14a: tokens outside the rounding tolerance of their row's "
+          f"maximum (fleet {rs['over_tolerance']}, one replica "
+          f"{rs1['over_tolerance']})")
+    tok = sum(len(o) for o in outs)
+    rec = dict(replicas=2, slots_per_replica=FLEET_SLOTS, requests=16,
+               new_tokens_each=new, stagger=stagger,
+               tok_per_s=tok / wall, single_tok_per_s=tok / swall,
+               vs_single=swall / wall, wall_s=wall, single_wall_s=swall,
+               forward_steps=steps, single_forward_steps=ssteps,
+               routed_by_replica=st["routed_by_replica"],
+               prefix_route_hit_rate=st["prefix_route_hit_rate"],
+               decision_ms_p50=st["decision_ms"]["p50"],
+               decision_ms_max=st["decision_ms"]["max"],
+               latency_p50=_fleet_latency(st), peak_mem_gb=peak,
+               equal_to_single=sum(np.array_equal(a, b)
+                                   for a, b in zip(outs, souts)),
+               rescore=rs, single_rescore=rs1)
+    log("[fleet] " + json.dumps(rec))
+    return rec
+
+
+def _fleet_b(torch, ops, dev, model, add):
+    """14b (bench.py:1466-1491): the same 2 replicas split prefill /
+    decode against run symmetric, on long-prompt short-decode traffic
+    sharing a 256-token system prompt."""
+    from paddle_tpu_torch.inference import ContinuousBatcher, ServeRouter
+    cfg = model.config
+    V, L = cfg.vocab_size, cfg.num_hidden_layers
+    prompts = _fleet_prompts(V, 6, [96, 16, 128, 24] * 4)
+    news = [24, 96, 16, 64] * 4
+    geom = dict(max_batch_size=FLEET_SLOTS, max_len=768, chunk=64,
+                prefill_chunk=32, page_size=32, device=dev)
+    kv_page = 2 * 32 * L * cfg.num_key_value_heads * cfg.head_dim * 2
+    recs, outs = {}, {}
+    for name, roles in (("split", ["prefill", "decode"]),
+                        ("symmetric", None)):
+        bats = [ContinuousBatcher(model, **geom) for _ in range(2)]
+        router = ServeRouter(batchers=bats, roles=roles)
+        hs = {"handoffs": []}
+        if roles:
+            _handoff_spy(torch, bats[0], bats[1], hs)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        gids = [router.submit(p, n) for p, n in zip(prompts, news)]
+        res = router.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, var, steps = _fleet_counts(torch, ops, f"14b {name}", bats,
+                                           L)
+        add(counts, var)
+        st = router.stats()
+        bst = [b.stats() for b in bats]
+        outs[name] = [res[g] for g in gids]
+        check(_complete(outs[name], news, V),
+              f"14b {name}: not every request completed")
+        check(st["requests_shed"] == 0, f"14b {name}: shed")
+        for i, b in enumerate(bst):
+            check(b["kv_pages_used"] == b["kv_pages_cached"],
+                  f"14b {name}: replica {i} leaked pages")
+        rec = dict(tok_per_s=sum(news) / wall, wall_s=wall,
+                   forward_steps=steps, latency_p50=_fleet_latency(st),
+                   prefill_tokens=[b["prefill_tokens"] for b in bst],
+                   routed_by_replica=st["routed_by_replica"])
+        if roles:
+            check(st["handoffs"] > 0 and st["handoff_staged"] == 0,
+                  f"14b: handoffs {st['handoffs']} staged "
+                  f"{st['handoff_staged']}")
+            check(bst[0]["handoffs_out"] == bst[1]["handoffs_in"]
+                  == st["handoffs"], "14b: hand-offs out != in")
+            check(st["cross_prefix_hit_tokens"] > 0,
+                  "14b: no cross-replica prefix hit")
+            check(bst[1]["prefill_tokens"] == 0,
+                  f"14b: the decode replica prefilled "
+                  f"{bst[1]['prefill_tokens']} tokens")
+            hrec = _handoff_record(torch, hs["handoffs"], kv_page)
+            first = hs["handoffs"][0]
+            check(first["written_equal"] and all(first["written_equal"])
+                  and first["buffers"] == ["k", "v"],
+                  "14b: the first hand-off's imported pages differ from "
+                  "the exported data")
+            check(hrec["written_equal"] == hrec["written_pages"],
+                  "14b: an imported page differs from its export")
+            check(hrec["bytes_per_page"] == [kv_page],
+                  f"14b: bytes a page {hrec['bytes_per_page']} != {kv_page}")
+            rec.update(copies_warm=_page_copy_ms(
+                           torch, bats[0], bats[1],
+                           sorted(hrec["n_pages"])[hrec["count"] // 2]),
+                       handoffs=st["handoffs"],
+                       handoff_bytes=st["handoff_bytes"],
+                       handoff_ms_p50=st["handoff_ms"]["p50"],
+                       handoff_ms_max=st["handoff_ms"]["max"],
+                       cross_prefix_hit_tokens=st["cross_prefix_hit_tokens"],
+                       handoff=hrec)
+        recs[name] = rec
+        del router, bats
+    rs = _rescore(torch, model, prompts, outs["split"])
+    rs2 = _rescore(torch, model, prompts, outs["symmetric"])
+    check(rs["over_tolerance"] == 0 and rs2["over_tolerance"] == 0,
+          f"14b: tokens outside the rounding tolerance (split "
+          f"{rs['over_tolerance']}, symmetric {rs2['over_tolerance']})")
+    recs.update(rescore_split=rs, rescore_symmetric=rs2,
+                equal_split_symmetric=sum(
+                    np.array_equal(a, b)
+                    for a, b in zip(outs["split"], outs["symmetric"])))
+    log("[fleet-disagg] " + json.dumps(recs))
+    return recs
+
+
+def _fleet_c(torch, ops, dev, model, add):
+    """14c: 4 of 14b's requests split prefill / decode on int8 pools:
+    the scales travel with the pages, int8 paged attention decodes over
+    them, every token re-scored through an int8 pool."""
+    from paddle_tpu_torch.inference import ContinuousBatcher, ServeRouter
+    cfg = model.config
+    V, L = cfg.vocab_size, cfg.num_hidden_layers
+    prompts = _fleet_prompts(V, 6, [96, 16, 128, 24])
+    news = [24, 96, 16, 64]
+    geom = dict(max_batch_size=FLEET_SLOTS, max_len=768, chunk=64,
+                prefill_chunk=32, page_size=32, kv_dtype="int8", device=dev)
+    bats = [ContinuousBatcher(model, **geom) for _ in range(2)]
+    router = ServeRouter(batchers=bats, roles=["prefill", "decode"])
+    hs = {"handoffs": []}
+    _handoff_spy(torch, bats[0], bats[1], hs)
+    ops.reset_launch_counts()
+    gids = [router.submit(p, n) for p, n in zip(prompts, news)]
+    res = router.run()
+    counts, var, steps = _fleet_counts(torch, ops, "14c", bats, L, "int8")
+    add(counts, var)
+    st = router.stats()
+    outs = [res[g] for g in gids]
+    check(_complete(outs, news, V), "14c: not every request completed")
+    kv_page = (32 * L * cfg.num_key_value_heads * cfg.head_dim
+               + L * cfg.num_key_value_heads * 4) * 2
+    hrec = _handoff_record(torch, hs["handoffs"], kv_page)
+    check(st["handoffs"] == len(prompts) and hrec["buffers"]
+          == ["k", "k_scale", "v", "v_scale"],
+          f"14c: {st['handoffs']} hand-offs of {hrec['buffers']}")
+    check(hrec["written_equal"] == hrec["written_pages"] > 0,
+          "14c: an imported int8 page or scale differs from its export")
+    check(hrec["bytes_per_page"] == [kv_page],
+          f"14c: bytes a page {hrec['bytes_per_page']} != {kv_page}")
+    check(bats[1].stats()["prefill_tokens"] == 0,
+          "14c: the decode replica prefilled")
+    copies = _page_copy_ms(torch, bats[0], bats[1],
+                           sorted(hrec["n_pages"])[hrec["count"] // 2])
+    del router, bats
+    rs = _rescore_paged(torch, model, prompts, outs, "int8", 32, 32)
+    rs_bf16 = _rescore(torch, model, prompts, outs)
+    check(rs["over_tolerance"] == 0,
+          f"14c: {rs['over_tolerance']} tokens outside the rounding "
+          f"tolerance of their int8-pool row's maximum")
+    rec = dict(handoffs=st["handoffs"], handoff=hrec, copies_warm=copies,
+               forward_steps=steps,
+               paged_attention_variants=var, rescore_int8_pool=rs,
+               rescore_bf16_dense=rs_bf16)
+    log("[fleet-int8] " + json.dumps(rec))
+    return rec
+
+
+def _fleet_d(torch, ops, dev, model, add):
+    """14d: 4 streaming requests through 14a's fleet at 32 new tokens;
+    replica 1 killed at the first round boundary at which it holds a
+    request mid-stream."""
+    from paddle_tpu_torch.inference import ContinuousBatcher, ServeRouter
+    cfg = model.config
+    V, L = cfg.vocab_size, cfg.num_hidden_layers
+    prompts = _fleet_prompts(V, 4, [16, 48, 32, 64])
+    new = 32
+    geom = dict(max_batch_size=FLEET_SLOTS, max_len=640, chunk=64,
+                prefill_chunk=32, page_size=32, device=dev)
+    bats = [ContinuousBatcher(model, **geom) for _ in range(2)]
+    router = ServeRouter(batchers=bats)
+    events = {}
+
+    def cb(gid, toks, done):
+        events.setdefault(gid, []).append(([int(t) for t in toks], done))
+
+    ops.reset_launch_counts()
+    gids = [router.submit(p, new, on_token=cb) for p in prompts]
+    rounds = 0
+    while not any(r is not None and r.delivered for r in bats[1]._slots):
+        check(rounds < 8, "14d: replica 1 never held a streaming request")
+        router.step()
+        rounds += 1
+    migrated = router.kill_replica(1)
+    res = router.run()
+    counts, var, steps = _fleet_counts(torch, ops, "14d", bats, L)
+    add(counts, var)
+    st = router.stats()
+    outs = [res[g] for g in gids]
+    check(_complete(outs, [new] * 4, V), "14d: a request did not complete")
+    for g in gids:
+        bursts = events.get(g, [])
+        check([t for b, _ in bursts for t in b] == [int(t) for t in res[g]]
+              and [d for _, d in bursts].count(True) == 1,
+              f"14d: request {g}'s streamed bursts differ from its output")
+    check(st["requests_requeued"] >= 1 and migrated >= 1,
+          f"14d: requeued {st['requests_requeued']}")
+    rs = _rescore(torch, model, prompts, outs)
+    check(rs["over_tolerance"] == 0, "14d: tokens outside the tolerance")
+    rec = dict(kill_after_rounds=rounds, migrated=migrated,
+               requeued=st["requests_requeued"], forward_steps=steps,
+               bursts=sum(len(b) for b in events.values()), rescore=rs)
+    log("[fleet-kill] " + json.dumps(rec))
+    return rec
+
+
+def _flap_count(records, cooldown):
+    """tools/autoscale_report.py::flap_count: executed scale actions of
+    opposite kinds closer together than the cooldown, in daemon ticks."""
+    opposite = {"scale_out": "scale_in", "scale_in": "scale_out"}
+    done = [r for r in records
+            if r.get("status") == "done" and r.get("kind") in opposite]
+    flaps = 0
+    for a, b in zip(done, done[1:]):
+        if b["kind"] != opposite[a["kind"]]:
+            continue
+        if a.get("tick") is not None and b.get("tick") is not None:
+            dist = int(b["tick"]) - int(a["tick"])
+        else:
+            dist = int(b["epoch"]) - int(a["epoch"])
+        if dist < cooldown:
+            flaps += 1
+    return flaps
+
+
+def _fleet_e(torch, ops, dev, model, add):
+    """14e (bench.py:1338-1395): the diurnal curve through an autoscaled
+    fleet of 1..3 replicas, 8 submission ticks (one period) and 4 drain
+    ticks, 8 router rounds a tick, under a queue of 16."""
+    from paddle_tpu_torch.fleet import (AutoscalePolicy, AutoscalerDaemon,
+                                        DiurnalLoadSim)
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.inference import ContinuousBatcher, ServeRouter
+    cfg = model.config
+    V, L = cfg.vocab_size, cfg.num_hidden_layers
+    geom = dict(max_batch_size=FLEET_SLOTS, max_len=384, chunk=32,
+                prefill_chunk=32, page_size=32, device=dev)
+    sim = DiurnalLoadSim(vocab=V, seed=3, period=8, low=2, high=12,
+                         prompt_len=48, max_new=64)
+    policy = AutoscalePolicy(min_replicas=1, max_replicas=3, window=1,
+                             cooldown=2, queue_high=0.75, queue_low=0.5,
+                             lease_ttl_s=0.0)
+    bats = []
+
+    def spawn():
+        bats.append(ContinuousBatcher(model, **geom))
+        return bats[-1]
+
+    router = ServeRouter(batchers=[spawn()])
+    daemon = AutoscalerDaemon(router, policy=policy, spawn=spawn)
+    ops.reset_launch_counts()
+    set_flags({"FLAGS_autoscale": True, "FLAGS_serve_queue_depth": 16})
+    gids, statuses = [], []
+    t0 = time.perf_counter()
+    for t in range(8 + 4):
+        if t < 8:
+            for r in sim.requests(t):
+                gids.append(router.submit(r["prompt"], r["max_new"],
+                                          slo=r["slo"]))
+        statuses.append(daemon.tick()["status"])
+        for _ in range(8):
+            router.step()
+    res = router.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    set_flags({"FLAGS_autoscale": False, "FLAGS_serve_queue_depth": 0})
+    counts, var, steps = _fleet_counts(torch, ops, "14e", bats, L)
+    add(counts, var)
+    st = router.stats()
+    journal = daemon.journal()
+    epochs = [int(r["epoch"]) for r in journal]
+    kinds = {}
+    for r in journal:
+        if r.get("status") == "done":
+            kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+    shed = [g for g in gids if router._reqs[g].shed]
+    check(sorted(res) == sorted(gids) and all(
+        router._reqs[g].done for g in gids),
+        "14e: a submitted request neither completed nor shed")
+    check(all(len(res[g]) == 64 for g in gids if g not in shed),
+          "14e: a completed request is short")
+    check(not any(r.get("status") == "pending" for r in journal),
+          "14e: a journal record is still pending")
+    check(len(epochs) == len(set(epochs)), "14e: an epoch repeats")
+    flaps = _flap_count(journal, policy.cooldown)
+    check(flaps == 0, f"14e: {flaps} flaps")
+    by_cls = {}
+    for g in gids:
+        rr = router._reqs[g]
+        tot, ok = by_cls.get(rr.slo, (0, 0))
+        by_cls[rr.slo] = (tot + 1, ok + (0 if rr.shed else 1))
+    rec = dict(requests=len(gids), shed=len(shed), actions=kinds,
+               statuses=statuses,
+               journal=[(r["tick"], r["kind"], r["replica"], r["status"])
+                        for r in journal],
+               flaps=flaps, replicas_built=len(bats),
+               live_replicas=st["live_replicas"],
+               attainment={c: round(ok / tot, 4)
+                           for c, (tot, ok) in by_cls.items()},
+               tok_per_s=sum(len(res[g]) for g in gids) / wall, wall_s=wall,
+               forward_steps=steps)
+    log("[fleet-autoscale] " + json.dumps(rec))
+    return rec
+
+
+def phase_fleet(torch, ops, dev):
+    """Phase 14 at Llama-2-7B width and depth (bf16, seed 2024): every
+    replica shares one model, each its own pool.  14a the fleet against
+    one replica, 14b prefill/decode roles with the KV hand-off against
+    the same replicas symmetric, 14c the hand-off over int8 pools, 14d a
+    kill under streaming, 14e the autoscaler over a diurnal curve.
+    Returns the launches of all five (the main path's) and
+    paged_attention's variant launches."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b_config
+    model = LlamaForCausalLM(llama_7b_config(), device=dev, seed=2024)
+    total, variants = None, {"fp": 0, "int8": 0}
+
+    def add(counts, var):
+        nonlocal total
+        total = counts if total is None else {
+            k: total[k] + counts[k] for k in total}
+        for k in variants:
+            variants[k] += var[k]
+
+    walls = {}
+    for name, fn in (("14a", _fleet_a), ("14b", _fleet_b), ("14c", _fleet_c),
+                     ("14d", _fleet_d), ("14e", _fleet_e)):
+        t = time.perf_counter()
+        fn(torch, ops, dev, model, add)
+        torch.cuda.empty_cache()
+        walls[name] = round(time.perf_counter() - t, 1)
+    log("[fleet-walls] " + json.dumps(walls))
+    del model
+    torch.cuda.empty_cache()
+    return total, {"paged_attention": variants,
+                   "quant_matmul": {"int8": 0, "int4": 0}}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3001,7 +3670,7 @@ def main():
                 + (" | " + nxt.strip() if "spill" in line and "Used" in nxt
                    else ""))
 
-    # 3-12, each phase's wall time logged
+    # 3-14, each phase's wall time logged
     walls = {}
 
     def timed(name, fn, *a, **k):
@@ -3041,13 +3710,16 @@ def main():
     spec_counts, spec_var = timed(
         "13 serve (speculative, SLO classes, faults, streaming, sampling)",
         phase_spec, torch, ops, dev, serve5)
-    # launches on the main path: the serves (5, 10, 11, 13) and the
+    fleet_counts, fleet_var = timed(
+        "14 serve fleet (router, roles and hand-off, int8 hand-off, kill,"
+        " autoscaler)", phase_fleet, torch, ops, dev)
+    # launches on the main path: the serves (5, 10, 11, 13, 14) and the
     # trainings (8, 9, 12)
     counts = {n: counts[n] + train_counts[n] + fused_counts[n]
               + int8_counts[n] + int4_counts[n] + zero3_counts[n]
-              + spec_counts[n] for n in counts}
+              + spec_counts[n] + fleet_counts[n] for n in counts}
     variants = {n: {v: variants[n][v] + int8_var[n][v] + int4_var[n][v]
-                    + spec_var[n][v] for v in variants[n]}
+                    + spec_var[n][v] + fleet_var[n][v] for v in variants[n]}
                 for n in variants}
     check(all(counts[n] > 0 for n in ops.KERNELS),
           f"a kernel never launched on the main path: {counts}")

@@ -19,10 +19,12 @@ finds counterparts by path:
                (DeviceMesh), fleet's DistributedStrategy and recompute
   jit/         TrainStep
   parallel/    ShardedTrainStep: ZeRO stages 0-3 over torch.distributed
-  inference/   paged KV allocator, greedy generate, ContinuousBatcher
+  inference/   paged KV allocator, generate, ContinuousBatcher (roles and
+               the KV hand-off), the serve-fleet router
+  fleet/       the SLO-driven autoscaler over the router
 
 Device rule: entry points (model constructors, ContinuousBatcher,
-generate) run on `cuda` unless the caller passes `device="cpu"`; with no
+generate, ServeRouter and fleet_serve) run on `cuda` unless the caller passes `device="cpu"`; with no
 CUDA device and no explicit CPU request they raise.  A TrainStep runs
 where its model lives; `distributed.init_parallel_env` starts NCCL on
 the rank's card, and gloo only for `device="cpu"`.
@@ -33,4 +35,4 @@ compiled on first launch (ops/_build.py).
 from __future__ import annotations
 
 __all__ = ["framework", "ops", "nn", "models", "optimizer", "jit",
-           "inference", "distributed", "parallel"]
+           "inference", "fleet", "distributed", "parallel"]

@@ -16,7 +16,16 @@ dispatch flags `use_fused_adamw` and `multi_tensor_adamw`
 `serve_spec_tokens` and `serve_draft_layers` (:228, :236),
 `serve_retry_budget` (:334) and `fault_injection` (:104), with the
 watchdog's `stop_check_timeout` and `comm_watchdog_abort`
-(`paddle_tpu/distributed/watchdog.py:31-35`).  The reference's
+(`paddle_tpu/distributed/watchdog.py:31-35`); and the serve fleet:
+the router's `serve_replicas`, `router_prefix_weight`,
+`router_rebalance_ms` and `router_attainment_floor` (:282-298), the
+autoscaler's `autoscale`, `autoscale_min_replicas`,
+`autoscale_max_replicas`, `autoscale_window` and `autoscale_cooldown`
+(:311-329) with the four `paddle_tpu/fleet/autoscaler.py:69-78` defines
+(`autoscale_queue_high`, `autoscale_queue_low`, `autoscale_shed_high`,
+`autoscale_lease_ttl_s`), and disaggregated serving's `serve_disagg`,
+`serve_digest_entries`, `router_migration_budget` and
+`autoscale_role_imbalance` (:347-369).  The reference's
 `fused_adamw_interpret` (Pallas interpret mode off the TPU) has no
 counterpart: a CPU tensor already takes the kernel's plain version.
 """
@@ -191,3 +200,100 @@ define_flag("stop_check_timeout", 0,
 define_flag("comm_watchdog_abort", False,
             "abort the process when a watched task times out (reference "
             "CommTaskManager abort-on-timeout behavior)")
+
+# serve-fleet router (inference/router.py): N batcher replicas behind a
+# prefix-aware, SLO-aware router; host-plane scheduling only
+define_flag("serve_replicas", 0,
+            "replica count for inference.fleet_serve() when none is "
+            "passed explicitly: the router fronts N ContinuousBatcher "
+            "replicas (in-process handles; replica-per-rank workers "
+            "publish their views over the launch KV plane).  0 falls "
+            "back to 2")
+define_flag("router_prefix_weight", 1.0,
+            "weight on a replica's prefix_hit_tokens (prompt tokens "
+            "already resident in its prefix cache — prefill work the "
+            "route would skip) in the routing score; 0 disables "
+            "prefix affinity and routes purely by load/SLO balance")
+define_flag("router_rebalance_ms", 0.0,
+            "interval for the router's queued-request rebalance sweep: "
+            "every N ms a QUEUED request on an overloaded replica "
+            "migrates to an idle one (lossless — only never-started "
+            "requests move).  0 (default) disables rebalancing")
+define_flag("router_attainment_floor", 0.9,
+            "interactive SLO floor for routing: an interactive request "
+            "never routes to a replica whose interactive attainment "
+            "sits below the floor while another candidate has "
+            "headroom (at/above it, or no attainment signal yet).  0 "
+            "disables the floor")
+
+# SLO-driven elastic autoscaler (fleet/autoscaler.py): off by default,
+# when tick() returns on one flag read
+define_flag("autoscale", False,
+            "master switch for the SLO-driven elastic autoscaler "
+            "(fleet.autoscaler.AutoscalerDaemon): off (default), "
+            "tick() is a no-op — no decisions, no KV traffic, no "
+            "lease.  On, the lease-holding daemon polls the fleet "
+            "view and executes scale-out/scale-in/role-flip via the "
+            "lossless drain + re-form path")
+define_flag("autoscale_min_replicas", 1,
+            "scale-in floor: the autoscaler never drains the fleet "
+            "below this many routable replicas")
+define_flag("autoscale_max_replicas", 4,
+            "scale-out ceiling: the autoscaler never grows the fleet "
+            "past this many live replicas")
+define_flag("autoscale_window", 2,
+            "hysteresis window in polls: pressure (or idleness) must "
+            "persist for this many CONSECUTIVE daemon ticks before an "
+            "action is taken — a one-tick load spike never moves the "
+            "fleet")
+define_flag("autoscale_cooldown", 4,
+            "per-action-kind cooldown in polls: after an executed "
+            "scale action, the opposite kind is additionally blocked "
+            "for this many ticks — oscillating load can never flap "
+            "the fleet (autoscale_report asserts flap count 0)")
+define_flag("autoscale_queue_high", 1.5,
+            "fleet occupancy ((active+queued)/slots) above which a "
+            "tick counts as PRESSURED toward a scale-out")
+define_flag("autoscale_queue_low", 0.25,
+            "fleet occupancy below which a tick counts as IDLE toward "
+            "a scale-in")
+define_flag("autoscale_shed_high", 0.05,
+            "max per-replica sliding-window shed rate above which a "
+            "tick counts as pressured regardless of occupancy")
+define_flag("autoscale_lease_ttl_s", 5.0,
+            "autoscaler KV lease TTL (master-clock seconds); an "
+            "expired lease is taken over by the next daemon tick")
+
+# disaggregated prefill/decode serving and the fleet-tier prefix cache
+# (inference/serving.py roles, inference/router.py hand-off): all
+# host-plane, all off by default
+define_flag("serve_disagg", False,
+            "role-split default for inference.fleet_serve(): on, a "
+            "fleet built without explicit roles= splits its replicas "
+            "into prefill workers (chunked-prefill-only programs; "
+            "finished prompts freeze and hand their KV pages to a "
+            "decode worker) and decode workers (admit at pos = "
+            "prompt_len — no prefill recompute).  Off (default), "
+            "replicas stay unified/symmetric; explicit roles= always "
+            "wins over the flag")
+define_flag("serve_digest_entries", 32,
+            "bounded trie-digest size a replica publishes in its "
+            "router_view(digest=True): up to N [depth, chain-hash] "
+            "entries over the prefix cache, MRU-first, so peers can "
+            "score cross-replica prefix affinity from the KV plane "
+            "without a token-level probe.  0 publishes no digest")
+define_flag("router_migration_budget", 0,
+            "hot-prefix replication budget: max KV pages the router "
+            "copies per step() sweep when a prefix-affine route has "
+            "to land AWAY from the replica holding the prefix (cache "
+            "placement follows traffic).  Bounded per sweep so "
+            "placement never starves serving; 0 (default) disables "
+            "replication")
+define_flag("autoscale_role_imbalance", 2.0,
+            "sustained prefill-vs-decode pressure ratio that arms the "
+            "autoscaler's dynamic role repair: when one side's "
+            "pressure (queued+active+handoff backlog per slot) "
+            "exceeds the other's by this factor for autoscale_window "
+            "consecutive ticks, decide() emits a role_flip toward the "
+            "starved side (never below one replica per role).  0 "
+            "disables dynamic role repair")

@@ -1,17 +1,22 @@
 """Continuous batching with chunked prefill over a paged KV cache, with
-the request plane: SLO classes, deadlines and shedding, fault recovery,
-the watchdog and drain, streaming, and speculative decoding.
+the request plane (SLO classes, deadlines and shedding, fault recovery,
+the watchdog and drain, streaming, speculative decoding) and the
+disaggregated roles with their KV hand-off.
 
-Counterpart of `paddle_tpu/inference/serving.py` — `SLO_CLASSES` (:158),
-`Request` (:162-206), `ContinuousBatcher.__init__` (:232, speculation
-:281-338 and :413-466), `_paged_geometry` (:541), `submit` (:587),
-`queue_snapshot` / `_shed_victim` (:656-688), `step` / `run` / `drained`
-(:689-755), `_deliver`, `_shed`, `_shed_deadline_missed`, `_requeue`,
-`_clear_slot` and `_fault_slot` (:757-905), `_finish_spans` (:906),
-`_begin_drain` / `_flush_partial` (:966-1006), `_attainment_of` /
-`shed_rate_window` (:1042-1065), `stats` (:1118), `_evict` (:1246),
-`_admit_locked` (:1324, copy-on-write as `_page_copy_fn` :1458), the
-step body `step_core` (:1798-1850), the draft/verify body `spec_core`
+Counterpart of `paddle_tpu/inference/serving.py` — `pack_handoff` /
+`unpack_handoff` (:115-155), `SLO_CLASSES` (:158), `Request`
+(:162-206), `ContinuousBatcher.__init__` (:232, speculation :281-338
+and :413-466, roles :353-372), `_paged_geometry` (:541), `submit`
+(:587), `queue_snapshot` / `_shed_victim` (:656-688), `step` / `run` /
+`drained` (:689-755), `_deliver`, `_shed`, `_shed_deadline_missed`,
+`_requeue`, `_clear_slot` and `_fault_slot` (:757-905), `_finish_spans`
+(:906), `_begin_drain` / `_flush_partial` (:966-1006), `_attainment_of`
+/ `shed_rate_window` (:1042-1065), `prefix_match_len` / `router_view`
+(:1066-1116), `stats` (:1118), `_evict` (:1246), `_admit_locked`
+(:1324, copy-on-write as `_page_copy_fn` :1458), `set_role` (:1477),
+`export_handoff` / `import_handoff` / `unfreeze_handoff` (:1532-1700),
+`export_prefix` / `import_prefix` (:1703-1737), the step body
+`step_core` (:1798-1850), the draft/verify body `spec_core`
 (:1986-2040) and `_run_chunk` (:2097).  The scheduling is the
 reference's, decision for decision, so the same weights, requests, fault
 spec and clock give the same greedy tokens, shed sets and counters:
@@ -56,6 +61,19 @@ spec and clock give the same greedy tokens, shed sets and counters:
     the capacity clamp min(acc+1, max_len-1-pos)); rejected rows sit past
     the new frontier and are overwritten before any query reaches them.
     Greedy output equals plain decode's;
+  * roles (`role="prefill"|"decode"`, default "unified"; paged only): a
+    prefill batcher FREEZES a slot once its prompt is consumed and its
+    first token emitted (done=True on the device, pages pinned) until
+    `export_handoff` ships its valid KV pages and state; a decode
+    batcher's `import_handoff` admits it at pos = prompt_len + k, so no
+    prefill runs there.  Chunks already resident in the sink's trie are
+    not rewritten and count as cross-replica hits; the rest are written
+    into fresh pages and grafted into the trie.  A frozen slot's lanes
+    advance nothing and write only past its pos.  `unfreeze_handoff`
+    resumes a frozen slot in place when no decode sink exists (the
+    `_no_freeze` exemption stops the next sweep from refreezing it);
+    `export_prefix` / `import_prefix` replicate a resident chain
+    between pools (hot-prefix placement);
   * one [B, C] step body serves both phases: a prefilling slot feeds up
     to C prompt tokens (chunked prefill), a decoding slot its last token,
     a free or done slot nothing (its lanes write the null page or past
@@ -66,8 +84,9 @@ spec and clock give the same greedy tokens, shed sets and counters:
     (copy-on-write at a mid-page divergence) and is off by default under
     speculation (a skipped prefill never fills the draft's cache);
   * weight-only quantization (`weight_only_dtype`) packs the model's
-    decode matmuls in place before the cache is built, and an int8 KV
-    pool (`kv_dtype="int8"`) carries per-page per-head scales.
+    decode matmuls in place before the cache is built (idempotent, so
+    several batchers share one packed model), and an int8 KV pool
+    (`kv_dtype="int8"`) carries per-page per-head scales.
 
 How the reference's compiled scan becomes PyTorch: the `lax.scan` of K
 steps is a Python loop of K steps over device tensors (speculation's
@@ -78,18 +97,26 @@ reference donates them; and each chunk makes exactly ONE device-to-host
 transfer (tokens, the state the host schedules on and the speculation
 counts), as the reference's `_run_chunk` does.  A draft's prefill stops
 at its hidden states (`fill_cache`): eager PyTorch would otherwise
-compute an lm head the reference's compiler drops.
+compute an lm head the reference's compiler drops.  The hand-off's page
+gather and scatter are device indexing on the current stream, so an
+export, an import and the next step are ordered by the stream alone (a
+grafted chunk is registered complete before its data lands, which is
+safe because nothing can read it before the next step).  The reference
+gathers a fixed [pages_per_slot] page list padded with the null page so
+one compiled program serves every export; in-process the port moves
+only the n_pages valid pages, `pack_handoff` writes the reference's
+padded layout, and `import_handoff` takes either.
 
-Left out of the port so far (later work, see ROADMAP.md):
-prefill/decode roles and KV hand-off (`role=`, `export_handoff`,
-`import_handoff`, their stats keys), the router view and the
-autoscaler, and telemetry events (the reference's `serve.*` events,
-counters and histograms; `stats()` holds the same aggregates).
-`stats()` has no `compiled_programs`: the port compiles no step
-programs until CUDA-graph capture lands.  Decoding is greedy.
+Left out of the port so far (later work, see ROADMAP.md): telemetry
+events (the reference's `serve.*` events, counters and histograms, the
+hand-off's `serve.handoff` among them; `stats()` holds the same
+aggregates).  `stats()` has no `compiled_programs`: the port compiles no
+step programs until CUDA-graph capture lands.  Decoding is greedy.
 """
 from __future__ import annotations
 
+import io
+import json
 import os
 import threading
 import time
@@ -109,7 +136,72 @@ from ..models.llama import _resolve_kv_dtype
 from ..quantization.weight_only import quantize_model
 from .paged_kv import PageAllocator
 
-__all__ = ["ContinuousBatcher", "Request", "SLO_CLASSES"]
+__all__ = ["ContinuousBatcher", "Request", "SLO_CLASSES",
+           "pack_handoff", "unpack_handoff"]
+
+
+def _wire_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor's raw bytes as numpy: types numpy lacks (bfloat16) as
+    the unsigned integer of their width, the rest as themselves."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def pack_handoff(meta, data) -> bytes:
+    """Serialize one hand-off (meta + its KV pages) for a multi-process
+    fleet's KV plane; in-process fleets pass the tensors straight to
+    import_handoff.  The reference's wire format: an 8-byte big-endian
+    header length, the JSON meta (prompt as a list, `_dtypes` naming each
+    buffer's numpy dtype) and an npz of the buffers, a type numpy lacks
+    (bfloat16) stored as the unsigned integer view of its bytes.  The
+    pages are padded to `meta["pages_per_slot"]` (zeros past n_pages:
+    the reference's fixed export shape, whose pad rows are junk), so a
+    blob unpacks and imports in either package."""
+    m = dict(meta)
+    m["prompt"] = [int(t) for t in np.asarray(meta["prompt"]).tolist()]
+    n = int(meta["n_pages"])
+    rows = max(n, int(meta.get("pages_per_slot") or n))
+    arrays = {}
+    dtypes = {}
+    for k, v in data.items():
+        a = _wire_array(v[:n])
+        if rows > n:
+            a = np.concatenate(
+                [a, np.zeros((rows - n,) + a.shape[1:], a.dtype)])
+        arrays[k] = a
+        dtypes[k] = str(v.dtype).replace("torch.", "")
+    m["_dtypes"] = dtypes
+    header = json.dumps(m).encode("utf-8")
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return len(header).to_bytes(8, "big") + header + buf.getvalue()
+
+
+def unpack_handoff(blob: bytes):
+    """Inverse of pack_handoff: (meta, data) with CPU tensors in the
+    blob's layout (padded to pages_per_slot, the first n_pages valid),
+    ready for import_handoff(), which moves them to its device."""
+    n = int.from_bytes(blob[:8], "big")
+    meta = json.loads(blob[8:8 + n].decode("utf-8"))
+    meta["prompt"] = np.asarray(meta["prompt"], np.int32)
+    dtypes = meta.pop("_dtypes", {})
+    npz = np.load(io.BytesIO(blob[8 + n:]))
+    data = {}
+    for k in npz.files:
+        a = npz[k]
+        want = dtypes.get(k)
+        if want == "bfloat16":
+            data[k] = torch.from_numpy(a.view(np.int16).copy()) \
+                .view(torch.bfloat16)
+        elif want in (None, str(a.dtype)):
+            data[k] = torch.from_numpy(a.copy())
+        else:
+            raise ValueError(f"hand-off buffer {k!r} is {a.dtype}, its "
+                             f"header says {want}")
+    return meta, data
+
 
 # admission priority order, highest first; shedding walks it in reverse
 SLO_CLASSES = ("interactive", "batch", "best_effort")
@@ -192,8 +284,13 @@ class ContinuousBatcher:
     the batcher's device; None with K > 0 builds the target's early-exit
     draft of `draft_layers` layers (None reads
     FLAGS_serve_draft_layers).
+    role: "unified" (default), "prefill" (freeze each slot at its
+    prompt's end for export_handoff) or "decode" (takes import_handoff;
+    admits fresh prompts only when the fleet has no prefill replica);
+    roles other than unified need the paged layout.
     device: None means CUDA (raises without one); the model must live
-    on the resolved device.
+    on the resolved device.  Several batchers may share one model: the
+    weights are shared, each batcher keeps its own pool and state.
     """
 
     def __init__(self, model, max_batch_size: int = 4, max_len: int = 256,
@@ -209,6 +306,7 @@ class ContinuousBatcher:
                  spec_tokens: Optional[int] = None,
                  draft_model=None,
                  draft_layers: Optional[int] = None,
+                 role: str = "unified",
                  device=None):
         if not hasattr(model, "forward_cached"):
             raise TypeError("ContinuousBatcher needs a decode-capable "
@@ -281,6 +379,15 @@ class ContinuousBatcher:
         self._slots: List[Optional[Request]] = [None] * self.B
         self._finished: Dict[int, Request] = {}
         self._next_id = 0
+        # disaggregated roles: a prefill batcher freezes each slot whose
+        # prompt is consumed until export_handoff() ships its pages; a
+        # decode batcher admits hand-offs at pos >= prompt_len
+        self.set_role(role)
+        self._handoff_ready: Dict[int, int] = {}   # rid -> slot index
+        self._no_freeze: set = set()    # unfrozen rids: decode here
+        self._handoffs_out = 0
+        self._handoffs_in = 0
+        self._handoff_bytes = 0
         self._arrival_seq = 0
         self._now = time.monotonic     # patchable time source (tests)
         self._has_deadlines = False    # the sweep is skipped until a
@@ -495,7 +602,11 @@ class ContinuousBatcher:
         if not self._draining:
             self._shed_deadline_missed()
             self._admit()
-        if any(r is not None for r in self._slots):
+        # frozen hand-off slots are done on the device and need no
+        # chunk: a prefill batcher whose live slots are all frozen parks
+        # until export_handoff() frees them
+        if any(r is not None and r.req_id not in self._handoff_ready
+               for r in self._slots):
             self._run_chunk(mixed=bool(self._mode_host.any()))
             newly += self._evict()
         return newly
@@ -511,6 +622,17 @@ class ContinuousBatcher:
                     and self._now() > self._drain_deadline:
                 self._flush_partial()
                 break
+            if self._handoff_ready:
+                # a prefill batcher driven on its own: once every live
+                # slot is frozen and no queued request can take a free
+                # slot, step() can make no progress — park, and let the
+                # router export
+                occ = [r for r in self._slots if r is not None]
+                if occ and all(r.req_id in self._handoff_ready
+                               for r in occ) \
+                        and not (len(occ) < self.B
+                                 and self._queued_count()):
+                    break
             self.step()
         return {rid: r.output() for rid, r in self._finished.items()}
 
@@ -605,13 +727,59 @@ class ContinuousBatcher:
         w = self._terminal_window
         return round(sum(w) / len(w), 4) if w else 0.0
 
+    def prefix_match_len(self, input_ids) -> int:
+        """Prompt tokens of `input_ids` already resident in this
+        batcher's prefix cache: the prefill an admission here would
+        skip.  A read-only trie probe (no page pinned, no LRU order
+        touched); 0 for the dense layout or with prefix sharing off."""
+        if self.kv_layout != "paged" or not self.prefix_sharing:
+            return 0
+        ids = np.asarray(input_ids, np.int32).reshape(-1)
+        return self._alloc.prefix_match_len(ids)
+
+    def router_view(self, prompt=None, digest: bool = False) \
+            -> Dict[str, object]:
+        """The host-plane policy view the serve-fleet router weighs
+        (inference/router.py) and a replica publishes: queue depth,
+        occupancy, role, hand-off backlog, drain state, shed rates and
+        per-class attainment, the pool's free and cached pages.  No
+        device read.  With `prompt`, this replica's prefix_hit_tokens
+        for it (read-only probe); with `digest`, the bounded trie digest
+        (FLAGS_serve_digest_entries) and the page size."""
+        qbc = self.queue_snapshot()
+        view: Dict[str, object] = {
+            "queued": sum(qbc.values()),
+            "queued_by_class": qbc,
+            "active": self.active,
+            "slots": self.B,
+            "role": self.role,
+            "handoff_ready": len(self._handoff_ready),
+            "draining": self._draining,
+            "shed_rate": round(self._shed_count / self._submitted, 4)
+            if self._submitted else 0.0,
+            "shed_rate_window": self.shed_rate_window,
+            "attainment": {c: self._attainment_of(c)
+                           for c in SLO_CLASSES},
+        }
+        if self.kv_layout == "paged":
+            view["kv_pages_free"] = self._alloc.pages_free
+            view["kv_pages_cached"] = self._alloc.pages_cached
+            if digest and self.prefix_sharing:
+                n = int(get_flag("serve_digest_entries", 32) or 0)
+                view["trie_digest"] = self._alloc.trie_digest(n)
+                view["page_size"] = self.page_size
+        if prompt is not None:
+            view["prefix_hit_tokens"] = self.prefix_match_len(prompt)
+        return view
+
     def stats(self) -> Dict[str, object]:
         """Scheduler counters: chunks by kind, forward steps, occupancy,
         the prefill/decode token split (scan-level work), useful tokens,
         chunk wall times (p50 over the last 1024 chunks, all and by kind;
         max over the lifetime; seconds), the robustness counters, the
         speculation block, latency windows (ms) and per-SLO attainment,
-        and the KV-pool block."""
+        the role and hand-off counters, and the KV-pool block (with the
+        fleet tier's import_hit_tokens and grafted_pages)."""
         n = self._chunk_count
 
         def p50(xs):
@@ -650,6 +818,13 @@ class ContinuousBatcher:
             "queued": sum(qbc.values()),
             "queued_by_class": qbc,
             "drained": self._draining,
+            # hand-off terminals: per batcher, submitted == completed +
+            # shed + handoffs_out (an import counts as a submission)
+            "role": self.role,
+            "handoffs_out": self._handoffs_out,
+            "handoffs_in": self._handoffs_in,
+            "handoff_bytes": self._handoff_bytes,
+            "handoff_ready": len(self._handoff_ready),
         }
         wo = getattr(self.model, "_weight_only", None)
         out["weight_only"] = wo["dtype"] if wo else "none"
@@ -696,11 +871,14 @@ class ContinuousBatcher:
                 kv_pages_cached=self._alloc.pages_cached,
                 kv_dtype=self._kv_dtype,
                 prefix_hit_tokens=self._alloc.prefix_hit_tokens,
+                import_hit_tokens=self._alloc.import_hit_tokens,
+                grafted_pages=self._alloc.grafted_pages,
                 evictions=self._alloc.evictions,
                 cow_copies=self._alloc.cow_copies,
             )
         else:
-            out.update(prefix_hit_tokens=0, evictions=0, cow_copies=0)
+            out.update(prefix_hit_tokens=0, import_hit_tokens=0,
+                       grafted_pages=0, evictions=0, cow_copies=0)
         return out
 
     # -- streaming and robustness plumbing ---------------------------------
@@ -772,6 +950,8 @@ class ContinuousBatcher:
         page mapping (prompt pages stay resident as cached prefix pages,
         pending ones are dropped; the freed slot's junk lanes write the
         null page)."""
+        if self._slots[i] is not None:
+            self._no_freeze.discard(self._slots[i].req_id)
         self._slots[i] = None
         self._done[i] = True
         self._mode[i] = False
@@ -864,9 +1044,27 @@ class ContinuousBatcher:
         for i, req in enumerate(self._slots):
             if req is None:
                 continue
+            if req.req_id in self._handoff_ready:
+                # frozen awaiting hand-off: done on the device is the
+                # freeze, not a finish; export_handoff() clears the slot
+                continue
             hit_eos = self.eos is not None and self.eos in req.tokens
             if hit_eos:
                 req.tokens = req.tokens[: req.tokens.index(self.eos) + 1]
+            if self.role == "prefill" and not self._mode_host[i] \
+                    and req.tokens and not hit_eos \
+                    and not self._done_host[i] \
+                    and req.req_id not in self._no_freeze \
+                    and len(req.tokens) < req.max_new_tokens:
+                # the prompt is consumed and its first token(s) emitted:
+                # freeze the slot (done lanes advance nothing and write
+                # only past pos) with its pages pinned until a decode
+                # batcher imports them.  A role flip reaches here with
+                # mid-decode slots too: they hand off at pos = plen + k
+                self._handoff_ready[req.req_id] = i
+                self._done[i] = True
+                self._done_host[i] = True
+                continue
             # capacity clamp: a slot whose buffer filled stops emitting
             capped = (self._done_host[i] and not self._mode_host[i]
                       and req.tokens)
@@ -995,6 +1193,220 @@ class ContinuousBatcher:
                 prefilling = start < len(req.prompt)
                 self._mode[i] = prefilling
                 self._mode_host[i] = prefilling
+
+    # -- disaggregated hand-off ---------------------------------------------
+    def set_role(self, role: str):
+        """Host-plane role flip (the autoscaler's role repair).  Flipping
+        to 'prefill' strands nothing: mid-decode slots freeze at the next
+        boundary and hand off; flipping away from 'prefill' reopens
+        decode for later admissions (frozen slots still leave through
+        export_handoff)."""
+        if role not in ("unified", "prefill", "decode"):
+            raise ValueError(f"role {role!r}: unified|prefill|decode")
+        if role != "unified" and self.kv_layout != "paged":
+            raise TypeError("disaggregated roles need kv_layout="
+                            "'paged' (the hand-off ships pages)")
+        self.role = role
+
+    def _gather_pages(self, pages) -> Dict[str, torch.Tensor]:
+        """Copies of the given pages of every cache buffer (K, V and an
+        int8 pool's scales), page-major, on the current stream."""
+        idx = torch.as_tensor(np.asarray(pages, np.int64),
+                              device=self.device)
+        return {name: buf.index_select(0, idx)
+                for name, buf in self._cache.items()}
+
+    def _scatter_pages(self, pages, data, lo: int):
+        """Write rows [lo, lo + len(pages)) of each buffer in `data`
+        (page-major, either layout) into `pages` of the pool, on the
+        current stream."""
+        if not len(pages):
+            return
+        dst = torch.as_tensor(np.asarray(pages, np.int64),
+                              device=self.device)
+        hi = lo + len(pages)
+        for name, buf in self._cache.items():
+            buf.index_copy_(0, dst, data[name][lo:hi].to(self.device))
+
+    @staticmethod
+    def _page_bytes(data, n_pages: int) -> int:
+        return int(sum(t.numel() // t.shape[0] * t.element_size()
+                       for t in data.values()) * n_pages)
+
+    def export_handoff(self, rid: int):
+        """Detach a frozen hand-off-ready request: copy its n_pages valid
+        KV pages (rows [0, pos); an int8 pool's scales with them) and
+        what a decode batcher needs to resume at pos (prompt, emitted
+        tokens, SLO state), then free the slot.  The prompt's full
+        chunks stay resident here as cached prefix pages.  Accounting:
+        the request leaves as a hand-off, not a completion — per
+        batcher, submitted == completed + shed + handoffs_out."""
+        i = self._handoff_ready.pop(rid, None)
+        if i is None:
+            raise KeyError(f"request {rid} is not hand-off ready")
+        req = self._slots[i]
+        pos = int(self._pos_host[i])
+        ps = self.page_size
+        n_pages = -(-pos // ps)
+        plan = self._plans[i]
+        data = self._gather_pages(plan.pages[:n_pages])
+        nbytes = self._page_bytes(data, n_pages)
+        meta = {
+            "rid": int(req.req_id),
+            "prompt": np.asarray(req.prompt, np.int32),
+            "pos": pos,
+            "plen": int(len(req.prompt)),
+            "tokens": [int(t) for t in req.tokens],
+            "max_new_tokens": int(req.max_new_tokens),
+            "slo": req.slo,
+            "deadline": req.deadline,
+            "t_submit": req.t_submit,
+            "t_first": req.t_first,
+            "n_pages": int(n_pages),
+            "page_size": int(ps),
+            "kv_dtype": self._kv_dtype,
+            "nbytes": int(nbytes),
+            "pages_per_slot": int(self.pages_per_slot),
+        }
+        self._handoffs_out += 1
+        self._handoff_bytes += nbytes
+        self._clear_slot(i)
+        return meta, data
+
+    def import_handoff(self, meta, data, on_token=None) -> Optional[int]:
+        """Admit a handed-off request at pos = prompt_len + k: no prefill
+        runs for it here (this batcher's prefill_tokens stays flat).
+        `data` holds the exported pages, n_pages of them or padded to
+        pages_per_slot (a reference blob).  Pages whose chunks are
+        already resident in the local trie are not rewritten and count
+        as cross-replica prefix hits; the rest are written into fresh
+        pages, and the prompt chain is grafted into the trie.  Returns
+        the local req_id, or None when no slot (or no pages) is free —
+        the caller retries later; nothing is allocated on None."""
+        if self.role == "prefill":
+            raise RuntimeError("prefill-role batcher cannot import a "
+                               "hand-off")
+        if self.kv_layout != "paged":
+            raise TypeError("import_handoff needs the paged KV layout")
+        if int(meta["page_size"]) != self.page_size \
+                or str(meta["kv_dtype"]) != self._kv_dtype:
+            raise ValueError(
+                "hand-off geometry mismatch: got page_size=%s/%s, "
+                "this pool is %d/%s" % (meta["page_size"],
+                                        meta["kv_dtype"],
+                                        self.page_size, self._kv_dtype))
+        with self._qlock:
+            free = [i for i in range(self.B) if self._slots[i] is None]
+            if not free:
+                return None
+            prompt = np.asarray(meta["prompt"], np.int32)
+            pos = int(meta["pos"])
+            ps = self.page_size
+            covered_rows = min(
+                len(prompt) + int(meta["max_new_tokens"])
+                + self._overshoot, self._cache_len)
+            covered_pages = min(-(-covered_rows // ps),
+                                self.pages_per_slot)
+            n_pages = int(meta["n_pages"])
+            if n_pages > covered_pages:
+                raise ValueError(
+                    f"hand-off spans {n_pages} pages but this pool "
+                    f"covers {covered_pages} per slot")
+            plan = self._alloc.admit(
+                prompt if self.prefix_sharing else prompt[:0],
+                covered_pages, imported=True)
+            if plan is None:
+                return None
+            if plan.cow is not None:
+                # the imported data covers the divergence page: no
+                # copy, just unpin the copy-on-write source
+                self._alloc.release_page(plan.cow[0])
+            # write only the non-shared valid pages: shared chunks hold
+            # the same rows already (and other live slots may map them)
+            lo = plan.n_shared_pages
+            self._scatter_pages(plan.pages[lo:n_pages], data, lo)
+            rid = self._next_id
+            self._next_id += 1
+            req = Request(rid, prompt, int(meta["max_new_tokens"]),
+                          slo=str(meta.get("slo", "batch")),
+                          deadline=meta.get("deadline"),
+                          arrival=self._arrival_seq, on_token=on_token)
+            self._arrival_seq += 1
+            if req.deadline is not None:
+                self._has_deadlines = True
+            req.tokens = [int(t) for t in meta.get("tokens", ())]
+            req.t_submit = float(meta.get("t_submit") or self._now())
+            req.t_first = meta.get("t_first")
+            req.t_admit = self._now()
+            i = free[0]
+            self._slots[i] = req
+            self._submitted += 1       # arrives as a hand-off, so the
+            self._admissions += 1      # no-leak partition still closes
+            self._handoffs_in += 1
+            nbytes = int(meta.get("nbytes")
+                         or self._page_bytes(data, n_pages))
+            self._handoff_bytes += nbytes
+            buf = np.zeros((self.max_len,), np.int32)
+            buf[: len(prompt)] = prompt
+            self._prompts[i] = torch.from_numpy(buf).to(self.device)
+            self._plen[i] = len(prompt)
+            self._tok[i] = int(req.tokens[-1]) if req.tokens else 0
+            self._done[i] = False
+            self._done_host[i] = False
+            self._plans[i] = plan
+            row = np.zeros((self.pages_per_slot,), np.int32)
+            row[: len(plan.pages)] = plan.pages
+            self._page_table[i] = torch.from_numpy(row).to(self.device)
+            self._pos[i] = pos
+            self._pos_host[i] = pos
+            self._mode[i] = False
+            self._mode_host[i] = False
+            # the prompt's full chunks are valid through pos: completing
+            # them grafts the prefix into this trie
+            self._alloc.mark_progress(plan, pos)
+            return rid
+
+    def unfreeze_handoff(self, rid: int):
+        """No decode-capable replica is left: the frozen slot resumes
+        decoding here rather than deadlock its request."""
+        i = self._handoff_ready.pop(rid)
+        # pin the exemption before clearing done, or the next _evict
+        # sweep refreezes the slot and the fleet livelocks on
+        # freeze/unfreeze
+        self._no_freeze.add(rid)
+        self._done[i] = False
+        self._done_host[i] = False
+
+    # -- hot-prefix replication ---------------------------------------------
+    def export_prefix(self, tokens):
+        """Holder side of cache placement: (n_tokens, data) for the
+        resident complete chain of `tokens` (its pages only), or None
+        when nothing is resident.  Read-only, gathered at this chunk
+        boundary before any allocation could evict the chain."""
+        if self.kv_layout != "paged" or not self.prefix_sharing:
+            return None
+        n_tok, pages = self._alloc.export_chain(tokens)
+        pages = pages[: self.pages_per_slot]
+        if not pages:
+            return None
+        return len(pages) * self.page_size, self._gather_pages(pages)
+
+    def import_prefix(self, tokens, n_tokens: int, data) -> int:
+        """Target side of cache placement: graft the chain's chunks into
+        the local trie (already-resident ones skipped) and write the
+        holder's page data.  Returns the pages grafted; 0 under pool
+        pressure (placement is best-effort and never starves
+        serving)."""
+        if self.kv_layout != "paged" or not self.prefix_sharing:
+            return 0
+        n_chunks = min(int(n_tokens) // self.page_size,
+                       self.pages_per_slot)
+        pairs = self._alloc.graft(tokens, n_chunks)
+        if not pairs:
+            return 0
+        # graft returns a contiguous run of chunks: the chain's missing tail
+        self._scatter_pages([page for _, page in pairs], data, pairs[0][0])
+        return len(pairs)
 
     # -- the step bodies ----------------------------------------------------
     def _target(self, x, pos):

@@ -3,8 +3,8 @@
   * importing the package and every submodule pulls in neither `jax`
     nor `paddle_tpu` (checked in a fresh interpreter);
   * the device rule: with no CUDA device, an entry point given no
-    `device=` raises instead of running on the CPU (init_parallel_env
-    and build_mesh too);
+    `device=` raises instead of running on the CPU (init_parallel_env,
+    build_mesh, ServeRouter and fleet_serve too);
   * the kernel wrappers have no fallback: a tensor that is not on the
     CPU goes to the kernel or raises, and no `try` in ops/ can swallow
     a launch or build error, nor one in the trainer a collective;
@@ -26,7 +26,8 @@ import torch
 import paddle_tpu_torch
 from paddle_tpu_torch import ops
 from paddle_tpu_torch.framework import flags as tflags
-from paddle_tpu_torch.inference import ContinuousBatcher, generate
+from paddle_tpu_torch.inference import (ContinuousBatcher, ServeRouter,
+                                        fleet_serve, generate)
 from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
 from paddle_tpu_torch.distributed import build_mesh, init_parallel_env
 from paddle_tpu_torch.ops import _build
@@ -41,6 +42,7 @@ import paddle_tpu_torch, paddle_tpu_torch.inference.serving
 import paddle_tpu_torch.inference.generation
 import paddle_tpu_torch.distributed.fault, paddle_tpu_torch.distributed.guard
 import paddle_tpu_torch.distributed.watchdog
+import paddle_tpu_torch.inference.router, paddle_tpu_torch.fleet.autoscaler
 for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch."):
     importlib.import_module(m.name)
 bad = sorted(n for n in sys.modules
@@ -129,6 +131,43 @@ def test_batcher_and_generate_without_device_raise(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         generate(m, np.ones((1, 3), np.int32), 2)
     ContinuousBatcher(m, device="cpu")          # explicit CPU is fine
+
+
+def test_fleet_entry_points_without_device_raise(no_cuda):
+    """ServeRouter and fleet_serve build their batchers on CUDA unless
+    asked for the CPU: with no CUDA device they raise, and build no
+    replica."""
+    m = LlamaForCausalLM(llama_tiny_config(), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeRouter(m, replicas=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fleet_serve(m)
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        fleet_serve(m, replicas=2, device="cuda")
+    assert fleet_serve(m, replicas=2, device="cpu").replicas == 2
+
+
+FLEET_FLAGS = ("serve_replicas", "router_prefix_weight",
+               "router_rebalance_ms", "router_attainment_floor",
+               "autoscale", "autoscale_min_replicas",
+               "autoscale_max_replicas", "autoscale_window",
+               "autoscale_cooldown", "autoscale_queue_high",
+               "autoscale_queue_low", "autoscale_shed_high",
+               "autoscale_lease_ttl_s", "serve_disagg",
+               "serve_digest_entries", "router_migration_budget",
+               "autoscale_role_imbalance")
+
+
+@pytest.mark.parametrize("name", FLEET_FLAGS)
+def test_fleet_flags_match_reference_defaults(name):
+    """The serve fleet's flags hold the reference's names, defaults and
+    help (the autoscaler's four are defined where the reference's
+    fleet/autoscaler.py defines them, so it is imported first)."""
+    import paddle_tpu.fleet.autoscaler  # noqa: F401 (defines four)
+    from paddle_tpu.framework import flags as jflags
+    assert tflags.get_flag(name) == jflags.get_flag(name)
+    for key in ("default", "help"):
+        assert tflags._registry[name][key] == jflags._registry[name][key]
 
 
 @pytest.mark.parametrize("call", [

@@ -1,10 +1,12 @@
-"""Shared set-up of the serving request-plane parity tests
-(tests/test_torch_serve_robustness.py, test_torch_streaming.py and
-test_torch_speculative.py).
+"""Shared set-up of the serving parity tests
+(tests/test_torch_serve_robustness.py, test_torch_streaming.py,
+test_torch_speculative.py, and the fleet's test_torch_router.py,
+test_torch_serve_disagg.py and test_torch_autoscaler.py).
 
 A scenario is a function of one `Side`: the batcher class, fault
 registry, drain guard and flag setter of one package, with that
-package's model.  `both` runs a scenario on paddle_tpu and on the port
+package's model, and its fleet modules (`serving`, `router`,
+`paged_kv`, `fleet`).  `both` runs a scenario on paddle_tpu and on the port
 with the same numpy weights, the same fault spec and the same patched
 clock, and requires the same record from each: every request's tokens,
 the shed ids with their reasons, the partial ids, and the stats
@@ -12,16 +14,24 @@ counters."""
 import numpy as np
 
 import paddle_tpu as paddle
+from paddle_tpu import fleet as jfleet
 from paddle_tpu.distributed import fault as jfault
 from paddle_tpu.distributed import guard as jguard
 from paddle_tpu.inference import ContinuousBatcher as JBatcher
+from paddle_tpu.inference import paged_kv as jpaged_kv
+from paddle_tpu.inference import router as jrouter
+from paddle_tpu.inference import serving as jserving
 from paddle_tpu.models.llama import LlamaForCausalLM as JLlama
 from paddle_tpu.models.llama import llama_tiny_config as j_tiny
 
+from paddle_tpu_torch import fleet as tfleet
 from paddle_tpu_torch.distributed import fault as tfault
 from paddle_tpu_torch.distributed import guard as tguard
 from paddle_tpu_torch.framework.flags import set_flags as tset_flags
 from paddle_tpu_torch.inference import ContinuousBatcher, generate
+from paddle_tpu_torch.inference import paged_kv as tpaged_kv
+from paddle_tpu_torch.inference import router as trouter
+from paddle_tpu_torch.inference import serving as tserving
 from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny_config,
                                      load_numpy_state_dict)
 
@@ -41,7 +51,20 @@ COUNTERS = ("chunks", "decode_chunks", "admit_chunks", "avg_occupancy",
             "drained", "slo_attainment", "prefix_hit_tokens", "evictions",
             "cow_copies", "kv_pages_used", "kv_pages_free",
             "kv_pages_cached", "spec_tokens", "spec_drafted",
-            "spec_accepted", "spec_accept_rate", "spec_accepted_per_step")
+            "spec_accepted", "spec_accept_rate", "spec_accepted_per_step",
+            "role", "handoffs_out", "handoffs_in", "handoff_bytes",
+            "handoff_ready", "import_hit_tokens", "grafted_pages")
+
+# ServeRouter.stats() keys held equal across the packages (the decision
+# and hand-off windows by their counts: their values are host clocks)
+ROUTER_COUNTERS = ("replicas", "live_replicas", "requests_submitted",
+                   "requests_completed", "requests_shed",
+                   "requests_requeued", "rebalanced", "kills", "routes",
+                   "prefix_routed", "prefix_route_hit_rate",
+                   "routed_by_replica", "requeued_by_replica", "handoffs",
+                   "handoff_bytes", "handoff_staged",
+                   "cross_prefix_hit_tokens", "replicated_pages",
+                   "per_replica")
 
 
 def numpy_weights(jmodel, seed):
@@ -85,13 +108,18 @@ class Clock:
 class Side:
     """One package's serving surface."""
 
-    def __init__(self, name, model, make, fault, guard, set_flags):
+    def __init__(self, name, model, make, fault, guard, set_flags,
+                 serving, router, paged_kv, fleet):
         self.name = name
         self.model = model
         self._make = make
         self.fault = fault
         self.guard = guard
         self.set_flags = set_flags
+        self.serving = serving
+        self.router = router
+        self.paged_kv = paged_kv
+        self.fleet = fleet
 
     def batcher(self, clock=None, model=None, **kw):
         bat = self._make(self.model if model is None else model, **kw)
@@ -101,10 +129,12 @@ class Side:
 
 def sides(jm, tm):
     return [Side("paddle_tpu", jm, lambda m, **kw: JBatcher(m, **kw),
-                 jfault, jguard, paddle.set_flags),
+                 jfault, jguard, paddle.set_flags, jserving, jrouter,
+                 jpaged_kv, jfleet),
             Side("port", tm,
                  lambda m, **kw: ContinuousBatcher(m, device="cpu", **kw),
-                 tfault, tguard, tset_flags)]
+                 tfault, tguard, tset_flags, tserving, trouter, tpaged_kv,
+                 tfleet)]
 
 
 def record(bat, **extra):
@@ -135,6 +165,29 @@ def isolated(tm, prompt, n):
 
 
 def no_leak(rec):
+    st = rec["stats"]
+    assert st["requests_submitted"] == st["requests_completed"] \
+        + st["requests_shed"], st
+    assert sorted(rec["outs"]) == list(range(st["requests_submitted"]))
+
+
+def fleet_record(router, outs, **extra):
+    """What a fleet scenario must reproduce: every global id's tokens,
+    the router-shed ids with their reasons, the router's counters and
+    each replica batcher's."""
+    st = router.stats()
+    stats = {k: st[k] for k in ROUTER_COUNTERS}
+    stats["decisions"] = st["decision_ms"]["count"]
+    stats["handoff_windows"] = st["handoff_ms"]["count"]
+    return dict(outs={g: [int(t) for t in v] for g, v in outs.items()},
+                shed={g: rr.shed_reason for g, rr in router._reqs.items()
+                      if rr.shed},
+                stats=stats,
+                replicas=[record(r.bat)["stats"] for r in router._reps],
+                **extra)
+
+
+def fleet_no_leak(rec):
     st = rec["stats"]
     assert st["requests_submitted"] == st["requests_completed"] \
         + st["requests_shed"], st
