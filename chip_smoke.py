@@ -198,6 +198,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              as 13a's; token equality across fleets is counted, not
              required.  The launches equal the replicas' forward steps
              times the structure's and count toward the kernels line.
+  15. train BERT-base  bench.py::bench_bert's set-up (:749-790):
+             BertForMaskedLM(bert_base_config(dtype="bfloat16")) from seed
+             0 (hidden 768, 12 layers, 12 heads, vocab 30522), AdamW 1e-4
+             with weight decay 0.01 and fp32 moments, ShardedTrainStep
+             stage 1 with batch_axes ("dp", "sharding") over a one-rank
+             NCCL group.  15a: the stacked ids [8, 64, 512] from
+             RandomState(0) through run_steps twice (the first the
+             warm-up): tokens/s, step ms, MFU, peak memory, the losses
+             (finite, the first within 0.5 of ln 30522); the launches of
+             both calls exactly 16 x (12 flash_attention, 12
+             flash_attention_bwd, 204 fused_adamw), the collectives a step
+             (204 all-reduces, 204 all-gathers); then a profiled step by
+             kind.  15b: the same under FLAGS_fused_ce (32 cross-entropy
+             row launches a step), each loss within 2^-7 max|logit| of
+             15a's.  15c: BERT-base width at 2 layers, batch 2 x 128, the
+             same numpy weights on the card and on the CPU, fp32 and bf16:
+             the loss and every gradient (relative error in norm); then
+             ErnieForMaskedLM and ErnieForSequenceClassification at that
+             width take 2 TrainStep steps each (finite losses, the
+             predicted launches).  15d: the kernels at this path's shapes,
+             each per element against its plain version and launched
+             twice with identical bits: flash forward and backward
+             non-causal [64, 512, 12, 64] bf16 beside SDPA, fused AdamW
+             with fp32 moments at [30522, 768] and [768, 3072] beside
+             torch.optim.AdamW(fused=True), the cross-entropy rows at
+             [1024, 30522] beside F.cross_entropy.  The launches of 15a,
+             15b and 15c's ERNIE steps count toward the kernels line.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -205,6 +232,7 @@ With no CUDA device the script exits 2 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -1376,6 +1404,7 @@ TRACE_KINDS = {"nccl": ("nccl",), "memcpy": ("Memcpy",),
                "quant_matmul": ("quant_matmul",),
                "rms_norm": ("rms_norm", "rms_fwd", "rms_bwd", "rms_dw"),
                "rope": ("rope_kernel",), "fused_adamw": ("fused_adamw",),
+               "layer_norm": ("layer_norm", "LayerNorm", "GammaBeta"),
                "cross_entropy": ("ce_rows",),
                "matmul": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
                "copy_cast": ("copy", "Copy"),
@@ -1672,10 +1701,11 @@ FLASH_EDGE_CASES = [
 
 
 def _flash_case(torch, ops, fa, randn, add, case, b, sq, sk, h, hk, d,
-                causal=True, dtype="bfloat16"):
+                causal=True, dtype="bfloat16", twice=False):
     """Flash attention forward and backward at one shape: every element
     against the plain versions within `_flash_tolerances`, the kernels'
-    time beside the plain versions' and SDPA's."""
+    time beside the plain versions' and SDPA's; `twice`: each kernel
+    launched a second time on the same inputs, with identical bits."""
     dt = getattr(torch, dtype)
     q, k, v, do = randn(b, sq, h, d, dtype=dt), randn(b, sk, hk, d, dtype=dt), \
         randn(b, sk, hk, d, dtype=dt), randn(b, sq, h, d, dtype=dt)
@@ -1683,6 +1713,14 @@ def _flash_case(torch, ops, fa, randn, add, case, b, sq, sk, h, hk, d,
     out, lse = fa._launch_fwd(q, k, v, causal, sc)
     p_out, p_lse = ops.plain_flash_fwd(q, k, v, causal, sc)
     grads = fa._launch_bwd(q, k, v, out, lse, do, causal, sc)
+    if twice:
+        again = (*fa._launch_fwd(q, k, v, causal, sc),
+                 *fa._launch_bwd(q, k, v, out, lse, do, causal, sc))
+        check(all(torch.equal(x, y) for x, y in zip((out, lse, *grads),
+                                                    again)),
+              f"flash attention ({case}): two launches on the same inputs "
+              f"differ")
+        del again
     refs = ops.plain_flash_bwd(q, k, v, out, lse, do, causal, sc)
     tols, var = zip(*_flash_tolerances(torch, ops, fa, q, k, v, out, lse,
                                        do, [p_out, *refs], sc, causal))
@@ -1697,7 +1735,8 @@ def _flash_case(torch, ops, fa, randn, add, case, b, sq, sk, h, hk, d,
     fwd_flops = 4 * b * h * (sq * sk // 2 if causal else sq * sk) * d
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    extra = dict(case=case, kv_heads=hk, sk=sk, causal=causal, dtype=dtype)
+    extra = dict(case=case, kv_heads=hk, sk=sk, causal=causal, dtype=dtype,
+                 **({"bit_identical": True} if twice else {}))
     # lse = m + log l: fp32 scores, exp and sums in another order move
     # it by a few ulps of m and of log l (each |.| < ~10), ~1e-6; an
     # entry near 0 keeps that absolute error, so 1e-5 (1 + |lse|)
@@ -1756,15 +1795,7 @@ def phase_train_kernels(torch, ops, dev):
     R, H, eps = b * s, cfg.hidden_size, cfg.rms_norm_eps
     h, hk, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     res = {}
-
-    def add(name, shape, outs, refs, tols, ms, plain_ms, library_ms,
-            library, nbytes, flops, rate=BF16_FLOP_PER_S, **extra):
-        b_ms, b_by = bound(nbytes, flops, rate)
-        res.setdefault(name, []).append(dict(
-            shape=shape, **extra, **_checked(outs, refs, tols), ms=ms,
-            plain_ms=plain_ms, library_ms=library_ms, library=library,
-            bound_ms=b_ms, bound_by=b_by))
-        return res[name][-1]
+    add = _recorder(res)
 
     # Tolerances are per element.  bf16 has 8 significant bits: one
     # rounding moves a value by <= 2^-8 of it, so two roundings that
@@ -1873,13 +1904,36 @@ def phase_train_kernels(torch, ops, dev):
     torch.cuda.empty_cache()
     (mm.allow_bf16_reduced_precision_reduction,
      mm.allow_fp16_reduced_precision_reduction) = reduced
+    _report_cases(res, "train-kernels")
+    return res
+
+
+def _recorder(res):
+    """`add(name, shape, outs, refs, tols, ms, plain_ms, library_ms,
+    library, nbytes, flops, rate, **extra)`: check a kernel case against
+    its plain version (`_checked`), compute its bound, and append the
+    record to res[name]; returns the record."""
+    def add(name, shape, outs, refs, tols, ms, plain_ms, library_ms,
+            library, nbytes, flops, rate=BF16_FLOP_PER_S, **extra):
+        b_ms, b_by = bound(nbytes, flops, rate)
+        res.setdefault(name, []).append(dict(
+            shape=shape, **extra, **_checked(outs, refs, tols), ms=ms,
+            plain_ms=plain_ms, library_ms=library_ms, library=library,
+            bound_ms=b_ms, bound_by=b_by))
+        return res[name][-1]
+    return add
+
+
+def _report_cases(res, tag):
+    """Log every recorded case; fail on one whose worst element exceeds
+    its per-element tolerance."""
     for name, cases in res.items():
         for c in cases:
             ms = {k: c[k] if c[k] is None else round(c[k], 4)
                   for k in ("ms", "plain_ms", "library_ms")}
             msq = (f", mean square / variance {c['msq_share']}"
                    if "msq_share" in c else "")
-            log(f"[train-kernels] {name} {c['shape']}"
+            log(f"[{tag}] {name} {c['shape']}"
                 f"{' ' + c['variant'] if 'variant' in c else ''}"
                 f"{' (' + c['case'] + ')' if 'case' in c else ''}: err "
                 f"{c['errs']}, share of the per-element tolerance "
@@ -1892,7 +1946,6 @@ def phase_train_kernels(torch, ops, dev):
                   f"{name} {c['shape']} disagrees with its plain version: "
                   f"errors {c['errs']} use {c['shares']} of their "
                   f"per-element tolerances")
-    return res
 
 
 # AdamW variants: (fp32 parameters?, ef?) -> the TPU kernel body each
@@ -2021,6 +2074,8 @@ CE_PLANS = {
     "qwen2 vocab (wide)": ("wide", 1, 256, 1),
     "all labels -1": ("rows", 4, 256, 1),
     "logits at x+1": ("rows", 1, 256, 1),
+    # BERT's vocab (phase 15d): V % 4 == 2, so 8-byte vectors
+    "bert vocab": ("cluster", 2, 480, 2),
 }
 CE_BODIES = ("rows", "cluster", "wide")
 
@@ -3628,6 +3683,434 @@ def phase_fleet(torch, ops, dev):
                    "quant_matmul": {"int8": 0, "int4": 0}}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: BERT-base masked-LM pretraining as bench.py::bench_bert runs it,
+# and ERNIE on the same blocks
+# ---------------------------------------------------------------------------
+# bench.py:749-790 on the TPU: BertConfig(dtype="bfloat16"), batch 64 x 512,
+# 8 steps a run_steps call, AdamW(1e-4, weight_decay=0.01), fp32 moments
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 64, 512, 8
+BERT_LR, BERT_WD = 1e-4, 0.01
+
+
+def _bert_want(counts, layers, tensors, steps, ce_chunks=0):
+    """The launches of `steps` BERT / ERNIE training steps: one flash
+    forward and one backward a layer, one fused AdamW launch a parameter
+    tensor (its shard at stage 1), `ce_chunks` cross-entropy rows a step
+    under FLAGS_fused_ce, and nothing else (LayerNorm, GELU, the
+    embeddings and the matmuls are PyTorch)."""
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention=steps * layers,
+                flash_attention_bwd=steps * layers,
+                fused_adamw=steps * tensors, cross_entropy=steps * ce_chunks)
+    return want
+
+
+def _bert_bench(torch, ops, mesh, fused=False, ref=None):
+    """15a (fused False): bench_bert's set-up (bench.py:749-790) through
+    ShardedTrainStep stage 1 over `mesh` (one NCCL rank), the stacked
+    ids [8, 64, 512] from RandomState(0) through run_steps twice (the
+    first the warm-up, as bench.py's); the launches of both calls held
+    to the model's structure, then a profiled step.  15b (fused True):
+    the same under FLAGS_fused_ce, each loss within 2^-7 max|logit| of
+    15a's (`ref`).  Returns (record, launches)."""
+    import gc
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.models import BertForMaskedLM, bert_base_config
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ShardedTrainStep
+    tag = "bert-fused" if fused else "bert"
+    dev = mesh.device
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = bert_base_config(dtype="bfloat16")
+    model = BertForMaskedLM(cfg, device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_tensors = sum(1 for _ in model.parameters())
+    L, b, s, K = cfg.num_hidden_layers, BERT_BATCH, BERT_SEQ, BERT_STEPS
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (K, b, s)) \
+        .astype(np.int32)
+    x = torch.from_numpy(ids).to(dev)
+    logit_max = None
+    if not fused:
+        # the largest |logit| of the initial model: 15b's tolerance
+        with torch.no_grad():
+            logit_max = model(x[0]).abs().amax().float().item()
+    fam = ops.kernel_module("fused_adamw")
+    set_flags({"FLAGS_fused_ce": fused})
+    try:
+        step = ShardedTrainStep(
+            model, AdamW(BERT_LR, parameters=model.parameters(),
+                         weight_decay=BERT_WD),
+            mesh, sharding_stage=1, batch_axes=("dp", "sharding"))
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = step.run_steps(x, x).tolist()
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        losses = step.run_steps(x, x).tolist()
+        wall_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        variants = dict(fam.variant_launches)
+        comm = dict(step.comm_counts)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        step_ms = wall_s * 1e3 / K
+        # a profiled step whose trace lost kernel events is profiled again
+        full = {"flash_attention": 3 * L, "fused_adamw": n_tensors}
+        for tries in range(1, 4):
+            trace = train_trace(torch, step, x[0], step_ms)
+            if all(trace["events"][k] == n for k, n in full.items()):
+                break
+        trace["tries"] = tries
+    finally:
+        set_flags({"FLAGS_fused_ce": False})
+    chunks = -(-b * s // 1024) if fused else 0
+    want = _bert_want(counts, L, n_tensors, 2 * K, chunks)
+    check(counts == want, f"{tag} launch counts {counts} != predicted {want}")
+    want_var = dict.fromkeys(variants, 0)
+    want_var["fp32"] = 2 * K * n_tensors
+    check(variants == want_var,
+          f"{tag} fused_adamw variants {variants} != predicted {want_var}")
+    # stage 1 on one rank: every parameter is a shard (each has a dim
+    # that 1 divides); its gradient all-reduced, its update all-gathered
+    want_comm = dict(all_gather=n_tensors, reduce_scatter=0,
+                     all_reduce=n_tensors)
+    check(comm == want_comm, f"{tag} collectives a step {comm} != "
+          f"predicted {want_comm}")
+    check(all(np.isfinite(warm + losses)), f"non-finite {tag} losses "
+          f"{warm} {losses}")
+    ln_v = float(np.log(cfg.vocab_size))
+    check(abs(warm[0] - ln_v) <= 0.5, f"{tag} first loss {warm[0]} is not "
+          f"within 0.5 of ln V = {ln_v}")
+    tok_s = b * s * K / wall_s
+    rec = dict(
+        layers=L, hidden=cfg.hidden_size, vocab=cfg.vocab_size,
+        params=n_params, tensors=n_tensors, batch=b, seq=s, steps=K,
+        fused_ce=fused, warmup_losses=warm, losses=losses,
+        warmup_s=warm_s, run_s=wall_s, step_ms=step_ms, tokens_per_s=tok_s,
+        mfu=6 * n_params * tok_s / BF16_FLOP_PER_S, peak_mem_gb=peak,
+        collectives_per_step=comm, launches=counts, adamw_variants=variants,
+        logit_max=logit_max)
+    if fused:
+        # phase 9's rule: logits fp32 here against bf16 in 15a, a token's
+        # lse - picked moves by <= 2 x 2^-8 max|logit|, and so does the
+        # mean; the later steps start from weights that moved alike
+        tol = 2.0 ** -7 * ref["logit_max"]
+        diffs = [abs(a - r) for a, r in zip(warm + losses,
+                                            ref["warmup_losses"]
+                                            + ref["losses"])]
+        check(max(diffs) <= tol, f"{tag} losses {warm + losses} differ from "
+              f"15a's by up to {max(diffs)} > {tol}")
+        rec.update(loss_diff_max=max(diffs), loss_tol=tol,
+                   vs_15a=dict(step_ms=step_ms / ref["step_ms"],
+                               peak_mem_gb=peak - ref["peak_mem_gb"]))
+    log(f"[{tag}] " + json.dumps(rec))
+    log(f"[{tag}-trace] " + json.dumps(trace))
+    del step, model, x
+    torch.cuda.empty_cache()
+    return rec, counts
+
+
+def _bert_weights(model, seed):
+    """numpy weights for every parameter: 1-D ones (norm scales, biases)
+    1 + 0.1 N(0, 1), matrices and tables N(0, 1) / sqrt(rows)."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for n, p in model.named_parameters():
+        shape = tuple(p.shape)
+        out[n] = ((1.0 + 0.1 * rng.randn(*shape)) if len(shape) == 1
+                  else rng.randn(*shape) / np.sqrt(shape[0])) \
+            .astype(np.float32)
+    return out
+
+
+# 15c's tolerances.  fp32: the loss within 1e-4 of the CPU's, relative,
+# and each gradient within 1e-4 of it in norm — cuBLAS (TF32 off) and the
+# CPU sum in other orders, ~1e-6 relative, up to ~3e-5 where a gradient
+# is a sum that cancels (a query bias: 3.3e-5 measured).  bf16: the card
+# and the CPU round to bf16 at the same ops, but their bf16 GEMMs sum in
+# other orders; where a gradient cancels (at this initialisation dq sums
+# near-uniform attention weights that add to zero) those roundings are
+# most of it (layer 1's query weight: 0.26 of its norm from the CPU's
+# bf16 gradient).  So a bf16 gradient is held to the fp32 gradient of
+# the same weights and batch: its distance from it at most
+# BERT_BF16_ROUNDING times the CPU bf16 gradient's own distance (that
+# gradient's rounding error), and the loss to phase 9's 2^-7 max|logit|
+# of the CPU's bf16 loss.  The CPU runs attention through the flash
+# kernels' autograd Function with their plain versions for the launches
+# (`_flash_plain_on_cpu`), so p and ds round to bf16 where the card's
+# kernels round them (the autograd of the plain attention keeps ds in
+# fp32: the card's query-bias gradient was then 9.0x the CPU's rounding
+# error, the median tensor 1.1x)
+BERT_FP32_TOL = 1e-4
+BERT_BF16_ROUNDING = 4.0
+
+
+@contextlib.contextmanager
+def _flash_plain_on_cpu(ops):
+    """`ops.attention` on CPU tensors through the flash kernels' autograd
+    Function (`_FlashAttention`), with `plain_flash_fwd` /
+    `plain_flash_bwd` standing in for the launches: the kernels'
+    rounding points on the CPU.  No mask (15c passes none)."""
+    fa = ops.kernel_module("flash_attention")
+    saved = ops.attention, fa._launch_fwd, fa._launch_bwd
+    fa._launch_fwd, fa._launch_bwd = ops.plain_flash_fwd, ops.plain_flash_bwd
+
+    def attention(q, k, v, mask=None, causal=False, scale=None):
+        check(mask is None, "15c's CPU attention takes no mask")
+        return fa._FlashAttention.apply(q, k, v, bool(causal),
+                                        float(fa._scale(q, scale)))
+    ops.attention = attention
+    try:
+        yield
+    finally:
+        ops.attention, fa._launch_fwd, fa._launch_bwd = saved
+
+
+def _bert_grads(torch, model, ids, labels):
+    """(loss, max |logit|, {name: gradient on the CPU, None where the
+    loss does not reach}) of one MLM forward and backward."""
+    d = next(model.parameters()).device
+    logits = model(ids.to(d))
+    loss = model.compute_loss(logits, labels.to(d))
+    loss.backward()
+    return (loss.item(), logits.detach().float().abs().max().item(),
+            {n: None if p.grad is None else p.grad.float().cpu()
+             for n, p in model.named_parameters()})
+
+
+def _bert_parity(torch, ops, dev):
+    """15c: BERT-base width (hidden 768, 12 heads, vocab 30522) with 2
+    layers, batch 2 x 128, the same numpy weights on the card (the
+    kernels) and on the CPU (the plain versions), in fp32 and in bf16
+    compute: the MLM loss with ignored labels and every gradient, by the
+    tolerances above.  The key bias is left out: its gradient is zero in
+    exact arithmetic (softmax ignores a shift common to every key),
+    rounding noise on both sides.  What the loss does not reach (the
+    pooler; the token-type table, given no token types) gets no gradient
+    on either side.  The CPU side rounds in attention where the kernels
+    do (`_flash_plain_on_cpu`)."""
+    from paddle_tpu_torch.models import (BertForMaskedLM, bert_base_config,
+                                         load_numpy_state_dict)
+    rng = np.random.RandomState(15)
+    ids = torch.from_numpy(rng.randint(0, bert_base_config().vocab_size,
+                                       (2, 128)).astype(np.int32))
+    labels = ids.clone()
+    labels[:, ::3] = -100
+    runs, w = {}, None
+    for dtype in ("float32", "bfloat16"):
+        cfg = bert_base_config(num_hidden_layers=2, dtype=dtype)
+        for side, device in (("gpu", dev), ("cpu", "cpu")):
+            m = BertForMaskedLM(cfg, device=device, seed=15)
+            w = w or _bert_weights(m, 15)
+            load_numpy_state_dict(m, w)
+            if side == "gpu":
+                runs[side, dtype] = _bert_grads(torch, m, ids, labels)
+            else:
+                with _flash_plain_on_cpu(ops):
+                    runs[side, dtype] = _bert_grads(torch, m, ids, labels)
+            del m
+    torch.cuda.empty_cache()
+    truth = runs["cpu", "float32"][2]
+    names = [n for n, g in truth.items() if ".attention.key.bias" not in n]
+    for n in names:
+        check(len({runs[k][2][n] is None for k in runs}) == 1,
+              f"bert parity: {n} has a gradient on some runs only")
+    names = [n for n in names if truth[n] is not None]
+
+    def dist(a, b):
+        return {n: (a[n] - b[n]).norm().item() for n in names}
+    fp32 = {n: e / truth[n].norm().item()
+            for n, e in dist(runs["gpu", "float32"][2], truth).items()}
+    card16 = dist(runs["gpu", "bfloat16"][2], truth)
+    cpu16 = dist(runs["cpu", "bfloat16"][2], truth)
+    ratio = {n: card16[n] / max(cpu16[n], 1e-30) for n in names}
+    (l32g, _, _), (l32c, _, _) = runs["gpu", "float32"], runs["cpu",
+                                                              "float32"]
+    (l16g, _, _), (l16c, lmax, _) = runs["gpu", "bfloat16"], \
+        runs["cpu", "bfloat16"]
+    w32, w16 = max(fp32, key=fp32.get), max(ratio, key=ratio.get)
+    rec = dict(losses=dict(fp32_card=l32g, fp32_cpu=l32c, bf16_card=l16g,
+                           bf16_cpu=l16c),
+               bf16_loss_tol=2.0 ** -7 * lmax,
+               fp32_grad_rel_err_max=[w32, fp32[w32]],
+               bf16_over_cpu_rounding_max=[w16, ratio[w16]],
+               bf16_over_cpu_rounding_median=float(np.median(
+                   list(ratio.values()))),
+               bf16_card_rel_err_max=max(card16[n] / truth[n].norm().item()
+                                         for n in names))
+    log("[bert-parity] " + json.dumps(rec))
+    check(abs(l32g - l32c) <= BERT_FP32_TOL * abs(l32c)
+          and fp32[w32] <= BERT_FP32_TOL,
+          f"bert parity fp32: losses card {l32g} cpu {l32c}, gradient {w32} "
+          f"relative error {fp32[w32]} (tol {BERT_FP32_TOL})")
+    check(np.isfinite(l16g) and abs(l16g - l16c) <= 2.0 ** -7 * lmax,
+          f"bert parity bf16: losses card {l16g} cpu {l16c} (tol "
+          f"{2.0 ** -7 * lmax})")
+    check(ratio[w16] <= BERT_BF16_ROUNDING,
+          f"bert parity bf16: gradient {w16} is {card16[w16]} from the fp32 "
+          f"gradient, {ratio[w16]} x the CPU bf16 gradient's "
+          f"{cpu16[w16]} (tol {BERT_BF16_ROUNDING} x)")
+    return rec
+
+
+def _ernie_steps(torch, ops, dev):
+    """15c: ErnieForMaskedLM and ErnieForSequenceClassification at
+    BERT-base width (2 layers, bf16 compute) take 2 TrainStep steps
+    each on a [2, 128] batch: finite losses, launches as predicted.
+    Returns the launches of both (the main path's)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (ErnieConfig, ErnieForMaskedLM,
+                                         ErnieForSequenceClassification)
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = ErnieConfig(num_hidden_layers=2, dtype="bfloat16")
+    rng = np.random.RandomState(16)
+    ids = rng.randint(0, cfg.vocab_size, (2, 128)).astype(np.int32)
+    total = None
+    for cls, labels in ((ErnieForMaskedLM, ids),
+                        (ErnieForSequenceClassification,
+                         np.array([1, 0], np.int32))):
+        model = cls(cfg, device=dev, seed=16)
+        n_tensors = sum(1 for _ in model.parameters())
+        step = TrainStep(model, model.compute_loss,
+                         AdamW(BERT_LR, parameters=model.parameters(),
+                               weight_decay=BERT_WD))
+        ops.reset_launch_counts()
+        losses = [step(ids, labels).item() for _ in range(2)]
+        counts = ops.launch_counts()
+        want = _bert_want(counts, cfg.num_hidden_layers, n_tensors, 2)
+        check(counts == want, f"{cls.__name__} launch counts {counts} != "
+              f"predicted {want}")
+        check(all(np.isfinite(losses)), f"{cls.__name__} non-finite losses "
+              f"{losses}")
+        log(f"[ernie] {cls.__name__} 2 layers at BERT-base width, bf16: "
+            f"losses {losses}, launches {counts}")
+        total = counts if total is None else {k: total[k] + counts[k]
+                                              for k in total}
+        del step, model
+    torch.cuda.empty_cache()
+    return total
+
+
+def _adamw_fp32_moments_case(torch, ops, gen, add, shape):
+    """bench_bert's update: an fp32 parameter with fp32 moments (the
+    fp32 body) against plain_fused_adamw at `shape`, launched twice on
+    the same inputs (identical bits), timed beside
+    torch.optim.AdamW(fused=True), which here computes the same
+    function."""
+    fam = ops.kernel_module("fused_adamw")
+    f32 = torch.float32
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=BERT_WD, decoupled=True,
+              out_dtype=f32, ef=None, param=None)
+    lr, step = BERT_LR, 5
+
+    def rnd(scale):
+        return torch.randn(shape, generator=gen, device=gen.device,
+                           dtype=f32) * scale
+    g, m, v, mst = rnd(1e-2), rnd(1e-2), rnd(1e-2).square(), rnd(1.0)
+    runs = [[t.clone() for t in (m, v, mst)] for _ in range(3)]
+    k1 = fam._launch(g, *runs[0], lr, step, **kw)
+    k2 = fam._launch(g, *runs[1], lr, step, **kw)
+    p = fam.plain_fused_adamw(g, *runs[2], lr, step, **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
+          f"fused_adamw fp32 moments {list(shape)}: two launches on the "
+          f"same inputs differ")
+    # (param, m, v, master) with the parameter the master: compare m, v
+    # and the master.  The same fp32 ops in the same order, each rounded
+    # once: an ulp of each value, and 2^-22 of the step on the master
+    outs, refs = list(k1[1:4]), list(p[1:4])
+    tols = [2.0 ** -22 * refs[0].abs(), 2.0 ** -22 * refs[1].abs(),
+            2.0 ** -23 * refs[2].abs() + 2.0 ** -22 * (refs[2] - mst).abs()]
+    lp = torch.nn.Parameter(mst.clone())
+    lp.grad = g.clone()
+    lopt = torch.optim.AdamW([lp], lr=lr, weight_decay=BERT_WD, fused=True)
+    km, kv, kmst = runs[0]
+    pm, pv, pmst = runs[2]
+    n = g.numel()
+    # bytes: grad, m, v, master read; m, v, master written (fp32 each);
+    # ~20 fp32 operations an element
+    c = add("fused_adamw", list(shape), outs, refs, tols,
+            time_ms(torch, lambda: fam._launch(g, km, kv, kmst, lr, step,
+                                               **kw)),
+            time_ms(torch, lambda: fam.plain_fused_adamw(g, pm, pv, pmst, lr,
+                                                         step, **kw)),
+            time_ms(torch, lopt.step),
+            "torch.optim.AdamW(fused=True).step, fp32 moments", n * 28,
+            20 * n, rate=FP32_FLOP_PER_S, variant="fp32", case="bert",
+            moments="float32", bit_identical=True)
+    log(f"[bert-kernels] fused_adamw fp32 moments {list(shape)}: "
+        f"{c['ms']:.4f} ms, {c['ms'] / c['library_ms']:.2f}x the library, "
+        f"{c['bound_ms'] / c['ms']:.3f} of the bytes bound")
+
+
+def phase_bert_kernels(torch, ops, dev):
+    """15d: the kernels of the BERT step at its shapes, each per element
+    against its plain version and launched twice with identical bits:
+    flash forward and backward non-causal [64, 512, 12, 64] bf16, fused
+    AdamW with fp32 moments at [30522, 768] and [768, 3072], the
+    cross-entropy rows at one [1024, 30522] chunk of 15b; each timed
+    beside its bound and its library call."""
+    fa = ops.kernel_module("flash_attention")
+    fce = ops.kernel_module("fused_cross_entropy")
+    g = torch.Generator(device=dev)
+    g.manual_seed(1515)
+    mm = torch.backends.cuda.matmul
+    reduced = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    res = {}
+    add = _recorder(res)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.float32).to(dtype)
+
+    settle(torch, dev)
+    _flash_case(torch, ops, fa, randn, add, case="bert", b=BERT_BATCH,
+                sq=BERT_SEQ, sk=BERT_SEQ, h=12, hk=12, d=64, causal=False,
+                twice=True)
+    torch.cuda.empty_cache()
+    for shape in ((30522, 768), (768, 3072)):
+        _adamw_fp32_moments_case(torch, ops, g, add, shape)
+    _ce_case(torch, fce, g, add, case="bert vocab", C=1024, V=30522)
+    torch.cuda.empty_cache()
+    mm.allow_bf16_reduced_precision_reduction = reduced
+    _report_cases(res, "bert-kernels")
+    return res
+
+
+def phase_bert(torch, ops, dev):
+    """Phase 15: 15a-15b over a one-rank NCCL group (phase 12 ended its
+    own), 15c, 15d.  Returns (the launches of 15a, 15b and 15c's ERNIE
+    steps: the main path's; 15d's kernel cases)."""
+    from paddle_tpu_torch.distributed import build_mesh, init_parallel_env
+    env = init_parallel_env()
+    check(env.world_size == 1 and torch.distributed.get_backend() == "nccl",
+          f"phase 15 wants one NCCL rank, got {env.world_size} "
+          f"{torch.distributed.get_backend()}")
+    mesh = build_mesh(sharding=1, devices=[dev])
+    walls = {}
+    t = time.perf_counter()
+    bench, counts = _bert_bench(torch, ops, mesh)
+    walls["15a"] = round(time.perf_counter() - t, 1)
+    t = time.perf_counter()
+    _, fused_counts = _bert_bench(torch, ops, mesh, fused=True, ref=bench)
+    walls["15b"] = round(time.perf_counter() - t, 1)
+    torch.distributed.destroy_process_group()
+    t = time.perf_counter()
+    _bert_parity(torch, ops, dev)
+    ernie_counts = _ernie_steps(torch, ops, dev)
+    walls["15c"] = round(time.perf_counter() - t, 1)
+    t = time.perf_counter()
+    kern = phase_bert_kernels(torch, ops, dev)
+    walls["15d"] = round(time.perf_counter() - t, 1)
+    log("[bert-walls] " + json.dumps(walls))
+    return ({n: counts[n] + fused_counts[n] + ernie_counts[n]
+             for n in counts}, kern)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3670,7 +4153,7 @@ def main():
                 + (" | " + nxt.strip() if "spill" in line and "Used" in nxt
                    else ""))
 
-    # 3-14, each phase's wall time logged
+    # 3-15, each phase's wall time logged
     walls = {}
 
     def timed(name, fn, *a, **k):
@@ -3713,11 +4196,17 @@ def main():
     fleet_counts, fleet_var = timed(
         "14 serve fleet (router, roles and hand-off, int8 hand-off, kill,"
         " autoscaler)", phase_fleet, torch, ops, dev)
+    bert_counts, bert_kern = timed(
+        "15 train BERT-base (ShardedTrainStep stage 1, fused CE, parity, "
+        "ERNIE, kernels)", phase_bert, torch, ops, dev)
+    for name, cases in bert_kern.items():   # 15d's shapes
+        kern[name] += cases
     # launches on the main path: the serves (5, 10, 11, 13, 14) and the
-    # trainings (8, 9, 12)
+    # trainings (8, 9, 12, 15)
     counts = {n: counts[n] + train_counts[n] + fused_counts[n]
               + int8_counts[n] + int4_counts[n] + zero3_counts[n]
-              + spec_counts[n] + fleet_counts[n] for n in counts}
+              + spec_counts[n] + fleet_counts[n] + bert_counts[n]
+              for n in counts}
     variants = {n: {v: variants[n][v] + int8_var[n][v] + int4_var[n][v]
                     + spec_var[n][v] + fleet_var[n][v] for v in variants[n]}
                 for n in variants}

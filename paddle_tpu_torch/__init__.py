@@ -10,9 +10,14 @@ finds counterparts by path:
   ops/         the op layer: plain PyTorch versions beside hand-written
                Hopper kernels (csrc/*.cu, bound through ctypes), with
                autograd Functions whose backward is a kernel too
-  nn/          the LM cross-entropy loss (logits or fused linear + CE)
+  nn/          Layer (the reference's automatic names), Linear,
+               Embedding, Dropout, LayerNorm, LayerList, Sequential,
+               the initializers, set_compute_dtype, and the functional
+               ops: linear, embedding, dropout, gelu, tanh, layer_norm,
+               cross_entropy and the LM loss (logits or fused linear + CE)
   models/      Llama training forward (recompute, fused-CE mode) and
-               decode surface, weight and optimizer-state carry-over
+               decode surface; BERT and ERNIE (masked LM, sequence
+               classification); weight and optimizer-state carry-over
   optimizer/   Adam / AdamW: the fused AdamW kernel or the pure rule,
                in place
   distributed/ the process-group environment, the mesh
@@ -23,8 +28,9 @@ finds counterparts by path:
                the KV hand-off), the serve-fleet router
   fleet/       the SLO-driven autoscaler over the router
 
-Device rule: entry points (model constructors, ContinuousBatcher,
-generate, ServeRouter and fleet_serve) run on `cuda` unless the caller passes `device="cpu"`; with no
+Device rule: entry points (model constructors and the nn layers,
+ContinuousBatcher, generate, ServeRouter and fleet_serve) run on `cuda`
+unless the caller passes `device="cpu"`; with no
 CUDA device and no explicit CPU request they raise.  A TrainStep runs
 where its model lives; `distributed.init_parallel_env` starts NCCL on
 the rank's card, and gloo only for `device="cpu"`.

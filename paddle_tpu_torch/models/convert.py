@@ -71,7 +71,8 @@ def load_numpy_state_dict(model: torch.nn.Module,
 
 def numpy_state_dict(model: torch.nn.Module):
     """{name: ndarray} of every parameter — float32, or int8 for a
-    weight-only packed parameter — the inverse view, for round-trip
+    weight-only packed parameter — a copy that later updates of the
+    model leave alone: the inverse view, for round-trip
     checks and carrying a model to another device.  A parameter that a
     ZeRO-3 `parallel.ShardedTrainStep` holds as shards (its
     `zero_shard`) is gathered whole: then every rank of the group calls
@@ -80,7 +81,11 @@ def numpy_state_dict(model: torch.nn.Module):
     for n, p in model.named_parameters():
         shard = getattr(p, "zero_shard", None)
         t = p.detach() if shard is None else shard.gathered_copy()
-        out[n] = (t if t.dtype == torch.int8 else t.float()).cpu().numpy()
+        t = (t if t.dtype == torch.int8 else t.float()).cpu()
+        # a snapshot: an fp32 CPU parameter's .numpy() would share its
+        # storage and follow later in-place updates
+        out[n] = t.numpy().copy() if t.data_ptr() == p.data_ptr() \
+            else t.numpy()
     return out
 
 

@@ -74,6 +74,7 @@ from ..nn import functional as F
 from ..nn.layer import Layer
 from ..distributed.fleet.recompute import recompute
 from ..framework.device import resolve_device
+from ..framework.dtypes import to_torch
 from ..framework.flags import get_flag
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
@@ -90,9 +91,6 @@ def _wo_mm(layer, name, x):
         return x @ w.to(x.dtype)
     return ops.quant_matmul(x, w, getattr(layer, name + "_scale"), wo,
                             layer._wo_group)
-
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-           "float16": torch.float16}
 
 
 @dataclass
@@ -123,11 +121,11 @@ class LlamaConfig:
 
     @property
     def compute_dtype(self):
-        return _DTYPES[self.dtype]
+        return to_torch(self.dtype)
 
     @property
     def storage_dtype(self):
-        return _DTYPES[self.param_dtype or self.dtype]
+        return to_torch(self.param_dtype or self.dtype)
 
 
 def llama_tiny_config(**kw):

@@ -1,7 +1,13 @@
-"""Token-level LM cross entropy.
+"""Cross entropy: the classifier's and the token-level LM loss.
 
-Counterpart of `paddle_tpu/nn/functional/loss.py::fused_cross_entropy`
-(:95), both modes:
+`cross_entropy` is `paddle_tpu/nn/functional/loss.py::cross_entropy`
+(:24) for hard labels: fp32 log-softmax of a half-precision input, the
+label's entry picked, `ignore_index` left out of the mean (the count of
+the others, under a data-parallel trainer the group's).  Class weights,
+soft labels, label smoothing and `use_softmax=False` are not ported yet
+(they raise NotImplementedError).
+
+`fused_cross_entropy` is the reference's (:95), both modes:
 
   * weight None (:134-152): `input` IS the logits.  fp32 `logsumexp −
     picked logit`, with the picked logit taken from the compute-dtype
@@ -23,7 +29,35 @@ import torch
 from ...framework.data_parallel import mean_denominator
 from ...ops.fused_cross_entropy import fused_linear_cross_entropy
 
-__all__ = ["fused_cross_entropy"]
+__all__ = ["cross_entropy", "fused_cross_entropy"]
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0, name=None):
+    """input: logits [..., C]; label: int [...] (or [..., 1]).  Returns
+    the mean over labels that differ from `ignore_index` ("mean"), the
+    sum ("sum") or the per-row losses ("none")."""
+    if weight is not None or soft_label or not use_softmax \
+            or label_smoothing or axis not in (-1, input.ndim - 1):
+        raise NotImplementedError(
+            "cross_entropy: class weights, soft labels, label smoothing, "
+            "use_softmax=False and an axis other than the last are not "
+            "ported yet")
+    if reduction not in ("mean", "sum", "none"):
+        raise ValueError(f"reduction {reduction!r}: mean, sum or none")
+    x = input.float() if input.dtype in (torch.bfloat16, torch.float16) \
+        else input
+    logp = torch.log_softmax(x, dim=-1)
+    idx = label.to(torch.int64)
+    if idx.ndim == logp.ndim:
+        idx = idx.squeeze(-1)
+    keep = idx != ignore_index
+    picked = torch.gather(logp, -1, torch.where(keep, idx, 0)[..., None])
+    loss = torch.where(keep, -picked[..., 0], 0.0)
+    if reduction == "mean":
+        return loss.sum() / mean_denominator(keep.to(logp.dtype).sum())
+    return loss.sum() if reduction == "sum" else loss
 
 
 def fused_cross_entropy(input, label, weight=None, bias=None, *,

@@ -27,9 +27,10 @@ kernel does not take is an error, not a detour to the plain version.
 
 The rest (`gqa_scores`, `gqa_weighted_v`, `cached_attention`,
 `paged_kv_update` with its int8 page write, `rope_cos_sin`, `swiglu`,
-the int4 packing helpers) is plain PyTorch, as the reference leaves it
-to XLA; projections, the MLP and the lm head are plain matmuls unless
-weight-only quantization packed them (then `quant_matmul`).
+`layer_norm`, the int4 packing helpers) is plain PyTorch, as the
+reference leaves it to XLA; projections, the MLP and the lm head are
+plain matmuls unless weight-only quantization packed them (then
+`quant_matmul`).
 """
 from __future__ import annotations
 
@@ -62,7 +63,7 @@ __all__ = ["gqa_scores", "gqa_weighted_v", "cached_attention",
            "rms_norm", "plain_rms_norm", "plain_rms_norm_bwd",
            "fused_add_rms_norm", "plain_fused_add_rms_norm",
            "apply_rope", "plain_apply_rope", "plain_rope_bwd",
-           "rope_cos_sin", "swiglu",
+           "rope_cos_sin", "swiglu", "layer_norm",
            "attention", "plain_attention",
            "plain_flash_fwd", "plain_flash_bwd",
            "fused_adamw", "plain_fused_adamw",
@@ -115,3 +116,22 @@ def swiglu(x, gate=None):
         half = x.shape[-1] // 2
         x, gate = x[..., :half], x[..., half:]
     return torch.nn.functional.silu(x) * gate
+
+
+def layer_norm(x, weight=None, bias=None, epsilon=1e-5,
+               normalized_shape=None):
+    """The reference's `ops.layer_norm` (:351-360) over the last dims
+    `normalized_shape` (default: the last one): mean and variance in
+    fp32 for a bf16/fp16 x, the normalized value rounded to x's dtype,
+    then `* weight` and `+ bias` in the promoted dtype (an fp32 weight
+    makes a bf16 x's result fp32, as jnp promotes it).  The statistics
+    and the normalization are one `torch.nn.functional.layer_norm`
+    call, which keeps them in fp32 for a half-precision x."""
+    shape = tuple(normalized_shape) if normalized_shape is not None \
+        else tuple(x.shape[-1:])
+    out = torch.nn.functional.layer_norm(x, shape, eps=epsilon)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out

@@ -166,6 +166,7 @@ ROWS, CLUSTER, WIDE = 0, 1, 2
     (8194, 64, 4, (ROWS, 2, 288, 1, 4097, 64)),             # V % 4 == 2
     (32000, 1024, 4, (CLUSTER, 4, 512, 2, 4000, 2048)),     # Llama-2
     (32000, 1024, 2, (CLUSTER, 2, 512, 2, 8000, 2048)),
+    (30522, 1024, 4, (CLUSTER, 2, 480, 2, 7631, 2048)),     # BERT
     (50257, 256, 4, (CLUSTER, 1, 416, 4, 12565, 1024)),     # GPT-2
     (128256, 64, 4, (CLUSTER, 4, 512, 8, 4008, 512)),       # Llama 3
     (151936, 256, 4, (WIDE, 1, 256, 1, 0, 256)),            # Qwen2: wide

@@ -50,6 +50,8 @@ from paddle_tpu.distributed.topology import batch_partition_spec as j_bps
 from paddle_tpu.distributed.topology import build_mesh as j_build_mesh
 from paddle_tpu.framework import flags as jflags
 from paddle_tpu.jit import TrainStep as JTrainStep
+from paddle_tpu.models.bert import BertForMaskedLM as JBert
+from paddle_tpu.models.bert import bert_tiny_config as j_bert_tiny
 from paddle_tpu.models.llama import LlamaForCausalLM as JLlama
 from paddle_tpu.models.llama import llama_tiny_config as j_tiny
 from paddle_tpu.parallel.sharded_trainer import ShardedTrainStep as JStep
@@ -93,6 +95,9 @@ def inputs():
         jm = JLlama(j_tiny(dtype=dtype, **W.TINY))
         for k, v in jm.state_dict().items():
             out[f"{dtype}:{k}"] = np.asarray(v.value, np.float32)
+    paddle_tpu.seed(0)
+    for k, v in JBert(j_bert_tiny()).state_dict().items():
+        out[f"bert:{k}"] = np.asarray(v.value, np.float32)
     return out
 
 
@@ -154,7 +159,7 @@ def _finish(procs, logs, tmp):
 # the reference's runs the cases read (world, case, one device?)
 REFERENCES = [(w, f"stage{s}", False) for w in WORLDS for s in range(4)] \
     + [(4, "dp2_sharding2", False), (2, "fused_ce3", True),
-       (2, "ignored0", True)] \
+       (2, "ignored0", True), (2, "bert1", False)] \
     + [(2, f"bf16_{kind}{s}", False) for kind in ("moments", "model")
        for s in (1, 3)]
 
@@ -187,9 +192,13 @@ def _reference(inputs, world, case, one_device=False):
     stage, axes, opts = W.cases(world)[case]
     dtype = opts.get("dtype", "float32")
     flags = opts.get("flags", {})
-    jm = JLlama(j_tiny(dtype=dtype, **W.TINY, **opts.get("cfg", {})))
-    jm.set_state_dict({k[len(dtype) + 1:]: v for k, v in inputs.items()
-                       if k.startswith(dtype + ":")})
+    if opts.get("model") == "bert":
+        prefix, jm = "bert", JBert(j_bert_tiny(dtype=dtype))
+    else:
+        prefix = dtype
+        jm = JLlama(j_tiny(dtype=dtype, **W.TINY, **opts.get("cfg", {})))
+    jm.set_state_dict({k[len(prefix) + 1:]: v for k, v in inputs.items()
+                       if k.startswith(prefix + ":")})
     jflags.set_flags(flags)     # the optimizer reads them at construction
     try:
         opt = paddle_tpu.optimizer.AdamW(
@@ -324,6 +333,35 @@ def test_dp2_sharding2_stage3_matches_reference(runs, inputs):
         assert rec["moments"][n] == rec["numel"][n] // 2
     # each unit's gradient shard is also all-reduced over dp
     assert rec["comm"]["all_reduce"] == VECTORS + 1 + L
+
+
+def test_bert_stage1_world2_matches_reference(runs, inputs):
+    """bench_bert's trainer over gloo: BERT (bert_tiny_config) at stage 1
+    on dp 1 x sharding 2, batch over ("dp", "sharding"), against the
+    reference's ShardedTrainStep on the same mesh of virtual devices.
+    Every parameter has a dim that 2 divides, so each is sharded: its
+    optimizer state holds half of it, its gradient is all-reduced and
+    its update all-gathered.  The tolerances are the Llama cases', but
+    the attention's key bias is held only to 2 lr steps: its gradient
+    is zero in exact arithmetic, so Adam normalises each package's
+    rounding noise to updates of ~lr of either sign
+    (tests/test_torch_bert.py)."""
+    _same_on_every_rank(runs[2], "bert1")
+    rec = runs[2][0]["bert1"]
+    ref_losses, ref_params = _reference(inputs, 2, "bert1")
+    np.testing.assert_allclose(rec["losses"], ref_losses, rtol=2e-4,
+                               atol=2e-4)
+    assert sorted(rec["params"]) == sorted(ref_params)
+    for n, ref in ref_params.items():
+        d = np.abs(rec["params"][n] - ref)
+        assert d.max() <= 2 * W.LR * W.STEPS, (n, d.max())
+        if ".attention.key.bias" not in n:
+            assert np.quantile(d, 0.999) <= 1e-5, (n, np.quantile(d, 0.999))
+    numel = rec["numel"]
+    assert rec["sharded"] == sorted(numel)
+    assert all(rec["moments"][n] == k // 2 for n, k in numel.items())
+    assert rec["comm"] == dict(all_gather=len(numel), reduce_scatter=0,
+                               all_reduce=len(numel))
 
 
 # ---------------------------------------------------------------------------

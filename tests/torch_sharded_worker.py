@@ -28,7 +28,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from paddle_tpu_torch.distributed import (build_mesh,  # noqa: E402
                                           init_parallel_env)
 from paddle_tpu_torch.framework.flags import set_flags  # noqa: E402
-from paddle_tpu_torch.models import (LlamaForCausalLM,  # noqa: E402
+from paddle_tpu_torch.models import (BertForMaskedLM,  # noqa: E402
+                                     LlamaForCausalLM, bert_tiny_config,
                                      llama_tiny_config,
                                      load_numpy_state_dict, numpy_state_dict)
 from paddle_tpu_torch.nn import functional as F  # noqa: E402
@@ -57,7 +58,9 @@ LOSSES = {"port_ce": port_ce, "torch_ce": torch_ce}
 
 
 def cases(world):
-    """name -> (stage, mesh axes, options).  Options: dtype (the model's),
+    """name -> (stage, mesh axes, options).  Options: model ("bert" for
+    bert_tiny_config's BertForMaskedLM, whose weights are the "bert:"
+    entries of inputs.npz; else the tiny Llama), dtype (the model's),
     multi_precision, flags, cfg (extra model config), remat, labels
     (the name of the label batch in inputs.npz), loss (a LOSSES key)."""
     out = {f"stage{s}": (s, {"sharding": world}, {}) for s in range(4)}
@@ -69,6 +72,9 @@ def cases(world):
     if world == 4:
         out["dp2_sharding2"] = (3, {"dp": 2, "sharding": 2}, {})
         return out
+    # bench_bert's trainer: stage 1 (the batch over the default
+    # batch_axes, ("dp", "sharding"))
+    out["bert1"] = (1, {"dp": 1, "sharding": world}, {"model": "bert"})
     for s in (1, 3):
         out[f"bf16_moments{s}"] = (
             s, {"sharding": world},
@@ -92,12 +98,17 @@ def run_case(world, inputs, stage, axes, opts):
     dtype = opts.get("dtype", "float32")
     flags = opts.get("flags", {})
     set_flags(flags)
-    model = LlamaForCausalLM(
-        llama_tiny_config(dtype=dtype, **TINY, **opts.get("cfg", {})),
-        device="cpu")
-    load_numpy_state_dict(model, {k[len(dtype) + 1:]: v
+    if opts.get("model") == "bert":
+        prefix = "bert"
+        model = BertForMaskedLM(bert_tiny_config(dtype=dtype), device="cpu")
+    else:
+        prefix = dtype
+        model = LlamaForCausalLM(
+            llama_tiny_config(dtype=dtype, **TINY, **opts.get("cfg", {})),
+            device="cpu")
+    load_numpy_state_dict(model, {k[len(prefix) + 1:]: v
                                   for k, v in inputs.items()
-                                  if k.startswith(dtype + ":")})
+                                  if k.startswith(prefix + ":")})
     opt = AdamW(LR, parameters=model.parameters(),
                 multi_precision=opts.get("multi_precision", False))
     mesh = build_mesh(devices=[torch.device("cpu")] * world, **axes)
