@@ -225,6 +225,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              torch.optim.AdamW(fused=True), the cross-entropy rows at
              [1024, 30522] beside F.cross_entropy.  The launches of 15a,
              15b and 15c's ERNIE steps count toward the kernels line.
+  16. train ResNet-50 (bench_resnet)  fp32 without TF32 (the script's
+             global allow_tf32 = False), NCHW.  16a: resnet50(num_classes=
+             10) built on the CPU from seed 16 and carried by
+             numpy_state_dict / load_numpy_state_dict to the card in fp64
+             and fp32 and to the CPU in fp64 and fp32; on 16 images of
+             _class_correlated_images in training mode: the logits and
+             the loss, the BatchNorm running statistics after the
+             forward, every gradient, and the parameter changes after 2
+             Momentum steps, the card's fp64 run against the CPU's fp64
+             per tensor at FP64_TOL, its fp32 run against the CPU's fp64
+             at FP32_TOL (the changes as one vector, by the CPU fp32's
+             distance; see FP32_TOL).  16b: bench.py::bench_resnet's
+             run (:669-737): resnet50 from seed 0, Momentum(0.02,
+             momentum=0.9, weight_decay=1e-4) in TrainStep, the epoch
+             staged on the card as [16, 256, 3, 32, 32] from
+             RandomState(0), one warm-up run_steps call and 3 timed
+             epochs (each ending in a device sync): images/s, ms a step,
+             each epoch's last loss, held-out top-1 of to_static(model)
+             in eval mode over 1024 images, peak memory, the FLOPs of a
+             step from the conv and Linear shapes (3x forward) and the
+             TFLOP/s against the 67 TFLOP/s fp32 peak, and a profiled
+             step by kind (conv, batch_norm, elementwise, ...) with its
+             busy share; the losses finite, the last epoch's mean below
+             the warm-up call's, top-1 above 0.1, and no kernel of the
+             table launched (the path reaches none).  16c: resnet18,
+             resnext50_32x4d, LeNet, vgg11(batch_norm=True), alexnet,
+             mobilenet_v1 and mobilenet_v2 at batch 8, each as 16a with
+             one Momentum step.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1406,6 +1434,13 @@ TRACE_KINDS = {"nccl": ("nccl",), "memcpy": ("Memcpy",),
                "rope": ("rope_kernel",), "fused_adamw": ("fused_adamw",),
                "layer_norm": ("layer_norm", "LayerNorm", "GammaBeta"),
                "cross_entropy": ("ce_rows",),
+               # phase 16's cuDNN kernels, ahead of "matmul": a cuDNN
+               # convolution's name may hold "gemm" or "xmma" too
+               "batch_norm": ("batch_norm", "bn_fw", "bn_bw", "BatchNorm"),
+               "conv": ("fprop", "dgrad", "wgrad", "convolve", "conv2d",
+                        "Conv", "cudnn", "winograd", "implicit_gemm",
+                        "nchwToNhwc", "nhwcToNchw"),
+               "pool": ("pool",),
                "matmul": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
                "copy_cast": ("copy", "Copy"),
                "reduce": ("reduce_kernel",),
@@ -2588,15 +2623,16 @@ def phase_sharded(torch, ops, dev, ref, ref_counts, steps=6):
     return zero3, total
 
 
-def train_trace(torch, step, batch, wall_ms):
+def train_trace(torch, step, batch, wall_ms, label=None):
     """Where a train step's time goes: one more step under torch.profiler
     (after the counted steps), device time by kernel and by kind; the
-    busy share is that device time over the median unprofiled step."""
+    busy share is that device time over the median unprofiled step.
+    `label`: the step's labels (default: `batch`, a language model's)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step(batch, batch)
+        step(batch, batch if label is None else label)
         torch.cuda.synchronize()
     # the device ranges c10d annotates its collectives with
     # ("nccl:_all_gather_base") span the copies or kernels that do the
@@ -4111,6 +4147,344 @@ def phase_bert(torch, ops, dev):
              for n in counts}, kern)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: ResNet-50 on CIFAR-shaped data as bench.py::bench_resnet runs it
+# (BASELINE config 1), and the vision zoo on the same layers
+# ---------------------------------------------------------------------------
+# bench.py:669-737 on the TPU: resnet50(num_classes=10), batch 256, 4096
+# training and 1024 held-out images from RandomState(0), 3 timed epochs
+# after one warm-up call, Momentum(0.02, momentum=0.9, weight_decay=1e-4);
+# fp32, NCHW (bench_resnet sets no compute dtype)
+RESNET_BATCH, RESNET_TRAIN, RESNET_TEST, RESNET_EPOCHS = 256, 4096, 1024, 3
+RESNET_LR, RESNET_MU, RESNET_WD = 0.02, 0.9, 1e-4
+# 16a / 16c: the same weights and batch in four runs: the card in fp64 and
+# in fp32 (TF32 off, the benchmarked precision), the CPU in fp64 and in
+# fp32.  The card's fp64 run is held to the CPU's fp64 run at FP64_TOL, in
+# norm for each tensor: in fp64 the two compute one function far above
+# their rounding, so this is where a fault of the card's path shows.
+# The card's fp32 run is held to the CPU's fp64 one by the conditioning of
+# each quantity (FP32_TOL, relative in norm): in training mode at
+# initialisation BatchNorm makes ResNet's fp32 gradients ill-conditioned,
+# and the card's rounding is amplified more than the CPU's (whose fp32
+# BatchNorm accumulates in fp64): at resnet50, batch 16, the card's
+# gradients lay 1.3e-2 (median tensor) and up to 2.0e-2 from fp64, the
+# CPU fp32's 1.3e-4 and 4.9e-3; the logits 7.2e-5 and 6.9e-5.  A single
+# fp32 convolution's forward, data and weight gradients there lie within
+# 9.3e-6 of fp64 (TF32 on: 9.4e-4), so no TF32 rounding is in them
+# (tools/cudnn_fp32_check.py, NVIDIA H100 80GB HBM3, 700.00 W).  The
+# parameter changes after the Momentum steps carry that conditioning into
+# the next step's gradient: at resnet50 the 2-step changes of all
+# parameters, as one vector, lay 0.26 (card) and 0.18 (CPU) of their norm
+# from fp64, one BatchNorm bias's 0.72 of itself.  So the card's fp32
+# changes, as one vector, are held to CHANGES_RATIO x the CPU fp32's
+# distance (+ FP32_TOL["changes"] of their norm); the fp64 runs hold the
+# changes per tensor.  The CPU's fp32 distances are logged beside the
+# card's
+FP64_TOL = 1e-8
+FP32_TOL = {"logits": 1e-3, "running_stats": 1e-3, "gradients": 1e-1,
+            "changes": 1e-5}
+CHANGES_RATIO = 4.0
+
+
+def _class_correlated_images(n, num_classes, rng, noise=0.6):
+    """bench.py::_class_correlated_images (:659-666): a template a class
+    plus Gaussian noise."""
+    templates = rng.randn(num_classes, 3, 32, 32).astype(np.float32)
+    labels = rng.randint(0, num_classes, n)
+    imgs = templates[labels] + noise * rng.randn(n, 3, 32, 32)
+    return imgs.astype(np.float32), labels.astype(np.int64)
+
+
+def _forward_flops(torch, model, x):
+    """FLOPs of one forward of `x`, counted from the shapes each
+    convolution and Linear sees (2 x MACs: out elements x in / groups x
+    kernel window; in x out a row); the rest (BatchNorm, ReLU, pools)
+    is left out."""
+    from paddle_tpu_torch import nn
+    flops = [0]
+
+    def conv(m, inp, out):
+        k = m.weight.shape[1] * int(np.prod(m.weight.shape[2:]))
+        flops[0] += 2 * out.numel() * k
+
+    def linear(m, inp, out):
+        flops[0] += 2 * out.numel() * m.weight.shape[0]
+    hooks = [m.register_forward_hook(conv if isinstance(m, nn.Conv2D)
+                                     else linear)
+             for m in model.modules()
+             if isinstance(m, (nn.Conv2D, nn.Linear))]
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return flops[0]
+
+
+def _rel(got, ref):
+    """{name: ||got - ref|| / scale}: each tensor's distance in norm over
+    its own norm, or over 1e-3 of the largest norm of `ref` where its own
+    is smaller (a gradient that is zero in exact arithmetic, as a conv
+    bias ahead of BatchNorm has, is rounding noise in every run)."""
+    norms = {n: r.detach().double().cpu().norm().item()
+             for n, r in ref.items()}
+    floor = 1e-3 * max(norms.values())
+    return {n: (got[n].detach().double().cpu()
+                - r.detach().double().cpu()).norm().item()
+            / max(norms[n], floor, 1e-300) for n, r in ref.items()}
+
+
+def _held(tag, got, ref, tol):
+    """Each tensor of {name: value} within `tol` of the reference's
+    (_rel); returns the worst (name, distance), the median and the
+    distance of all of them as one vector, with "fail" where one is
+    over `tol`."""
+    rel = _rel(got, ref)
+    worst = max(rel.items(), key=lambda e: e[1])
+    num = sum((got[n].detach().double().cpu() - r.detach().double().cpu())
+              .norm().item() ** 2 for n, r in ref.items())
+    den = sum(r.detach().double().cpu().norm().item() ** 2
+              for r in ref.values())
+    rec = dict(worst=worst, median=float(np.median(list(rel.values()))),
+               whole=(num / max(den, 1e-300)) ** 0.5)
+    if worst[1] > tol:
+        rec["fail"] = (f"{tag}: {worst[0]} is {worst[1]} from the fp64 CPU "
+                       f"value, relative, over {tol}")
+    return rec
+
+
+def _train_pass(torch, model, x, y):
+    """One training-mode forward and backward: (logits, loss, {param:
+    gradient}, {buffer: value after the forward}), on the CPU."""
+    from paddle_tpu_torch.nn import functional as F
+    model.train()
+    out = model(x)
+    loss = F.cross_entropy(out, y)
+    loss.backward()
+    bufs = {n: b.detach().cpu().clone() for n, b in model.named_buffers()
+            if n.endswith(("_mean", "_variance"))}
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return out.detach().cpu(), loss.item(), grads, bufs
+
+
+def _vision_parity(torch, dev, tag, make, x, y, steps):
+    """`make(device)` built on the CPU and carried through
+    numpy_state_dict / load_numpy_state_dict to the card in fp64 and in
+    fp32 and to the CPU in fp64 and in fp32; on the same batch in
+    training mode (Dropout at p = 0: its masks would come from each
+    device's own stream) the logits and the loss, the BatchNorm running
+    statistics after the forward, every gradient, then the parameter
+    changes after `steps` Momentum steps (bench_resnet's
+    hyper-parameters) on the batch.  The card's fp64 run is held to the
+    CPU's at FP64_TOL, its fp32 run to the CPU's fp64 one at FP32_TOL;
+    the loss within twice the logits' largest distance (cross-entropy
+    moves by at most that)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (load_numpy_state_dict,
+                                         numpy_state_dict)
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    f32, f64 = torch.float32, torch.float64
+    cpu = make("cpu")
+    w = numpy_state_dict(cpu)
+    models = {"cpu32": cpu}
+    for k, d, dt in (("card32", dev, f32), ("card64", dev, f64),
+                     ("cpu64", "cpu", f64)):
+        models[k] = make(d)
+        load_numpy_state_dict(models[k], w)
+        models[k].to(dt)
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    runs = {}
+    for k, m in models.items():
+        for d in m.modules():
+            if isinstance(d, nn.Dropout):
+                d.p = 0.0
+        p0 = next(m.parameters())
+        logits, loss, grads, bufs = _train_pass(
+            torch, m, tx.to(p0.device, p0.dtype), ty.to(p0.device))
+        start = {n: q.detach().cpu().clone() for n, q in m.named_parameters()}
+        step = TrainStep(m, lambda o, t: F.cross_entropy(o, t),
+                         Momentum(RESNET_LR, momentum=RESNET_MU,
+                                  parameters=m.parameters(),
+                                  weight_decay=RESNET_WD))
+        for _ in range(steps):
+            step(tx.to(p0.device, p0.dtype), ty.to(p0.device))
+        changes = {n: q.detach().cpu() - start[n]
+                   for n, q in m.named_parameters()}
+        runs[k] = dict(logits={"logits": logits}, loss=loss, gradients=grads,
+                       running_stats=bufs, changes=changes)
+    ref = runs["cpu64"]
+    rec = dict(model=tag, batch=list(x.shape),
+               loss={k: r["loss"] for k, r in runs.items()})
+    for what in ("logits", "running_stats", "gradients", "changes"):
+        if not ref[what]:
+            continue                            # no BatchNorm
+        rec[what] = dict(
+            card64=_held(f"{tag} {what}, card fp64", runs["card64"][what],
+                         ref[what], FP64_TOL),
+            card32=_held(f"{tag} {what}, card fp32", runs["card32"][what],
+                         ref[what], np.inf if what == "changes"
+                         else FP32_TOL[what]),
+            cpu32=_held(f"{tag} {what}, CPU fp32", runs["cpu32"][what],
+                        ref[what], np.inf))
+    ch = rec["changes"]
+    tol = CHANGES_RATIO * ch["cpu32"]["whole"] + FP32_TOL["changes"]
+    if ch["card32"]["whole"] > tol:
+        ch["card32"]["fail"] = (
+            f"{tag} changes, card fp32: {ch['card32']['whole']} from the "
+            f"fp64 CPU values as one vector, relative, over {tol} "
+            f"({CHANGES_RATIO} x the CPU fp32's + {FP32_TOL['changes']})")
+    fails = [rec[what][k]["fail"] for what in FP32_TOL if what in rec
+             for k in ("card64", "card32") if "fail" in rec[what][k]]
+    for k in ("card64", "card32"):
+        tol = 2 * (runs[k]["logits"]["logits"].double()
+                   - ref["logits"]["logits"]).abs().max().item() \
+            + 1e-12 * abs(ref["loss"])
+        if abs(runs[k]["loss"] - ref["loss"]) > tol:
+            fails.append(f"{tag} loss {k} {runs[k]['loss']} fp64 CPU "
+                         f"{ref['loss']} (tol {tol})")
+    log(f"[{tag}-parity] " + json.dumps(rec))
+    check(not fails, "; ".join(fails))
+    del models, cpu
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _resnet_bench(torch, ops, dev):
+    """16b: bench_resnet's run on the card (see the header); returns its
+    record.  No kernel of the table runs on this path: every launch
+    count must stay 0."""
+    import gc
+    from paddle_tpu_torch.jit import TrainStep, to_static
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = resnet50(num_classes=10, device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(0)
+    xs_all, ys_all = _class_correlated_images(RESNET_TRAIN + RESNET_TEST,
+                                              10, rng)
+    K, b = RESNET_TRAIN // RESNET_BATCH, RESNET_BATCH
+    sx = torch.from_numpy(xs_all[:RESNET_TRAIN].reshape(K, b, 3, 32, 32)) \
+        .to(dev)
+    sy = torch.from_numpy(ys_all[:RESNET_TRAIN].reshape(K, b)).to(dev)
+    xt, yt = xs_all[RESNET_TRAIN:], ys_all[RESNET_TRAIN:]
+    model.eval()                # no running-statistics update
+    fwd_flops = _forward_flops(torch, model, sx[0])
+    model.train()
+    step_flops = 3 * fwd_flops
+    step = TrainStep(model, lambda o, t: F.cross_entropy(o, t),
+                     Momentum(RESNET_LR, momentum=RESNET_MU,
+                              parameters=model.parameters(),
+                              weight_decay=RESNET_WD))
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = step.run_steps(sx, sy)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    epochs = []
+    for _ in range(RESNET_EPOCHS):
+        t0 = time.perf_counter()
+        losses = step.run_steps(sx, sy)
+        torch.cuda.synchronize()
+        epochs.append((time.perf_counter() - t0, losses.tolist()))
+    counts = ops.launch_counts()
+    run_s = sum(t for t, _ in epochs)
+    model.eval()
+    eval_fwd = to_static(model)
+    correct = 0
+    for i in range(0, RESNET_TEST, b):
+        pred = eval_fwd(torch.from_numpy(xt[i:i + b]).to(dev)).argmax(-1)
+        correct += int((pred.cpu().numpy() == yt[i:i + b]).sum())
+    top1 = correct / RESNET_TEST
+    model.train()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    step_ms = run_s * 1e3 / (RESNET_EPOCHS * K)
+    # a profiled step; a trace that shows no convolution is taken again
+    for tries in range(1, 4):
+        trace = train_trace(torch, step, sx[0], step_ms, label=sy[0])
+        if trace["events"]["conv"] > 0:
+            break
+    trace["tries"] = tries
+    warm_l = warm.tolist()
+    check(all(c == 0 for c in counts.values()),
+          f"bench_resnet's path launched a kernel of the table: {counts}")
+    check(all(np.isfinite(warm_l + [x for _, ls in epochs for x in ls])),
+          f"non-finite resnet losses {warm_l} {epochs}")
+    check(np.mean(epochs[-1][1]) < np.mean(warm_l),
+          f"the last epoch's mean loss {np.mean(epochs[-1][1])} is not "
+          f"below the warm-up call's {np.mean(warm_l)}")
+    check(top1 > 0.1, f"held-out top-1 {top1} is not above chance (0.1)")
+    rec = dict(
+        params=n_params, batch=b, steps_per_epoch=K, epochs=RESNET_EPOCHS,
+        warmup_s=warm_s, warmup_losses=warm_l,
+        epoch_s=[t for t, _ in epochs],
+        epoch_last_loss=[ls[-1] for _, ls in epochs],
+        epoch_mean_loss=[float(np.mean(ls)) for _, ls in epochs],
+        images_per_s=RESNET_EPOCHS * K * b / run_s, step_ms=step_ms,
+        top1=top1, peak_mem_gb=peak, fwd_gflop_per_image=fwd_flops / b
+        / 1e9, step_tflop=step_flops / 1e12,
+        tflop_per_s=step_flops / (step_ms * 1e-3) / 1e12,
+        fp32_peak_share=step_flops / (step_ms * 1e-3) / FP32_FLOP_PER_S,
+        launches=counts, tf32=False)
+    log("[resnet] " + json.dumps(rec))
+    log("[resnet-trace] " + json.dumps(trace))
+    del step, model, sx, sy
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _zoo_parity(torch, dev):
+    """16c: one forward and one Momentum step of each zoo model at batch
+    8, card against CPU against fp64 (_vision_parity)."""
+    from paddle_tpu_torch.vision import models
+    rng = np.random.RandomState(17)
+    x32, y8 = _class_correlated_images(8, 10, rng)
+    x64 = rng.randn(8, 3, 64, 64).astype(np.float32)
+    x28 = rng.randn(8, 1, 28, 28).astype(np.float32)
+    zoo = {"resnet18": (models.resnet18, {}, x32),
+           "resnext50_32x4d": (models.resnext50_32x4d, {}, x32),
+           "lenet": (models.LeNet, {}, x28),
+           "vgg11_bn": (models.vgg11, dict(batch_norm=True), x32),
+           "alexnet": (models.alexnet, {}, x64),
+           "mobilenet_v1": (models.mobilenet_v1, {}, x32),
+           "mobilenet_v2": (models.mobilenet_v2, {}, x32)}
+    recs = []
+    for tag, (ctor, kw, x) in zoo.items():
+        def make(device, ctor=ctor, kw=kw):
+            return ctor(num_classes=10, device=device, seed=17, **kw)
+        recs.append(_vision_parity(torch, dev, tag, make, x, y8, 1))
+    return recs
+
+
+def phase_resnet(torch, ops, dev):
+    """Phase 16: 16a resnet50 card against CPU, 16b bench_resnet's run,
+    16c the zoo.  Runs no kernel of the table: returns nothing toward
+    the kernels line."""
+    from paddle_tpu_torch.vision.models import resnet50
+    walls = {}
+    t = time.perf_counter()
+    x, y = _class_correlated_images(16, 10, np.random.RandomState(16))
+    rec = _vision_parity(
+        torch, dev, "resnet50",
+        lambda device: resnet50(num_classes=10, device=device, seed=16),
+        x, y, 2)
+    walls["16a"] = round(time.perf_counter() - t, 1)
+    t = time.perf_counter()
+    _resnet_bench(torch, ops, dev)
+    walls["16b"] = round(time.perf_counter() - t, 1)
+    t = time.perf_counter()
+    _zoo_parity(torch, dev)
+    walls["16c"] = round(time.perf_counter() - t, 1)
+    log("[resnet-walls] " + json.dumps(walls))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4201,6 +4575,8 @@ def main():
         "ERNIE, kernels)", phase_bert, torch, ops, dev)
     for name, cases in bert_kern.items():   # 15d's shapes
         kern[name] += cases
+    timed("16 train ResNet-50 (bench_resnet), parity, the vision zoo",
+          phase_resnet, torch, ops, dev)
     # launches on the main path: the serves (5, 10, 11, 13, 14) and the
     # trainings (8, 9, 12, 15)
     counts = {n: counts[n] + train_counts[n] + fused_counts[n]

@@ -1,4 +1,4 @@
-"""The device rule.
+"""The device rule, and a model's init generator.
 
 Entry points run on `cuda` unless the caller asks for the CPU: with no
 CUDA device and no explicit `device="cpu"` they raise, so a run meant
@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "module_device"]
+__all__ = ["resolve_device", "module_device", "init_generator"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -39,3 +39,14 @@ def module_device(module: torch.nn.Module) -> torch.device:
     if len(devs) != 1:
         raise ValueError(f"module parameters span devices {sorted(map(str, devs))}")
     return devs.pop()
+
+
+def init_generator(device, seed, generator=None) -> torch.Generator:
+    """A model's init generator: the caller's, or a new one on `device`
+    seeded with `seed`.  The random initializers (and Dropout) draw from
+    it; a CPU and a CUDA generator of one seed give different streams."""
+    if generator is not None:
+        return generator
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen

@@ -44,7 +44,7 @@ from dataclasses import dataclass
 import torch
 
 from .. import nn, ops
-from ..framework.device import resolve_device
+from ..framework.device import init_generator, resolve_device
 from ..framework.dtypes import to_torch
 from ..framework.flags import get_flag
 from ..nn import functional as F
@@ -93,16 +93,6 @@ def bert_tiny_config(**kw):
     for k, v in kw.items():
         setattr(cfg, k, v)
     return cfg
-
-
-def _generator(device, seed, generator):
-    """The model's init generator: the caller's, or a new one on
-    `device` seeded with `seed`."""
-    if generator is not None:
-        return generator
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
-    return gen
 
 
 class BertEmbeddings(Layer):
@@ -195,7 +185,7 @@ class BertModel(Layer):
                  generator=None):
         super().__init__()
         dev = resolve_device(device)
-        gen = _generator(dev, seed, generator)
+        gen = init_generator(dev, seed, generator)
         self.config = config
         emb_cls = type(self).embeddings_cls or BertEmbeddings
         self.embeddings = emb_cls(config, dev, gen)
@@ -227,7 +217,7 @@ class BertForMaskedLM(Layer):
     def __init__(self, config: BertConfig, device=None, seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
-        gen = _generator(dev, seed, None)
+        gen = init_generator(dev, seed)
         self.config = config
         self.bert = (type(self).backbone_cls or BertModel)(
             config, dev, generator=gen)

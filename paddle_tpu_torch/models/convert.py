@@ -2,9 +2,10 @@
 
 `load_numpy_state_dict(model, {name: ndarray})` takes the values of a
 `paddle_tpu` model's `state_dict()` as numpy arrays and copies them
-into the port's parameters of the same names.  Both packages keep the
-[in, out] layout (`x @ w`), so nothing is transposed.  A missing, extra
-or mis-shaped name raises before any parameter is written.
+into the port's parameters and persistable buffers (BatchNorm's `_mean`
+and `_variance`) of the same names.  Both packages keep the [in, out]
+layout (`x @ w`), so nothing is transposed.  A missing, extra or
+mis-shaped name raises before anything is written.
 
 Weight-only packed models carry over too: a model that
 `quantization.quantize_model` packed holds int8 parameters under the
@@ -43,11 +44,22 @@ def _to_tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def _persistable_buffers(model: torch.nn.Module):
+    """{structural name: buffer} of the buffers `state_dict` holds."""
+    out = {}
+    for prefix, m in model.named_modules():
+        for n, b in m._buffers.items():
+            if b is not None and n not in m._non_persistent_buffers_set:
+                out[f"{prefix}.{n}" if prefix else n] = b
+    return out
+
+
 def load_numpy_state_dict(model: torch.nn.Module,
                           state: Mapping[str, object]) -> None:
     params = dict(model.named_parameters())
-    missing = sorted(set(params) - set(state))
-    extra = sorted(set(state) - set(params))
+    buffers = _persistable_buffers(model)
+    missing = sorted((set(params) | set(buffers)) - set(state))
+    extra = sorted(set(state) - set(params) - set(buffers))
     if missing or extra:
         raise KeyError(f"state dict does not match the model: missing "
                        f"{missing}, unexpected {extra}")
@@ -63,20 +75,25 @@ def load_numpy_state_dict(model: torch.nn.Module,
                 f"load into a {p.dtype} parameter (a weight-only packed "
                 f"parameter takes the packed int8 values, and only it; "
                 f"quantize both models at the same configuration)")
+    for name, b in buffers.items():
+        shape = tuple(np.shape(state[name]))
+        if shape != tuple(b.shape):
+            raise ValueError(f"{name}: shape {shape} != buffer shape "
+                             f"{tuple(b.shape)}")
     with torch.no_grad():
-        for name, p in params.items():
-            p.copy_(_to_tensor(state[name]).to(device=p.device,
-                                               dtype=p.dtype))
+        for name, t in list(params.items()) + list(buffers.items()):
+            t.copy_(_to_tensor(state[name]).to(device=t.device,
+                                               dtype=t.dtype))
 
 
 def numpy_state_dict(model: torch.nn.Module):
     """{name: ndarray} of every parameter — float32, or int8 for a
-    weight-only packed parameter — a copy that later updates of the
-    model leave alone: the inverse view, for round-trip
-    checks and carrying a model to another device.  A parameter that a
-    ZeRO-3 `parallel.ShardedTrainStep` holds as shards (its
-    `zero_shard`) is gathered whole: then every rank of the group calls
-    this together."""
+    weight-only packed parameter — and every persistable buffer (float32
+    if floating), a copy that later updates of the model leave alone:
+    the inverse view, for round-trip checks and carrying a model to
+    another device.  A parameter that a ZeRO-3 `parallel.ShardedTrainStep`
+    holds as shards (its `zero_shard`) is gathered whole: then every
+    rank of the group calls this together."""
     out = {}
     for n, p in model.named_parameters():
         shard = getattr(p, "zero_shard", None)
@@ -86,6 +103,9 @@ def numpy_state_dict(model: torch.nn.Module):
         # storage and follow later in-place updates
         out[n] = t.numpy().copy() if t.data_ptr() == p.data_ptr() \
             else t.numpy()
+    for n, b in _persistable_buffers(model).items():
+        t = b.detach().float() if b.is_floating_point() else b.detach()
+        out[n] = t.cpu().numpy().copy()
     return out
 
 

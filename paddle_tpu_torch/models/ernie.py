@@ -21,10 +21,10 @@ from dataclasses import dataclass
 import torch
 
 from .. import nn
-from ..framework.device import resolve_device
+from ..framework.device import init_generator, resolve_device
 from ..nn import functional as F
 from ..nn.layer import Layer
-from .bert import BertConfig, BertForMaskedLM, BertModel, _generator
+from .bert import BertConfig, BertForMaskedLM, BertModel
 
 __all__ = ["ErnieConfig", "ErnieModel", "ErnieForSequenceClassification",
            "ErnieForMaskedLM", "ernie_tiny_config"]
@@ -101,7 +101,7 @@ class ErnieForSequenceClassification(Layer):
                  device=None, seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
-        gen = _generator(dev, seed, None)
+        gen = init_generator(dev, seed)
         self.ernie = ErnieModel(config, dev, generator=gen)
         self.dropout = nn.Dropout(config.hidden_dropout_prob, generator=gen)
         self.classifier = nn.Linear(config.hidden_size, num_classes,

@@ -1,14 +1,15 @@
-"""Activations: `gelu` and `tanh`.
+"""Activations: `gelu`, `tanh`, `relu` and `relu6`.
 
 Counterpart of `paddle_tpu/nn/functional/activation.py`: `gelu` (:44,
-`jax.nn.gelu`; `approximate=True` is the tanh form original BERT uses)
-and `tanh` (:27).  Plain PyTorch, as the reference leaves them to XLA.
+`jax.nn.gelu`; `approximate=True` is the tanh form original BERT uses),
+`tanh` (:27), `relu` and `relu6` (:24-25).  Plain PyTorch, as the
+reference leaves them to XLA.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["gelu", "tanh"]
+__all__ = ["gelu", "tanh", "relu", "relu6"]
 
 
 def gelu(x, approximate=False, name=None):
@@ -18,3 +19,11 @@ def gelu(x, approximate=False, name=None):
 
 def tanh(x, name=None):
     return torch.tanh(x)
+
+
+def relu(x, name=None):
+    return torch.relu(x)
+
+
+def relu6(x, name=None):
+    return torch.nn.functional.relu6(x)

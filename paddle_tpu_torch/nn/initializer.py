@@ -2,8 +2,10 @@
 
 Counterpart of `paddle_tpu/nn/initializer/__init__.py`: `Constant`
 (:46), `Normal` (:54), `TruncatedNormal` (:66), `Uniform` (:79),
-`XavierNormal` (:89) and `XavierUniform` (:101), with the reference's
-fan rule `_fans` (:28).
+`XavierNormal` (:89), `XavierUniform` (:101), `KaimingNormal` (:113:
+std = gain / sqrt(fan_in)) and `KaimingUniform` (:125: limit = gain
+sqrt(3 / fan_in)), with the reference's fan rule `_fans` (:28) and
+`calculate_gain` (:184).
 
 An initializer is called as `init(shape, dtype, device=..., generator=...)`
 and returns a new tensor.  The random ones draw in fp32 from the explicit
@@ -22,7 +24,8 @@ import math
 import torch
 
 __all__ = ["Initializer", "Constant", "Normal", "TruncatedNormal", "Uniform",
-           "XavierNormal", "XavierUniform"]
+           "XavierNormal", "XavierUniform", "KaimingNormal", "KaimingUniform",
+           "calculate_gain"]
 
 
 def _fans(shape):
@@ -126,3 +129,48 @@ class XavierUniform(Initializer):
         limit = self.gain * math.sqrt(6.0 / (fi + fo))
         return Uniform(-limit, limit)(shape, dtype, device, generator)
 
+
+
+class KaimingNormal(Initializer):
+    def __init__(self, fan_in=None, negative_slope=0.0, nonlinearity="relu"):
+        self.fan_in = fan_in
+        self.negative_slope = negative_slope
+        self.nonlinearity = nonlinearity
+
+    def __call__(self, shape, dtype=torch.float32, device="cpu",
+                 generator=None):
+        fi = self.fan_in if self.fan_in is not None else _fans(shape)[0]
+        std = calculate_gain(self.nonlinearity, self.negative_slope) \
+            / math.sqrt(fi)
+        return Normal(0.0, std)(shape, dtype, device, generator)
+
+
+class KaimingUniform(Initializer):
+    def __init__(self, fan_in=None, negative_slope=0.0, nonlinearity="relu"):
+        self.fan_in = fan_in
+        self.negative_slope = negative_slope
+        self.nonlinearity = nonlinearity
+
+    def __call__(self, shape, dtype=torch.float32, device="cpu",
+                 generator=None):
+        fi = self.fan_in if self.fan_in is not None else _fans(shape)[0]
+        limit = calculate_gain(self.nonlinearity, self.negative_slope) \
+            * math.sqrt(3.0 / fi)
+        return Uniform(-limit, limit)(shape, dtype, device, generator)
+
+
+def calculate_gain(nonlinearity, param=None):
+    if nonlinearity in ("sigmoid", "linear", "conv1d", "conv2d", "conv3d",
+                        "conv_transpose1d", "conv_transpose2d",
+                        "conv_transpose3d"):
+        return 1.0
+    if nonlinearity == "tanh":
+        return 5.0 / 3.0
+    if nonlinearity == "relu":
+        return math.sqrt(2.0)
+    if nonlinearity == "leaky_relu":
+        a = param if param is not None else 0.01
+        return math.sqrt(2.0 / (1 + a ** 2))
+    if nonlinearity == "selu":
+        return 3.0 / 4.0
+    raise ValueError(f"unknown nonlinearity {nonlinearity}")

@@ -1,9 +1,12 @@
-"""Optimizer base, Adam and AdamW.
+"""Optimizer base, SGD, Momentum, Adam and AdamW.
 
 Counterpart of `paddle_tpu/optimizer/optimizer.py`: the parts of
 `Optimizer` (:30) a train step needs (`get_lr`, `_wd_value`, the step
-count, `apply_decay_param_fun`), `Adam` (:246) with `moment_dtype`,
-`moment_ef` and its `ef` residual, and `AdamW` (:319).
+count, `apply_decay_param_fun`), `SGD` (:205), `Momentum` (:216, with
+`use_nesterov`; the velocity in the parameter's dtype), `Adam` (:246)
+with `moment_dtype`, `moment_ef` and its `ef` residual, and `AdamW`
+(:319).  A float `weight_decay` of SGD and Momentum is L2 folded into
+the gradient (g + wd p), as the reference's rules do.
 
 The update rule `_update` is the reference's pure rule, in fp32, but
 written IN PLACE: it overwrites the parameter and the state tensors
@@ -21,7 +24,7 @@ import torch
 from ..framework.flags import get_flag
 from ..nn.layer import auto_name
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
 
 _DTYPES = {None: torch.float32, "float32": torch.float32,
            "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -81,6 +84,47 @@ class Optimizer:
         if ex is not None and ex(key):
             return 0.0
         return self._wd_value(p)
+
+
+class SGD(Optimizer):
+    @staticmethod
+    @torch.no_grad()
+    def _update(param, grad, state, lr, wd, step):
+        """param - lr (g + wd param), IN PLACE, in the reference's order."""
+        g = grad
+        if wd:
+            g = g + wd * param
+        param.copy_(param - lr * g.to(param.dtype))
+
+
+class Momentum(Optimizer):
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None, **kw):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, **kw)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _init_state(self, p):
+        return {"velocity": torch.zeros_like(p)}
+
+    def _hyper(self):
+        return {"mu": self._momentum, "nesterov": self._nesterov}
+
+    @staticmethod
+    @torch.no_grad()
+    def _update(param, grad, state, lr, wd, step, mu=0.9, nesterov=False):
+        """v = mu v + g (g + wd param with decay); param - lr v, or
+        param - lr (g + mu v) with Nesterov; IN PLACE, in the reference's
+        order."""
+        g = grad
+        if wd:
+            g = g + wd * param
+        v = mu * state["velocity"] + g
+        upd = g + mu * v if nesterov else v
+        param.copy_(param - lr * upd.to(param.dtype))
+        state["velocity"].copy_(v)
 
 
 class Adam(Optimizer):

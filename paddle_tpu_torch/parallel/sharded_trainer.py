@@ -2,7 +2,8 @@
 
 Counterpart of `paddle_tpu/parallel/sharded_trainer.py`:
 `ShardedTrainStep` (:144) with `from_strategy` (:231-258) and
-`run_steps` (:906), `shard_batch` (:81) and `_add_axis_to_spec` (:113).
+`run_steps` (:906, jit.TrainStep's), `shard_batch` (:81) and
+`_add_axis_to_spec` (:113).
 The reference states its strategy as array shardings and lets XLA place
 the collectives; here every rank is a process with one device, and the
 step issues the collectives itself (NCCL on the card, gloo on the CPU)
@@ -549,13 +550,6 @@ class ShardedTrainStep(TrainStep):
             sh.grad = None
             if self.stage < 3:
                 sh.publish()
-
-    def run_steps(self, *stacked_batch):
-        """K steps, one per entry of the leading dim of each batch
-        array; returns the [K] losses."""
-        k = int(stacked_batch[0].shape[0])
-        return torch.stack([self(*(b[i] for b in stacked_batch))
-                            for i in range(k)])
 
     # -- not ported yet ----------------------------------------------------
     def train_state(self):

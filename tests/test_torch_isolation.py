@@ -10,8 +10,9 @@
     a launch or build error, nor one in the trainer a collective;
   * a build with no nvcc raises with the reason;
   * the card scripts (chip_smoke.py, serve_ab.py, tools/*_ab.py,
-    tools/zero_ranks.py, tools/zero3_host.py) import nothing of the
-    reference and, with no CUDA device, exit 2 without a result.
+    tools/zero_ranks.py, tools/zero3_host.py, tools/cudnn_fp32_check.py)
+    import nothing of the reference and, with no CUDA device, exit 2
+    without a result.
 """
 import ast
 import os
@@ -43,6 +44,8 @@ import paddle_tpu_torch.inference.generation
 import paddle_tpu_torch.distributed.fault, paddle_tpu_torch.distributed.guard
 import paddle_tpu_torch.distributed.watchdog
 import paddle_tpu_torch.inference.router, paddle_tpu_torch.fleet.autoscaler
+import paddle_tpu_torch.vision, paddle_tpu_torch.vision.models.resnet
+import paddle_tpu_torch.nn.functional.conv, paddle_tpu_torch.nn.layer.pooling
 for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch."):
     importlib.import_module(m.name)
 bad = sorted(n for n in sys.modules
@@ -59,6 +62,21 @@ def test_import_pulls_in_no_jax_and_no_reference():
                          env=dict(os.environ, PYTHONPATH=root))
     assert res.returncode == 0, res.stderr
     assert "LEAKED []" in res.stdout, res.stdout
+
+
+def test_vision_package_is_walked_by_the_import_check():
+    """The subprocess import check covers the vision zoo: every module
+    of paddle_tpu_torch.vision is a submodule the walk imports."""
+    import pkgutil
+    import paddle_tpu_torch.vision
+    names = {m.name for m in pkgutil.walk_packages(
+        paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
+    zoo = {"paddle_tpu_torch.vision", "paddle_tpu_torch.vision.models"} | {
+        f"paddle_tpu_torch.vision.models.{n}" for n in (
+            "resnet", "lenet", "alexnet", "vgg", "mobilenetv1",
+            "mobilenetv2")}
+    assert zoo <= names
+    assert paddle_tpu_torch.vision.resnet50 is not None
 
 
 def test_sources_never_import_the_reference():
@@ -80,7 +98,8 @@ def test_sources_never_import_the_reference():
                                     "tools/norm_rope_ab.py",
                                     "tools/ce_rows_ab.py",
                                     "tools/zero_ranks.py",
-                                    "tools/zero3_host.py"])
+                                    "tools/zero3_host.py",
+                                    "tools/cudnn_fp32_check.py"])
 def test_card_scripts_stand_alone_and_refuse_without_cuda(script, tmp_path):
     """The card scripts import nothing of the reference, and with no CUDA
     device (as here) exit 2 and print no result."""
@@ -108,6 +127,18 @@ def test_constructor_without_device_raises(no_cuda):
         LlamaForCausalLM(llama_tiny_config())
     with pytest.raises(RuntimeError, match="no CUDA"):
         LlamaForCausalLM(llama_tiny_config(), device="cuda")
+
+
+@pytest.mark.parametrize("ctor", ["resnet50", "resnet18", "resnext50_32x4d",
+                                  "LeNet", "alexnet", "vgg11",
+                                  "mobilenet_v1", "mobilenet_v2"])
+def test_vision_constructors_without_device_raise(no_cuda, ctor):
+    """The zoo builds on CUDA unless asked for the CPU."""
+    from paddle_tpu_torch.vision import models
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(models, ctor)(num_classes=10)
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        getattr(models, ctor)(num_classes=10, device="cuda")
 
 
 def test_parallel_env_and_mesh_without_device_raise(no_cuda):
