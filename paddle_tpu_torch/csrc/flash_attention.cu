@@ -3,14 +3,36 @@
 // Replaces the TPU kernel paddle_tpu/ops/pallas/flash_attention.py::
 // flash_attention (:816): forward _fwd_kernel (:482) and its _small /
 // _1b twins, backward _bwd_dq_kernel (:585) and _bwd_dkv_kernel (:630).
-//   out = softmax(q.k^T * scale [causal]) . v,   lse = m + log(l)
+//   out = softmax(q.k^T * scale [+ key bias] [causal]) . v
 // q [B, sq, h, d], k/v [B, sk, hk, d] (h % hk == 0, query head hq reads
 // kv head hq / (h / hk), `_kv_head_map` :64), addressed in that layout
 // through strides: none of the TPU wrapper's transposes to [b*h, s, d].
-// Causal masking is top-left aligned (key <= query row), as the TPU
-// kernel's; the caller refuses causal with sq != sk.  fp32 softmax with
-// NEG_INF masking; p is rounded to the operand type before P.V (:518),
-// ds and p before their products in the backward (:618, :664, :670).
+// d is any multiple of 8 from 8 to 256: the body is the next multiple of
+// 64 (the TPU kernel's domain is d % 64 == 0, :826-831), columns past d
+// are zero-filled on load (TMA) or read as 0, and stores stop at d.
+//
+// Masks follow the reference twin `xla_attention` (paddle_tpu/ops/
+// __init__.py:80-102), which replaces a masked logit by -1e30:
+//   * causal: key j is live for row i iff j <= i + sk - sq (bottom-right
+//     aligned; top-left when sq == sk, as the TPU kernel's);
+//   * an optional key bias [B or 1, skp] fp32 (the wrapper's form of a
+//     key-padding mask: 0 / -1e30 for a bool mask, the values clamped at
+//     -1e30 for an additive one), added to every row's logits;
+//   * a row whose every key is masked gets the reference's uniform
+//     weights over all sk keys (its logits are all -1e30): the forward
+//     walks every key tile for such a block, counts each masked key with
+//     p = 1 there, and saves the row max +inf as the row's mark.  The
+//     backward reads the mark: p = exp(x - m) = 0 for dq and ds, 1/sk
+//     for dv, as autograd through the twin's `where` gives.
+// The saved statistics (flash_attention.py::_stats): without a key bias
+// lse [B, h, sq], each row's logsumexp; with one, [B, h, sq, 2]: each
+// row's max m and g = log sum exp(x - m), so that the backward's
+// p = exp((x - m) - g) keeps a row whose logits all carry a large finite
+// bias (-1e9: lse = m + log(sk) rounds to m in fp32).  The bias bodies
+// keep their logits in natural units, the backward's x - m exact.
+// Keys past sk (the ragged edge) count nowhere.  fp32 softmax; p is
+// rounded to the operand type before P.V (:518), ds and p before their
+// products in the backward (:618, :664, :670).
 //
 // What bounds it on the H100: operations.  At the training shape
 // (q [4, 2048, 20, 128], kv [4, 2048, 4, 128], bf16, causal) the forward
@@ -22,8 +44,8 @@
 // Design.  The TPU's sequential grid over K blocks becomes a loop inside
 // the block; no state crosses blocks, so there are no atomics and the
 // result is deterministic.
-//   * bf16/fp16, head_dim 64 or 128: Hopper warp specialisation.  A
-//     block is three warpgroups.  Warpgroup 0 gives up its registers
+//   * bf16/fp16: Hopper warp specialisation.  A block is three
+//     warpgroups.  Warpgroup 0 gives up its registers
 //     (setmaxnreg) and one thread of it streams the tiles with TMA
 //     (4-D tensor maps over [B, s, heads, d], boxes of 64 columns with
 //     128-byte swizzle, rows past s zero-filled) into a ring of shared-
@@ -36,9 +58,10 @@
 //     transposes).  Softmax in base 2 (scale * log2 e folded into one
 //     multiply, one MUFU ex2 an element); lse converted to natural-log
 //     units once.  The causal and ragged-edge masks run only on the
-//     tiles they cut.
+//     tiles they cut; the key bias (MASK bodies) on every tile.
 //       fwd: one block per (128 query rows, q head, batch), walking the
-//            live 128-key tiles through a 2-stage K/V ring (K and V
+//            live key tiles (128 keys; 64 for bodies wider than 128)
+//            through a 2-stage K/V ring (K and V
 //            stages freed on barriers of their own).  Tile j's QK^T and
 //            tile j-1's PV are in flight together and tile j's softmax
 //            runs under the PV; the two warpgroups take turns to issue
@@ -50,11 +73,20 @@
 //            S = QK^T, dP = dO.V^T, dQ += dS.K.
 //       dkv: one block per (128 keys, kv head, batch); it walks every
 //            query head of its GQA group and the live 64-row query
-//            tiles (a 3-stage ring of Q, dO, lse and delta; lse and
+//            tiles (a ring of Q, dO, lse and delta; lse and
 //            delta through 1-D tensor maps), with S^T = K.Q^T,
 //            dP^T = V.dO^T, dV += P^T.dO and dK += dS^T.Q, the dK and dV
 //            accumulators in registers over the whole walk (the TPU
 //            kernel's accumulation over t = (g, qi), :717-741).
+//     Bodies wider than 128 (d 136-256): the same walks with what the
+//     card holds.  fwd takes 64-key tiles (Q 48-64 KB and two K and V
+//     stages fit in 227 KB); dq keeps 2 stages at 192 and 1 at 256; dkv
+//     cannot keep dK and dV of 64 keys x 256 columns in a warpgroup's
+//     registers (256 a thread), so its grid also splits the columns of
+//     dK and dV into chunks (3 of 64 at 192, 2 of 128 at 256), each
+//     block recomputing S^T and dP^T over the full width for its chunk,
+//     with 2 stages at 192 and 1 at 256.  Simple first: the widths of
+//     64 and 128 keep their bodies and times.
 //     Causal grids launch heaviest first: the last query tiles (fwd,
 //     dq) and the first key tiles (dkv) get the lowest block indices.
 //     What is left between these kernels and the card: the forward's
@@ -88,28 +120,38 @@ __device__ __forceinline__ float round_to(float x) {
   return ptt::to_f(ptt::from_f<T>(x));
 }
 
-// Copy rows [r0, r0 + rows) of a [*, stride]-strided matrix of width D
-// into fp32 shared memory [rows][ld], zero past `limit` rows.
+// the body width of head dim d: the next multiple of 64
+constexpr int body_width(int d) { return (d + 63) / 64 * 64; }
+
+// Copy rows [r0, r0 + rows) of a [*, stride]-strided matrix of width d
+// into fp32 shared memory [rows][ld] of width D >= d, zero past `limit`
+// rows and past column d.
 template <typename T, int D>
 __device__ __forceinline__ void tile_to_smem_f(const T* __restrict__ base,
                                                long long stride, int r0,
                                                int rows, int limit,
-                                               float* dst, int ld) {
+                                               float* dst, int ld, int d) {
   for (int e = threadIdx.x; e < rows * D; e += blockDim.x) {
     const int t = e / D;
     const int i = e - t * D;
-    dst[t * ld + i] =
-        r0 + t < limit ? ptt::to_f(base[(r0 + t) * stride + i]) : 0.f;
+    dst[t * ld + i] = r0 + t < limit && i < d
+                          ? ptt::to_f(base[(r0 + t) * stride + i])
+                          : 0.f;
   }
 }
 
-// number of key tiles a block of query rows [q0, q0 + rows) reads
+// Number of key tiles a block of query rows [q0, q0 + rows) reads: every
+// tile unless causal; under causal the tiles up to the last row's last
+// live key (j <= i + off, off = sk - sq), none when no row has one.
+// `full` (a row of the block may have no live key: the reference then
+// weighs every key alike) walks every tile too.
 __device__ __forceinline__ int live_key_tiles(int q0, int rows, int sq,
-                                              int sk, int bk, int causal) {
+                                              int sk, int bk, int causal,
+                                              int off, bool full) {
   const int all = (sk + bk - 1) / bk;
-  if (!causal) return all;
-  const int last = min(q0 + rows, sq) - 1;
-  return min(all, last / bk + 1);
+  if (!causal || full) return all;
+  const int last = min(q0 + rows, sq) - 1 + off;
+  return last < 0 ? 0 : min(all, last / bk + 1);
 }
 
 // ---------------------------------------------------------------------------
@@ -143,11 +185,12 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // Store rows r0 and r0 + 8 of a warpgroup's [64, D] accumulators to a
-// [*, D] matrix of row stride `stride` (rows at or past `limit` skipped).
+// [*, stride] matrix (rows at or past `limit` skipped, columns at or past
+// `cols` too; cols is a multiple of 8).
 template <typename T, int D>
 __device__ __forceinline__ void store_rows(const float* acc, T* base,
                                            long long stride, int r0,
-                                           int limit, int t) {
+                                           int limit, int t, int cols) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + 8 * half;
@@ -155,39 +198,61 @@ __device__ __forceinline__ void store_rows(const float* acc, T* base,
     T* row = base + r * stride + 2 * t;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(row + 8 * j) =
-          ptt::pack2<T>(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      if (8 * j < cols)
+        *reinterpret_cast<uint32_t*>(row + 8 * j) =
+            ptt::pack2<T>(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
   }
 }
 
-template <int D>
+template <int D, bool MASK>
 struct FwdCfg {
-  static constexpr int BQ = 128, BK = 128, NS = 2;
+  // 128-key tiles up to d 128; 64 above, so that two K and V stages and
+  // the 128-row Q tile fit in shared memory; MASK bodies stage each key
+  // tile's bias beside its K
+  static constexpr int BQ = 128, BK = D > 128 ? 64 : 128, NS = 2;
   static constexpr int kQ = BQ * D * 2, kKV = BK * D * 2;
-  static constexpr int kBars = kQ + 2 * NS * kKV;
+  static constexpr int kB = MASK ? BK * 4 : 0;
+  static constexpr int kBars = kQ + 2 * NS * kKV + NS * kB;
   static constexpr size_t kSmem = kBars + 8 * (1 + 4 * NS) + 1024;
 };
 
 // Online softmax of one key tile for the rows r0 and r0 + 8 of a thread:
 // s holds the raw scores q.k (the wgmma accumulator layout) and becomes
-// p = exp2(s * scale log2 e - m) in place; m and l are the running max
-// (base-2 units) and sum; returns the factors that rescale the rows'
-// earlier output.
-template <int BK>
+// p = exp2(s * sc - m) in place, sc = scale * log2 e; m and l are the
+// running max (base-2 units) and sum; returns the factors that rescale
+// the rows' earlier output.  `rl` is r0 + sk - sq, the last live key of
+// row r0 under causal.  A key past sk weighs 0.  MASK bodies take
+// sc = scale and keep natural units: the logit x = s * scale + bias (the
+// tile's key bias `sb`, in shared memory), p = exp2((x - m) log2 e); a
+// key that causal masks takes the logit -1e30, as a -1e30 bias gives: a
+// row with no other key weighs them alike, and any live key outweighs
+// them all.
+template <int BK, bool MASK>
 __device__ __forceinline__ float2 softmax_tile(float* s, float& m0, float& m1,
                                                float& l0, float& l1, int k0,
-                                               int sk, int r0, int t,
-                                               float sc2, bool edge,
-                                               int causal) {
+                                               int sk, int rl, int t,
+                                               float sc, bool edge,
+                                               int causal, const float* sb) {
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
   for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      float x = s[4 * j + e] * sc2;
+      float x;
+      if constexpr (MASK)
+        x = fmaf(s[4 * j + e], sc, sb[8 * j + 2 * t + (e & 1)]);
+      else
+        x = s[4 * j + e] * sc;
       if (edge) {     // masks only on the tiles they cut
         const int key = k0 + 8 * j + 2 * t + (e & 1);
-        if (key >= sk || (causal && key > r0 + 8 * (e >> 1))) x = -INFINITY;
+        if constexpr (MASK) {
+          if (key >= sk)
+            x = -INFINITY;
+          else if (causal && key > rl + 8 * (e >> 1))
+            x = kNegInf;
+        } else if (key >= sk || (causal && key > rl + 8 * (e >> 1))) {
+          x = -INFINITY;
+        }
       }
       s[4 * j + e] = x;
       if (e < 2)
@@ -205,14 +270,16 @@ __device__ __forceinline__ float2 softmax_tile(float* s, float& m0, float& m1,
   for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float p = exp2_ftz(s[4 * j + e] - (e < 2 ? b0 : b1));
+      const float x = s[4 * j + e] - (e < 2 ? b0 : b1);
+      const float p = exp2_ftz(MASK ? x * kLog2e : x);
       s[4 * j + e] = p;
       if (e < 2)
         ps0 += p;
       else
         ps1 += p;
     }
-  const float a0 = exp2_ftz(m0 - b0), a1 = exp2_ftz(m1 - b1);
+  const float a0 = MASK ? exp2_ftz((m0 - b0) * kLog2e) : exp2_ftz(m0 - b0);
+  const float a1 = MASK ? exp2_ftz((m1 - b1) * kLog2e) : exp2_ftz(m1 - b1);
   l0 = l0 * a0 + ps0;
   l1 = l1 * a1 + ps1;
   m0 = n0;
@@ -220,19 +287,39 @@ __device__ __forceinline__ float2 softmax_tile(float* s, float& m0, float& m1,
   return make_float2(a0, a1);
 }
 
-template <typename T, int D>
+// Save a row's statistics from its running max m and sum l: the
+// natural-log lse from m in base-2 units; MASK bodies (m in natural
+// units) the pair (m, log l), m = +inf marking a row whose every key is
+// masked
+template <bool MASK>
+__device__ __forceinline__ void save_stats(float* lse, long long row, float m,
+                                           float l) {
+  if constexpr (MASK)
+    reinterpret_cast<float2*>(lse)[row] =
+        make_float2(m <= 0.5f * kNegInf ? INFINITY : m, log2f(l) * kLn2);
+  else
+    lse[row] = (m + log2f(l)) * kLn2;
+}
+
+// The bodies: MASK false takes no key bias and no row without a live
+// key (causal needs sq <= sk); MASK true reads the key bias (never null)
+// and handles such rows.  FIT (MASK false, d the body's width, causal
+// only with sq == sk) compiles the d and offset arithmetic away: the
+// widths 64 and 128 keep their earlier code, bits and times.
+template <typename T, int D, bool MASK, bool FIT>
 __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma(
     const __grid_constant__ CUtensorMap mq,
     const __grid_constant__ CUtensorMap mk,
     const __grid_constant__ CUtensorMap mv, T* __restrict__ out,
-    float* __restrict__ lse, int sq, int sk, int h, int hk, float scale,
-    int causal) {
-  using C = FwdCfg<D>;
+    float* __restrict__ lse, const float* __restrict__ bias, int bstride,
+    int sq, int sk, int h, int hk, int d_arg, float scale, int causal) {
+  using C = FwdCfg<D, MASK>;
   constexpr int BQ = C::BQ, BK = C::BK, NS = C::NS;
   extern __shared__ __align__(1024) uint8_t fa_tiles[];
   uint8_t* const sQ = align1024(fa_tiles);
   uint8_t* const sK = sQ + C::kQ;           // NS stages
   uint8_t* const sV = sK + NS * C::kKV;     // NS stages
+  float* const sB = reinterpret_cast<float*>(sV + NS * C::kKV);  // bias
   uint64_t* const q_full = reinterpret_cast<uint64_t*>(sQ + C::kBars);
   uint64_t* const k_full = q_full + 1;
   uint64_t* const v_full = k_full + NS;
@@ -242,7 +329,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma(
   const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
   const int q0 = qt * BQ;
   const int kvh = hq / (h / hk);
-  const int n_kt = live_key_tiles(q0, BQ, sq, sk, BK, causal);
+  // FIT: d the body's width, causal with sq == sk (the 64 / 128 bodies
+  // as they were)
+  const int off = FIT ? 0 : sk - sq;
+  const int d = FIT ? D : d_arg;
+  // MASK: any row may have no live key, and then needs every tile
+  const int n_kt = live_key_tiles(q0, BQ, sq, sk, BK, causal, off, MASK);
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int i = 0; i < NS; ++i) {
@@ -259,6 +351,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma(
     // -- producer: K and V stages freed on their own barriers --------------
     reg_dealloc<24>();
     if (threadIdx.x == 0) {
+      const float* brow = bias + static_cast<long long>(b) * bstride;
       mbar_expect_tx(q_full, C::kQ);
       for (int c = 0; c < D / 64; ++c)
         tma_load_4d(sQ + c * BQ * 128, &mq, q_full, c * 64, hq, q0, b);
@@ -266,10 +359,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma(
         const int st = kt % NS;
         const uint32_t free = ((kt / NS) & 1) ^ 1;
         mbar_wait(k_empty + st, free);
-        mbar_expect_tx(k_full + st, C::kKV);
+        mbar_expect_tx(k_full + st, C::kKV + C::kB);
         for (int c = 0; c < D / 64; ++c)
           tma_load_4d(sK + st * C::kKV + c * BK * 128, &mk, k_full + st,
                       c * 64, kvh, kt * BK, b);
+        if constexpr (MASK)
+          bulk_load(sB + st * BK, brow + kt * BK, C::kB, k_full + st);
         mbar_wait(v_empty + st, free);
         mbar_expect_tx(v_full + st, C::kKV);
         for (int c = 0; c < D / 64; ++c)
@@ -286,6 +381,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma(
     const int g = lane >> 2, t = lane & 3;
     const int rw = q0 + cw * 64;                // this warpgroup's first row
     const int r0 = rw + warp * 16 + g;
+    const int rl = r0 + off, rwl = rw + off;    // their last live keys
     const float sc2 = scale * kLog2e;
     const uint32_t aq = smem_u32(sQ) + cw * 64 * 128;
     const uint32_t ak = smem_u32(sK), av = smem_u32(sV);
@@ -310,9 +406,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma(
     named_arrive(their_turn);
     wgmma_wait<0>();
     fence_regs<BK / 2>(s);
-    mbar_arrive(k_empty);
-    softmax_tile<BK>(s, m0, m1, l0, l1, 0, sk, r0, t, sc2,
-                     (causal && BK - 1 > rw) || BK > sk, causal);
+    // a MASK body frees the K stage after its softmax has read the bias
+    if (!MASK) mbar_arrive(k_empty);
+    softmax_tile<BK, MASK>(s, m0, m1, l0, l1, 0, sk, rl, t,
+                           MASK ? scale : sc2,
+                           (causal && BK - 1 > rwl) || BK > sk, causal, sB);
+    if (MASK) mbar_arrive(k_empty);
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) to_a<T>(s, kk, pf[kk]);
     // tile kt's scores and tile kt-1's P.V in flight together
@@ -335,10 +434,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma(
       named_arrive(their_turn);
       wgmma_wait<1>();
       fence_regs<BK / 2>(s);
-      mbar_arrive(k_empty + st);
-      const float2 a = softmax_tile<BK>(
-          s, m0, m1, l0, l1, k0, sk, r0, t, sc2,
-          (causal && k0 + BK - 1 > rw) || k0 + BK > sk, causal);
+      if (!MASK) mbar_arrive(k_empty + st);
+      const float2 a = softmax_tile<BK, MASK>(
+          s, m0, m1, l0, l1, k0, sk, rl, t, MASK ? scale : sc2,
+          (causal && k0 + BK - 1 > rwl) || k0 + BK > sk, causal,
+          sB + st * BK);
+      if (MASK) mbar_arrive(k_empty + st);
       wgmma_wait<0>();
       fence_regs<D / 2>(o);
       mbar_arrive(v_empty + sp);
@@ -374,39 +475,44 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma(
       o[4 * j + 2] /= l1;
       o[4 * j + 3] /= l1;
     }
-    const long long qstr = static_cast<long long>(h) * D;
-    store_rows<T, D>(o, out + (static_cast<long long>(b) * sq * h + hq) * D,
-                     qstr, r0, sq, t);
-    float* lrow = lse + (static_cast<long long>(b) * h + hq) * sq;
-    if (t == 0 && r0 < sq) lrow[r0] = (m0 + log2f(l0)) * kLn2;
-    if (t == 0 && r0 + 8 < sq) lrow[r0 + 8] = (m1 + log2f(l1)) * kLn2;
+    const long long qstr = static_cast<long long>(h) * d;
+    store_rows<T, D>(o, out + (static_cast<long long>(b) * sq * h + hq) * d,
+                     qstr, r0, sq, t, d);
+    const long long srow = (static_cast<long long>(b) * h + hq) * sq;
+    if (t == 0 && r0 < sq) save_stats<MASK>(lse, srow + r0, m0, l0);
+    if (t == 0 && r0 + 8 < sq) save_stats<MASK>(lse, srow + r0 + 8, m1, l1);
   }
 }
 
-template <int D>
+template <int D, bool MASK>
 struct DqCfg {
-  static constexpr int BQ = 128, BK = 64, NS = 2;
+  // one stage at 256: Q and dO (64 KB each) and a K and V stage fill it;
+  // MASK bodies stage each key tile's bias beside its K and V
+  static constexpr int BQ = 128, BK = 64, NS = D > 192 ? 1 : 2;
   static constexpr int kQ = BQ * D * 2, kKV = BK * D * 2;
-  static constexpr int kBars = 2 * kQ + 2 * NS * kKV;
+  static constexpr int kB = MASK ? BK * 4 : 0;
+  static constexpr int kBars = 2 * kQ + 2 * NS * kKV + NS * kB;
   static constexpr size_t kSmem = kBars + 8 * (1 + 2 * NS) + 1024;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool MASK, bool FIT>
 __global__ void __launch_bounds__(kThreads, 1) flash_dq_wgmma(
     const __grid_constant__ CUtensorMap mq,
     const __grid_constant__ CUtensorMap mdo,
     const __grid_constant__ CUtensorMap mk,
     const __grid_constant__ CUtensorMap mv, const T* __restrict__ out,
     const T* __restrict__ dout, const float* __restrict__ lse,
-    float* __restrict__ delta, T* __restrict__ dq, int sq, int sk, int h,
-    int hk, float scale, int causal) {
-  using C = DqCfg<D>;
+    float* __restrict__ delta, T* __restrict__ dq,
+    const float* __restrict__ bias, int bstride, int sq, int sk, int h,
+    int hk, int d_arg, float scale, int causal) {
+  using C = DqCfg<D, MASK>;
   constexpr int BQ = C::BQ, BK = C::BK, NS = C::NS;
   extern __shared__ __align__(1024) uint8_t fa_tiles[];
   uint8_t* const sQ = align1024(fa_tiles);
   uint8_t* const sO = sQ + C::kQ;           // dO
   uint8_t* const sK = sO + C::kQ;           // NS stages of K, then of V
   uint8_t* const sV = sK + NS * C::kKV;
+  float* const sB = reinterpret_cast<float*>(sV + NS * C::kKV);  // bias
   uint64_t* const q_full = reinterpret_cast<uint64_t*>(sQ + C::kBars);
   uint64_t* const full = q_full + 1;
   uint64_t* const empty = full + NS;
@@ -414,7 +520,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_wgmma(
   const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
   const int q0 = qt * BQ;
   const int kvh = hq / (h / hk);
-  const int n_kt = live_key_tiles(q0, BQ, sq, sk, BK, causal);
+  // FIT: d the body's width, causal with sq == sk (the 64 / 128 bodies
+  // as they were)
+  const int off = FIT ? 0 : sk - sq;
+  const int d = FIT ? D : d_arg;
+  // a row with no live key gets dq = 0: no tile beyond the frontier
+  const int n_kt = live_key_tiles(q0, BQ, sq, sk, BK, causal, off, false);
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int i = 0; i < NS; ++i) {
@@ -428,6 +539,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_wgmma(
   if (threadIdx.x < 128) {
     reg_dealloc<24>();
     if (threadIdx.x == 0) {
+      const float* brow = bias + static_cast<long long>(b) * bstride;
       mbar_expect_tx(q_full, 2 * C::kQ);
       for (int c = 0; c < D / 64; ++c) {
         tma_load_4d(sQ + c * BQ * 128, &mq, q_full, c * 64, hq, q0, b);
@@ -436,13 +548,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_wgmma(
       for (int kt = 0; kt < n_kt; ++kt) {
         const int st = kt % NS;
         mbar_wait(empty + st, ((kt / NS) & 1) ^ 1);
-        mbar_expect_tx(full + st, 2 * C::kKV);
+        mbar_expect_tx(full + st, 2 * C::kKV + C::kB);
         for (int c = 0; c < D / 64; ++c) {
           tma_load_4d(sK + st * C::kKV + c * BK * 128, &mk, full + st, c * 64,
                       kvh, kt * BK, b);
           tma_load_4d(sV + st * C::kKV + c * BK * 128, &mv, full + st, c * 64,
                       kvh, kt * BK, b);
         }
+        if constexpr (MASK)
+          bulk_load(sB + st * BK, brow + kt * BK, C::kB, full + st);
       }
     }
   } else {
@@ -452,13 +566,16 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_wgmma(
     const int g = lane >> 2, t = lane & 3;
     const int rw = q0 + cw * 64;
     const int r0 = rw + warp * 16 + g;
+    const int rl = r0 + off, rwl = rw + off;    // their last live keys
     const float sc2 = scale * kLog2e;
-    const long long qstr = static_cast<long long>(h) * D;
-    const long long qoff = (static_cast<long long>(b) * sq * h + hq) * D;
+    const long long qstr = static_cast<long long>(h) * d;
+    const long long qoff = (static_cast<long long>(b) * sq * h + hq) * d;
     const long long soff = (static_cast<long long>(b) * h + hq) * sq;
     // delta = rowsum(dO . O) in fp32: the four threads of a quad split
-    // the row; lse in base-2 units
-    float dl[2], l2[2];
+    // the row; lse in base-2 units (MASK: the row max mx, whose +inf
+    // marks a row with no live key: its p, and so its ds, are 0, and the
+    // log sum in base-2 units)
+    float dl[2], l2[2], mx[2];
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = r0 + 8 * half;
@@ -467,6 +584,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_wgmma(
         const long long at = qoff + r * qstr + t * (D / 4);
 #pragma unroll
         for (int u = 0; u < D / 4; u += ptt::Vec<T>::N) {
+          if (t * (D / 4) + u >= d) continue;
           float x[ptt::Vec<T>::N], y[ptt::Vec<T>::N];
           ptt::load_vec<T>(dout + at + u, x);
           ptt::load_vec<T>(out + at + u, y);
@@ -476,7 +594,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_wgmma(
       }
       dl[half] = quad_sum(acc);
       if (t == 0 && r < sq) delta[soff + r] = dl[half];
-      l2[half] = r < sq ? lse[soff + r] * kLog2e : 0.f;
+      if constexpr (MASK) {
+        const float2 st =
+            r < sq ? reinterpret_cast<const float2*>(lse)[soff + r]
+                   : make_float2(0.f, 0.f);
+        mx[half] = st.x;
+        l2[half] = st.y * kLog2e;
+      } else {
+        l2[half] = r < sq ? lse[soff + r] * kLog2e : 0.f;
+      }
     }
     const uint32_t aq = smem_u32(sQ) + cw * 64 * 128;
     const uint32_t ao = smem_u32(sO) + cw * 64 * 128;
@@ -504,16 +630,23 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_wgmma(
       fence_regs<BK / 2>(s);
       fence_regs<BK / 2>(dp);
       // s becomes ds = p * (dp - delta) * scale
-      const bool edge = (causal && k0 + BK - 1 > rw) || k0 + BK > sk;
+      const bool edge = (causal && k0 + BK - 1 > rwl) || k0 + BK > sk;
+      const float* sb = sB + st * BK;
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int half = e >> 1;
-          float p = exp2_ftz(s[4 * j + e] * sc2 - l2[half]);
+          float p;
+          if constexpr (MASK)
+            p = exp2_ftz(fmaf(fmaf(s[4 * j + e], scale,
+                                   sb[8 * j + 2 * t + (e & 1)]) - mx[half],
+                              kLog2e, -l2[half]));
+          else
+            p = exp2_ftz(s[4 * j + e] * sc2 - l2[half]);
           if (edge) {
             const int key = k0 + 8 * j + 2 * t + (e & 1);
-            if (key >= sk || (causal && key > r0 + 8 * half)) p = 0.f;
+            if (key >= sk || (causal && key > rl + 8 * half)) p = 0.f;
           }
           s[4 * j + e] = p * (dp[4 * j + e] - dl[half]) * scale;
         }
@@ -529,23 +662,31 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dq_wgmma(
       fence_regs<D / 2>(acc);
       mbar_arrive(empty + st);
     }
-    store_rows<T, D>(acc, dq + qoff, qstr, r0, sq, t);
+    store_rows<T, D>(acc, dq + qoff, qstr, r0, sq, t, d);
   }
 }
 
-template <int D>
+template <int D, bool MASK>
 struct DkvCfg {
-  static constexpr int BKV = 128, BQ = 64, NS = 3;
+  // dK and dV columns a block: all of them up to 128; above, chunks of
+  // 64 (192) or 128 (256) columns, each a block of its own
+  static constexpr int DC = D <= 128 ? D : (D % 128 == 0 ? 128 : 64);
+  static constexpr int NCH = D / DC;
+  static constexpr int BKV = 128, BQ = 64;
+  static constexpr int NS = D <= 128 ? 3 : (D > 192 ? 1 : 2);
   // lse and delta boxes: a TMA box starts 16-byte aligned, so a row's
   // 64 values are read from the multiple of 4 at or below their start,
-  // 4 more; each stage's slot is 128-byte aligned
+  // 4 more (MASK: 64 pairs of statistics, 128 values and 4 more); each
+  // stage's slot is 128-byte aligned
   static constexpr int kVecBox = BQ + 4;
+  static constexpr int kStatBox = MASK ? 2 * BQ + 4 : kVecBox;
   static constexpr int kKV = BKV * D * 2, kQ = BQ * D * 2, kVec = 384;
-  static constexpr int kBars = 2 * kKV + 2 * NS * kQ + 2 * NS * kVec;
+  static constexpr int kStat = MASK ? 640 : kVec;
+  static constexpr int kBars = 2 * kKV + 2 * NS * kQ + NS * (kStat + kVec);
   static constexpr size_t kSmem = kBars + 8 * (1 + 2 * NS) + 1024;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool MASK, bool FIT>
 __global__ void __launch_bounds__(kThreads, 1) flash_dkv_wgmma(
     const __grid_constant__ CUtensorMap mk,
     const __grid_constant__ CUtensorMap mv,
@@ -553,24 +694,32 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_wgmma(
     const __grid_constant__ CUtensorMap mdo,
     const __grid_constant__ CUtensorMap ml,
     const __grid_constant__ CUtensorMap md, T* __restrict__ dk,
-    T* __restrict__ dv, int sq, int sk, int h, int hk, float scale,
-    int causal) {
-  using C = DkvCfg<D>;
-  constexpr int BKV = C::BKV, BQ = C::BQ, NS = C::NS;
+    T* __restrict__ dv, const float* __restrict__ bias, int bstride, int sq,
+    int sk, int h, int hk, int d_arg, float scale, int causal) {
+  using C = DkvCfg<D, MASK>;
+  constexpr int BKV = C::BKV, BQ = C::BQ, NS = C::NS, DC = C::DC;
   extern __shared__ __align__(1024) uint8_t fa_tiles[];
   uint8_t* const sK = align1024(fa_tiles);
   uint8_t* const sV = sK + C::kKV;
   uint8_t* const sQ = sV + C::kKV;          // NS stages of Q, then of dO
   uint8_t* const sO = sQ + NS * C::kQ;
   float* const sL = reinterpret_cast<float*>(sO + NS * C::kQ);   // lse
-  float* const sD = sL + NS * C::kVec / 4;                       // delta
+  float* const sD = sL + NS * C::kStat / 4;                      // delta
   uint64_t* const kv_full = reinterpret_cast<uint64_t*>(sK + C::kBars);
   uint64_t* const full = kv_full + 1;
   uint64_t* const empty = full + NS;
   const int kvh = blockIdx.x, b = blockIdx.y;
-  const int k0 = blockIdx.z * BKV;        // causal: the heaviest tile first
+  // causal: the heaviest key tile first; then the column chunk
+  const int ch = blockIdx.z % C::NCH;
+  const int k0 = blockIdx.z / C::NCH * BKV;
   const int group = h / hk;
-  const int qt0 = causal ? k0 / BQ : 0;
+  // FIT: d the body's width, causal with sq == sk (the 64 / 128 bodies
+  // as they were)
+  const int off = FIT ? 0 : sk - sq;
+  const int d = FIT ? D : d_arg;
+  // MASK: a row with no live key still adds 1/sk of its dO to every dv,
+  // so every query tile is walked
+  const int qt0 = causal && !MASK ? max(k0 - off, 0) / BQ : 0;
   const int n_qt = (sq + BQ - 1) / BQ;
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -597,7 +746,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_wgmma(
         for (int qt = qt0; qt < n_qt; ++qt, ++it) {
           const int st = it % NS;
           mbar_wait(empty + st, ((it / NS) & 1) ^ 1);
-          mbar_expect_tx(full + st, 2 * C::kQ + 2 * C::kVecBox * 4);
+          mbar_expect_tx(full + st,
+                         2 * C::kQ + (C::kStatBox + C::kVecBox) * 4);
           for (int c = 0; c < D / 64; ++c) {
             tma_load_4d(sQ + st * C::kQ + c * BQ * 128, &mq, full + st,
                         c * 64, hq, qt * BQ, b);
@@ -605,7 +755,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_wgmma(
                         c * 64, hq, qt * BQ, b);
           }
           const int at = (lrow + qt * BQ) & ~3;
-          tma_load_1d(sL + st * C::kVec / 4, &ml, full + st, at);
+          tma_load_1d(sL + st * C::kStat / 4, &ml, full + st,
+                      MASK ? (2 * (lrow + qt * BQ)) & ~3 : at);
           tma_load_1d(sD + st * C::kVec / 4, &md, full + st, at);
         }
       }
@@ -617,13 +768,24 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_wgmma(
     const int g = lane >> 2, t = lane & 3;
     const int kw = k0 + cw * 64;                // this warpgroup's first key
     const int kr0 = kw + warp * 16 + g;
+    // the first row that sees key kr0 under causal (kr0 + 8: 8 more)
+    const int kf0 = kr0 - off, kwf = kw - off;
     const float sc2 = scale * kLog2e;
+    // MASK: the bias of the thread's two keys
+    float kb[2] = {0.f, 0.f};
+    if constexpr (MASK) {
+      const float* brow = bias + static_cast<long long>(b) * bstride;
+      kb[0] = __ldg(brow + kr0);
+      kb[1] = __ldg(brow + kr0 + 8);
+    }
     const uint32_t ak = smem_u32(sK) + cw * 64 * 128;
     const uint32_t av = smem_u32(sV) + cw * 64 * 128;
+    // the chunk's first column block of the Q and dO stages
+    const uint32_t cq = ch * (DC / 64) * BQ * 128;
     const uint32_t aq = smem_u32(sQ), ao = smem_u32(sO);
-    float dka[D / 2], dva[D / 2];
+    float dka[DC / 2], dva[DC / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    for (int i = 0; i < DC / 2; ++i) dka[i] = dva[i] = 0.f;
     mbar_wait(kv_full, 0);
     int it = 0;
     for (int gi = 0; gi < group; ++gi) {
@@ -632,7 +794,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_wgmma(
         const int st = it % NS;
         const int q0 = qt * BQ;
         mbar_wait(full + st, (it / NS) & 1);
-        if (!causal || q0 + BQ - 1 >= kw) {   // some row sees some key
+        // some row sees some key (MASK: a row may see none)
+        if (!causal || MASK || q0 + BQ - 1 >= kwf) {
           float s[BQ / 2], dp[BQ / 2];        // S^T and dP^T: keys x rows
           wgmma_fence();
 #pragma unroll
@@ -647,24 +810,40 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_wgmma(
           wgmma_wait<0>();
           fence_regs<BQ / 2>(s);
           fence_regs<BQ / 2>(dp);
-          // s becomes p, dp becomes ds
-          const bool edge = (causal && q0 < kw + 63) || q0 + BQ > sq;
-          const int off = (lrow + q0) & 3;     // the box's aligned start
-          const float* L = sL + st * C::kVec / 4 + off + 2 * t;
-          const float* Dl = sD + st * C::kVec / 4 + off + 2 * t;
+          // s becomes p (MASK: 1/sk across a row with no live key), dp
+          // becomes ds
+          const bool edge = (causal && q0 < kwf + 63) || q0 + BQ > sq;
+          const int vo = (lrow + q0) & 3;      // the box's aligned start
+          // MASK: the pair (max, log sum) of row q0 + i at 2 i
+          const float* L =
+              sL + st * C::kStat / 4 +
+              (MASK ? ((2 * (lrow + q0)) & 3) + 4 * t : vo + 2 * t);
+          const float* Dl = sD + st * C::kVec / 4 + vo + 2 * t;
 #pragma unroll
           for (int j = 0; j < BQ / 8; ++j) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              const float lc = L[8 * j + (e & 1)];
+              const float lc =
+                  MASK ? L[16 * j + 2 * (e & 1)] : L[8 * j + (e & 1)];
               const float dc = Dl[8 * j + (e & 1)];
-              float p = exp2_ftz(s[4 * j + e] * sc2 - lc * kLog2e);
+              float p;
+              if constexpr (MASK)
+                p = exp2_ftz(fmaf(fmaf(s[4 * j + e], scale, kb[e >> 1]) - lc,
+                                  kLog2e,
+                                  -L[16 * j + 2 * (e & 1) + 1] * kLog2e));
+              else
+                p = exp2_ftz(s[4 * j + e] * sc2 - lc * kLog2e);
               if (edge) {
                 const int row = q0 + 8 * j + 2 * t + (e & 1);
-                const int key = kr0 + 8 * (e >> 1);
-                if (row >= sq || (causal && row < key)) p = 0.f;
+                const int first = kf0 + 8 * (e >> 1);
+                if (row >= sq || (causal && row < first)) p = 0.f;
               }
-              s[4 * j + e] = p;
+              float pv = p;
+              if constexpr (MASK) {
+                const int row = q0 + 8 * j + 2 * t + (e & 1);
+                if (lc == INFINITY && row < sq) pv = 1.f / sk;
+              }
+              s[4 * j + e] = pv;
               dp[4 * j + e] = p * (dp[4 * j + e] - dc) * scale;
             }
           }
@@ -677,38 +856,41 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_wgmma(
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < BQ / 16; ++kk)
-            Wgmma<T, D>::rs(dva, pf[kk], mdesc(ao + st * C::kQ, BQ, kk), 1);
+            Wgmma<T, DC>::rs(dva, pf[kk],
+                             mdesc(ao + st * C::kQ + cq, BQ, kk), 1);
 #pragma unroll
           for (int kk = 0; kk < BQ / 16; ++kk)
-            Wgmma<T, D>::rs(dka, df[kk], mdesc(aq + st * C::kQ, BQ, kk), 1);
+            Wgmma<T, DC>::rs(dka, df[kk],
+                             mdesc(aq + st * C::kQ + cq, BQ, kk), 1);
           wgmma_commit();
           wgmma_wait<0>();
-          fence_regs<D / 2>(dka);
-          fence_regs<D / 2>(dva);
+          fence_regs<DC / 2>(dka);
+          fence_regs<DC / 2>(dva);
         }
         mbar_arrive(empty + st);
       }
     }
-    const long long kstr = static_cast<long long>(hk) * D;
-    const long long koff = (static_cast<long long>(b) * sk * hk + kvh) * D;
-    store_rows<T, D>(dka, dk + koff, kstr, kr0, sk, t);
-    store_rows<T, D>(dva, dv + koff, kstr, kr0, sk, t);
+    const long long kstr = static_cast<long long>(hk) * d;
+    const long long koff =
+        (static_cast<long long>(b) * sk * hk + kvh) * d + ch * DC;
+    store_rows<T, DC>(dka, dk + koff, kstr, kr0, sk, t, d - ch * DC);
+    store_rows<T, DC>(dva, dv + koff, kstr, kr0, sk, t, d - ch * DC);
   }
 }
 
 // delta = rowsum(dO . O) [B, h, sq] for the fp32 path, one thread a row
-template <typename T, int D>
+template <typename T>
 __global__ void __launch_bounds__(256) flash_delta_simt(
     const T* __restrict__ out, const T* __restrict__ dout,
-    float* __restrict__ delta, int B, int sq, int h) {
+    float* __restrict__ delta, int B, int sq, int h, int d) {
   const long long i = blockIdx.x * 256ll + threadIdx.x;   // over [B, sq, h]
   if (i >= static_cast<long long>(B) * sq * h) return;
   const int hq = static_cast<int>(i % h);
   const long long bs = i / h;
   const int r = static_cast<int>(bs % sq), b = static_cast<int>(bs / sq);
   float acc = 0.f;
-  for (int d = 0; d < D; ++d)
-    acc = fmaf(ptt::to_f(dout[i * D + d]), ptt::to_f(out[i * D + d]), acc);
+  for (int c = 0; c < d; ++c)
+    acc = fmaf(ptt::to_f(dout[i * d + c]), ptt::to_f(out[i * d + c]), acc);
   delta[(static_cast<long long>(b) * h + hq) * sq + r] = acc;
 }
 
@@ -723,11 +905,12 @@ constexpr size_t fwd_simt_smem() {
   return sizeof(float) * (kRowsSimt * D + kKeysSimt * (D + 1) + kKeysSimt * D);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool MASK>
 __global__ void __launch_bounds__(128) flash_fwd_simt(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, float* __restrict__ lse, int sq, int sk, int h,
-    int hk, float scale, int causal) {
+    T* __restrict__ out, float* __restrict__ lse,
+    const float* __restrict__ bias, int bstride, int sq, int sk, int h,
+    int hk, int d, float scale, int causal) {
   constexpr int RQ = kRowsSimt, BK = kKeysSimt, KP = D + 1, C = D / 32;
   extern __shared__ uint4 fa_smem[];
   float* Qs = reinterpret_cast<float*>(fa_smem);   // [RQ][D]
@@ -736,11 +919,14 @@ __global__ void __launch_bounds__(128) flash_fwd_simt(
   const int q0 = blockIdx.x * RQ, hq = blockIdx.y, b = blockIdx.z;
   const int kvh = hq / (h / hk);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long qstr = static_cast<long long>(h) * D;
-  const long long kstr = static_cast<long long>(hk) * D;
-  const long long qoff = (static_cast<long long>(b) * sq * h + hq) * D;
-  const long long koff = (static_cast<long long>(b) * sk * hk + kvh) * D;
-  tile_to_smem_f<T, D>(q + qoff, qstr, q0, RQ, sq, Qs, D);
+  const int off = sk - sq;
+  const float* const brow =
+      MASK ? bias + static_cast<long long>(b) * bstride : nullptr;
+  const long long qstr = static_cast<long long>(h) * d;
+  const long long kstr = static_cast<long long>(hk) * d;
+  const long long qoff = (static_cast<long long>(b) * sq * h + hq) * d;
+  const long long koff = (static_cast<long long>(b) * sk * hk + kvh) * d;
+  tile_to_smem_f<T, D>(q + qoff, qstr, q0, RQ, sq, Qs, D, d);
   float m[4], l[4], acc[4][C];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -749,12 +935,13 @@ __global__ void __launch_bounds__(128) flash_fwd_simt(
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
   }
-  const int n_kt = live_key_tiles(q0, RQ, sq, sk, BK, causal);
+  // MASK: any row may have no live key, and then needs every tile
+  const int n_kt = live_key_tiles(q0, RQ, sq, sk, BK, causal, off, MASK);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
-    tile_to_smem_f<T, D>(k + koff, kstr, k0, BK, sk, Ks, KP);
-    tile_to_smem_f<T, D>(v + koff, kstr, k0, BK, sk, Vs, D);
+    tile_to_smem_f<T, D>(k + koff, kstr, k0, BK, sk, Ks, KP, d);
+    tile_to_smem_f<T, D>(v + koff, kstr, k0, BK, sk, Vs, D, d);
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -763,9 +950,17 @@ __global__ void __launch_bounds__(128) flash_fwd_simt(
       if (r >= sq) continue;   // warp-uniform
       const int key = k0 + lane;
       float s = 0.f;
-      for (int d = 0; d < D; ++d) s = fmaf(Qs[qi * D + d], Ks[lane * KP + d], s);
-      const bool ok = key < sk && (!causal || key <= r);
-      s = ok ? s * scale : -INFINITY;
+      for (int c = 0; c < D; ++c) s = fmaf(Qs[qi * D + c], Ks[lane * KP + c], s);
+      // a key past sk weighs 0; a masked one takes the logit -1e30
+      const bool ok = key < sk;
+      if (!ok)
+        s = -INFINITY;
+      else if (causal && key > r + off)
+        s = kNegInf;
+      else if (MASK)
+        s = fmaf(s, scale, __ldg(brow + key));
+      else
+        s = s * scale;
       const float nm = fmaxf(m[i], ptt::warp_max(s));
       const float p = ok ? expf(s - nm) : 0.f;
       const float alpha = expf(m[i] - nm);
@@ -782,7 +977,9 @@ __global__ void __launch_bounds__(128) flash_fwd_simt(
       }
     }
   }
-  float* lrow = lse + (static_cast<long long>(b) * h + hq) * sq;
+  // MASK: pairs (max, log sum)
+  float* lrow =
+      lse + (static_cast<long long>(b) * h + hq) * sq * (MASK ? 2 : 1);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + warp * 4 + i;
@@ -790,8 +987,13 @@ __global__ void __launch_bounds__(128) flash_fwd_simt(
     const float lv = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < C; ++c)
-      out[qoff + r * qstr + lane + 32 * c] = ptt::from_f<T>(acc[i][c] / lv);
-    if (lane == 0) lrow[r] = m[i] + logf(lv);
+      if (lane + 32 * c < d)
+        out[qoff + r * qstr + lane + 32 * c] = ptt::from_f<T>(acc[i][c] / lv);
+    if (lane == 0 && MASK)
+      reinterpret_cast<float2*>(lrow)[r] =
+          make_float2(m[i] <= 0.5f * kNegInf ? INFINITY : m[i], logf(lv));
+    else if (lane == 0)
+      lrow[r] = m[i] <= 0.5f * kNegInf ? INFINITY : m[i] + logf(lv);
   }
 }
 
@@ -800,12 +1002,13 @@ constexpr size_t dq_simt_smem() {
   return sizeof(float) * (2 * kRowsSimt * D + 2 * kKeysSimt * (D + 1));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool MASK>
 __global__ void __launch_bounds__(128) flash_dq_simt(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int sq, int sk,
-    int h, int hk, float scale, int causal) {
+    const float* __restrict__ delta, T* __restrict__ dq,
+    const float* __restrict__ bias, int bstride, int sq, int sk, int h,
+    int hk, int d, float scale, int causal) {
   constexpr int RQ = kRowsSimt, BK = kKeysSimt, KP = D + 1, C = D / 32;
   extern __shared__ uint4 fa_smem[];
   float* Qs = reinterpret_cast<float*>(fa_smem);   // [RQ][D]
@@ -815,24 +1018,27 @@ __global__ void __launch_bounds__(128) flash_dq_simt(
   const int q0 = blockIdx.x * RQ, hq = blockIdx.y, b = blockIdx.z;
   const int kvh = hq / (h / hk);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long qstr = static_cast<long long>(h) * D;
-  const long long kstr = static_cast<long long>(hk) * D;
-  const long long qoff = (static_cast<long long>(b) * sq * h + hq) * D;
-  const long long koff = (static_cast<long long>(b) * sk * hk + kvh) * D;
+  const int off = sk - sq;
+  const float* const brow =
+      MASK ? bias + static_cast<long long>(b) * bstride : nullptr;
+  const long long qstr = static_cast<long long>(h) * d;
+  const long long kstr = static_cast<long long>(hk) * d;
+  const long long qoff = (static_cast<long long>(b) * sq * h + hq) * d;
+  const long long koff = (static_cast<long long>(b) * sk * hk + kvh) * d;
   const long long soff = (static_cast<long long>(b) * h + hq) * sq;
-  tile_to_smem_f<T, D>(q + qoff, qstr, q0, RQ, sq, Qs, D);
-  tile_to_smem_f<T, D>(dout + qoff, qstr, q0, RQ, sq, Os, D);
+  tile_to_smem_f<T, D>(q + qoff, qstr, q0, RQ, sq, Qs, D, d);
+  tile_to_smem_f<T, D>(dout + qoff, qstr, q0, RQ, sq, Os, D, d);
   float acc[4][C];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
-  const int n_kt = live_key_tiles(q0, RQ, sq, sk, BK, causal);
+  const int n_kt = live_key_tiles(q0, RQ, sq, sk, BK, causal, off, false);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
-    tile_to_smem_f<T, D>(k + koff, kstr, k0, BK, sk, Ks, KP);
-    tile_to_smem_f<T, D>(v + koff, kstr, k0, BK, sk, Vs, KP);
+    tile_to_smem_f<T, D>(k + koff, kstr, k0, BK, sk, Ks, KP, d);
+    tile_to_smem_f<T, D>(v + koff, kstr, k0, BK, sk, Vs, KP, d);
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -841,12 +1047,17 @@ __global__ void __launch_bounds__(128) flash_dq_simt(
       if (r >= sq) continue;   // warp-uniform
       const int key = k0 + lane;
       float s = 0.f, dp = 0.f;
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(Qs[qi * D + d], Ks[lane * KP + d], s);
-        dp = fmaf(Os[qi * D + d], Vs[lane * KP + d], dp);
+      for (int c = 0; c < D; ++c) {
+        s = fmaf(Qs[qi * D + c], Ks[lane * KP + c], s);
+        dp = fmaf(Os[qi * D + c], Vs[lane * KP + c], dp);
       }
-      const bool ok = key < sk && (!causal || key <= r);
-      const float p = ok ? expf(s * scale - lse[soff + r]) : 0.f;
+      const bool ok = key < sk && (!causal || key <= r + off);
+      float p;
+      if (MASK) {
+        const float2 st = reinterpret_cast<const float2*>(lse)[soff + r];
+        p = ok ? expf((fmaf(s, scale, __ldg(brow + key)) - st.x) - st.y) : 0.f;
+      } else
+        p = ok ? expf(s * scale - lse[soff + r]) : 0.f;
       const float ds = round_to<T>(p * (dp - delta[soff + r]) * scale);
       for (int j = 0; j < BK; ++j) {
         const float dj = __shfl_sync(0xffffffffu, ds, j);
@@ -862,21 +1073,23 @@ __global__ void __launch_bounds__(128) flash_dq_simt(
     if (r >= sq) continue;
 #pragma unroll
     for (int c = 0; c < C; ++c)
-      dq[qoff + r * qstr + lane + 32 * c] = ptt::from_f<T>(acc[i][c]);
+      if (lane + 32 * c < d)
+        dq[qoff + r * qstr + lane + 32 * c] = ptt::from_f<T>(acc[i][c]);
   }
 }
 
 template <int D>
 constexpr size_t dkv_simt_smem() {
-  return sizeof(float) * (4 * 32 * (D + 1) + 2 * 32 * 33 + 2 * 32);
+  return sizeof(float) * (4 * 32 * (D + 1) + 2 * 32 * 33 + 3 * 32);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool MASK>
 __global__ void __launch_bounds__(128) flash_dkv_simt(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    int sq, int sk, int h, int hk, float scale, int causal) {
+    const float* __restrict__ bias, int bstride, int sq, int sk, int h,
+    int hk, int d, float scale, int causal) {
   constexpr int BKV = 32, BQ = 32, KP = D + 1, C = D / 4;
   extern __shared__ uint4 fa_smem[];
   float* Ks = reinterpret_cast<float*>(fa_smem);   // [BKV][D + 1]
@@ -885,47 +1098,69 @@ __global__ void __launch_bounds__(128) flash_dkv_simt(
   float* Os = Qs + BQ * KP;                         // [BQ][D + 1], dO
   float* Ps = Os + BQ * KP;                         // [BQ][33] rounded p
   float* Ss = Ps + BQ * 33;                         // [BQ][33] rounded ds
-  float* Ls = Ss + BQ * 33;                         // [BQ]
-  float* Dl = Ls + BQ;                              // [BQ]
+  float* Ls = Ss + BQ * 33;                         // [BQ] lse (MASK: max)
+  float* Gs = Ls + BQ;                              // [BQ] MASK: log sum
+  float* Dl = Gs + BQ;                              // [BQ]
   const int k0 = blockIdx.x * BKV, kvh = blockIdx.y, b = blockIdx.z;
   const int group = h / hk;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long qstr = static_cast<long long>(h) * D;
-  const long long kstr = static_cast<long long>(hk) * D;
-  const long long koff = (static_cast<long long>(b) * sk * hk + kvh) * D;
-  tile_to_smem_f<T, D>(k + koff, kstr, k0, BKV, sk, Ks, KP);
-  tile_to_smem_f<T, D>(v + koff, kstr, k0, BKV, sk, Vs, KP);
+  const int off = sk - sq;
+  const float* const brow =
+      MASK ? bias + static_cast<long long>(b) * bstride : nullptr;
+  const long long qstr = static_cast<long long>(h) * d;
+  const long long kstr = static_cast<long long>(hk) * d;
+  const long long koff = (static_cast<long long>(b) * sk * hk + kvh) * d;
+  tile_to_smem_f<T, D>(k + koff, kstr, k0, BKV, sk, Ks, KP, d);
+  tile_to_smem_f<T, D>(v + koff, kstr, k0, BKV, sk, Vs, KP, d);
   const int key = k0 + lane;
+  const float kb = MASK ? __ldg(brow + key) : 0.f;
+  const float inv_sk = 1.f / sk;
   // lane owns key `lane`; warp w owns columns w, w + 4, w + 8, ...
   float dka[C], dva[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) dka[c] = dva[c] = 0.f;
-  const int qt0 = causal ? k0 / BQ : 0;
+  // MASK: a row with no live key adds 1/sk of its dO to every dv, so
+  // every query tile is walked
+  const int qt0 = causal && !MASK ? max(k0 - off, 0) / BQ : 0;
   const int n_qt = (sq + BQ - 1) / BQ;
   for (int gi = 0; gi < group; ++gi) {
     const int hq = kvh * group + gi;
-    const long long qoff = (static_cast<long long>(b) * sq * h + hq) * D;
+    const long long qoff = (static_cast<long long>(b) * sq * h + hq) * d;
     const long long soff = (static_cast<long long>(b) * h + hq) * sq;
     for (int qt = qt0; qt < n_qt; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();
-      tile_to_smem_f<T, D>(q + qoff, qstr, q0, BQ, sq, Qs, KP);
-      tile_to_smem_f<T, D>(dout + qoff, qstr, q0, BQ, sq, Os, KP);
+      tile_to_smem_f<T, D>(q + qoff, qstr, q0, BQ, sq, Qs, KP, d);
+      tile_to_smem_f<T, D>(dout + qoff, qstr, q0, BQ, sq, Os, KP, d);
       for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
-        Ls[i] = q0 + i < sq ? lse[soff + q0 + i] : 0.f;
-        Dl[i] = q0 + i < sq ? delta[soff + q0 + i] : 0.f;
+        const bool in = q0 + i < sq;
+        if (MASK) {
+          const float2 st =
+              in ? reinterpret_cast<const float2*>(lse)[soff + q0 + i]
+                 : make_float2(0.f, 0.f);
+          Ls[i] = st.x;
+          Gs[i] = st.y;
+        } else {
+          Ls[i] = in ? lse[soff + q0 + i] : 0.f;
+        }
+        Dl[i] = in ? delta[soff + q0 + i] : 0.f;
       }
       __syncthreads();
       for (int qi = warp; qi < BQ; qi += 4) {
         const int row = q0 + qi;
         float s = 0.f, dp = 0.f;
-        for (int d = 0; d < D; ++d) {
-          s = fmaf(Qs[qi * KP + d], Ks[lane * KP + d], s);
-          dp = fmaf(Os[qi * KP + d], Vs[lane * KP + d], dp);
+        for (int c = 0; c < D; ++c) {
+          s = fmaf(Qs[qi * KP + c], Ks[lane * KP + c], s);
+          dp = fmaf(Os[qi * KP + c], Vs[lane * KP + c], dp);
         }
-        const bool ok = row < sq && key < sk && (!causal || row >= key);
-        const float p = ok ? expf(s * scale - Ls[qi]) : 0.f;
-        Ps[qi * 33 + lane] = round_to<T>(p);
+        const bool ok = row < sq && key < sk && (!causal || row + off >= key);
+        float p;
+        if (MASK)
+          p = ok ? expf((fmaf(s, scale, kb) - Ls[qi]) - Gs[qi]) : 0.f;
+        else
+          p = ok ? expf(s * scale - Ls[qi]) : 0.f;
+        const float pv = MASK && row < sq && Ls[qi] == INFINITY ? inv_sk : p;
+        Ps[qi * 33 + lane] = round_to<T>(pv);
         Ss[qi * 33 + lane] = round_to<T>(p * (dp - Dl[qi]) * scale);
       }
       __syncthreads();
@@ -943,6 +1178,7 @@ __global__ void __launch_bounds__(128) flash_dkv_simt(
   if (key >= sk) return;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
+    if (warp + 4 * c >= d) continue;
     const long long at = koff + key * kstr + warp + 4 * c;
     dk[at] = ptt::from_f<T>(dka[c]);
     dv[at] = ptt::from_f<T>(dva[c]);
@@ -961,43 +1197,46 @@ int opt_in(K kernel, size_t smem) {
 }
 
 struct Shape {
-  int B, sq, sk, h, hk;
+  int B, sq, sk, h, hk, d;
   float scale;
   int causal;
+  const float* bias;   // [B or 1, bstride] fp32 key bias, or nullptr
+  int bstride;
 };
 
 int blocks(int n, int rows) { return (n + rows - 1) / rows; }
 
-template <typename T, int D>
+template <typename T, int D, bool M, bool F>
 int fwd(const Shape& s, const void* q, const void* k, const void* v,
         void* out, void* lse, cudaStream_t st) {
   if constexpr (std::is_same<T, float>::value) {
     const size_t smem = fwd_simt_smem<D>();
-    static int rc_opt = opt_in(flash_fwd_simt<T, D>, smem);
+    static int rc_opt = opt_in(flash_fwd_simt<T, D, M>, smem);
     if (rc_opt) return rc_opt;
     const dim3 grid((s.sq + kRowsSimt - 1) / kRowsSimt, s.h, s.B);
-    flash_fwd_simt<T, D><<<grid, 128, smem, st>>>(
+    flash_fwd_simt<T, D, M><<<grid, 128, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(out),
-        static_cast<float*>(lse), s.sq, s.sk, s.h, s.hk, s.scale, s.causal);
+        static_cast<float*>(lse), s.bias, s.bstride, s.sq, s.sk, s.h, s.hk,
+        s.d, s.scale, s.causal);
   } else {
-    using C = FwdCfg<D>;
-    static int rc_opt = opt_in(flash_fwd_wgmma<T, D>, C::kSmem);
+    using C = FwdCfg<D, M>;
+    static int rc_opt = opt_in(flash_fwd_wgmma<T, D, M, F>, C::kSmem);
     if (rc_opt) return rc_opt;
     CUtensorMap mq, mk, mv;
-    if (!map_rows16(&mq, q, s.B, s.sq, s.h, D, C::BQ) ||
-        !map_rows16(&mk, k, s.B, s.sk, s.hk, D, C::BK) ||
-        !map_rows16(&mv, v, s.B, s.sk, s.hk, D, C::BK))
+    if (!map_rows16(&mq, q, s.B, s.sq, s.h, s.d, C::BQ) ||
+        !map_rows16(&mk, k, s.B, s.sk, s.hk, s.d, C::BK) ||
+        !map_rows16(&mv, v, s.B, s.sk, s.hk, s.d, C::BK))
       return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid(s.h, s.B, blocks(s.sq, C::BQ));
-    flash_fwd_wgmma<T, D><<<grid, kThreads, C::kSmem, st>>>(
-        mq, mk, mv, static_cast<T*>(out), static_cast<float*>(lse), s.sq,
-        s.sk, s.h, s.hk, s.scale, s.causal);
+    flash_fwd_wgmma<T, D, M, F><<<grid, kThreads, C::kSmem, st>>>(
+        mq, mk, mv, static_cast<T*>(out), static_cast<float*>(lse), s.bias,
+        s.bstride, s.sq, s.sk, s.h, s.hk, s.d, s.scale, s.causal);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, bool M, bool F>
 int bwd(const Shape& s, const void* q, const void* k, const void* v,
         const void* out, const void* dout, const void* lse, void* delta,
         void* dq, void* dk, void* dv, cudaStream_t st) {
@@ -1010,115 +1249,152 @@ int bwd(const Shape& s, const void* q, const void* k, const void* v,
   float* d_ = static_cast<float*>(delta);
   if constexpr (std::is_same<T, float>::value) {
     const size_t smem_q = dq_simt_smem<D>(), smem_kv = dkv_simt_smem<D>();
-    static int rc_q = opt_in(flash_dq_simt<T, D>, smem_q);
-    static int rc_kv = opt_in(flash_dkv_simt<T, D>, smem_kv);
+    static int rc_q = opt_in(flash_dq_simt<T, D, M>, smem_q);
+    static int rc_kv = opt_in(flash_dkv_simt<T, D, M>, smem_kv);
     if (rc_q) return rc_q;
     if (rc_kv) return rc_kv;
     const long long rows = static_cast<long long>(s.B) * s.sq * s.h;
-    flash_delta_simt<T, D><<<static_cast<unsigned>((rows + 255) / 256), 256,
-                             0, st>>>(o_, g_, d_, s.B, s.sq, s.h);
+    flash_delta_simt<T><<<static_cast<unsigned>((rows + 255) / 256), 256, 0,
+                          st>>>(o_, g_, d_, s.B, s.sq, s.h, s.d);
     int rc = static_cast<int>(cudaGetLastError());
     if (rc) return rc;
     const dim3 gq((s.sq + kRowsSimt - 1) / kRowsSimt, s.h, s.B);
-    flash_dq_simt<T, D><<<gq, 128, smem_q, st>>>(
-        q_, k_, v_, g_, l_, d_, static_cast<T*>(dq), s.sq, s.sk, s.h, s.hk,
-        s.scale, s.causal);
+    flash_dq_simt<T, D, M><<<gq, 128, smem_q, st>>>(
+        q_, k_, v_, g_, l_, d_, static_cast<T*>(dq), s.bias, s.bstride, s.sq,
+        s.sk, s.h, s.hk, s.d, s.scale, s.causal);
     rc = static_cast<int>(cudaGetLastError());
     if (rc) return rc;
     const dim3 gkv((s.sk + 31) / 32, s.hk, s.B);
-    flash_dkv_simt<T, D><<<gkv, 128, smem_kv, st>>>(
+    flash_dkv_simt<T, D, M><<<gkv, 128, smem_kv, st>>>(
         q_, k_, v_, g_, l_, d_, static_cast<T*>(dk), static_cast<T*>(dv),
-        s.sq, s.sk, s.h, s.hk, s.scale, s.causal);
+        s.bias, s.bstride, s.sq, s.sk, s.h, s.hk, s.d, s.scale, s.causal);
   } else {
-    using Q = DqCfg<D>;
-    using KV = DkvCfg<D>;
-    static int rc_q = opt_in(flash_dq_wgmma<T, D>, Q::kSmem);
-    static int rc_kv = opt_in(flash_dkv_wgmma<T, D>, KV::kSmem);
+    using Q = DqCfg<D, M>;
+    using KV = DkvCfg<D, M>;
+    static int rc_q = opt_in(flash_dq_wgmma<T, D, M, F>, Q::kSmem);
+    static int rc_kv = opt_in(flash_dkv_wgmma<T, D, M, F>, KV::kSmem);
     if (rc_q) return rc_q;
     if (rc_kv) return rc_kv;
     const long long n = static_cast<long long>(s.B) * s.h * s.sq;
     CUtensorMap mq, mdo, mk, mv, mk2, mv2, mq2, mdo2, ml, md;
-    if (!map_rows16(&mq, q, s.B, s.sq, s.h, D, Q::BQ) ||
-        !map_rows16(&mdo, dout, s.B, s.sq, s.h, D, Q::BQ) ||
-        !map_rows16(&mk, k, s.B, s.sk, s.hk, D, Q::BK) ||
-        !map_rows16(&mv, v, s.B, s.sk, s.hk, D, Q::BK) ||
-        !map_rows16(&mk2, k, s.B, s.sk, s.hk, D, KV::BKV) ||
-        !map_rows16(&mv2, v, s.B, s.sk, s.hk, D, KV::BKV) ||
-        !map_rows16(&mq2, q, s.B, s.sq, s.h, D, KV::BQ) ||
-        !map_rows16(&mdo2, dout, s.B, s.sq, s.h, D, KV::BQ) ||
-        !map_vec32(&ml, lse, n, KV::kVecBox) ||
+    if (!map_rows16(&mq, q, s.B, s.sq, s.h, s.d, Q::BQ) ||
+        !map_rows16(&mdo, dout, s.B, s.sq, s.h, s.d, Q::BQ) ||
+        !map_rows16(&mk, k, s.B, s.sk, s.hk, s.d, Q::BK) ||
+        !map_rows16(&mv, v, s.B, s.sk, s.hk, s.d, Q::BK) ||
+        !map_rows16(&mk2, k, s.B, s.sk, s.hk, s.d, KV::BKV) ||
+        !map_rows16(&mv2, v, s.B, s.sk, s.hk, s.d, KV::BKV) ||
+        !map_rows16(&mq2, q, s.B, s.sq, s.h, s.d, KV::BQ) ||
+        !map_rows16(&mdo2, dout, s.B, s.sq, s.h, s.d, KV::BQ) ||
+        !map_vec32(&ml, lse, M ? 2 * n : n, KV::kStatBox) ||
         !map_vec32(&md, delta, n, KV::kVecBox))
       return static_cast<int>(cudaErrorInvalidValue);
-    flash_dq_wgmma<T, D><<<dim3(s.h, s.B, blocks(s.sq, Q::BQ)), kThreads,
-                           Q::kSmem, st>>>(
-        mq, mdo, mk, mv, o_, g_, l_, d_, static_cast<T*>(dq), s.sq, s.sk,
-        s.h, s.hk, s.scale, s.causal);
+    flash_dq_wgmma<T, D, M, F><<<dim3(s.h, s.B, blocks(s.sq, Q::BQ)), kThreads,
+                              Q::kSmem, st>>>(
+        mq, mdo, mk, mv, o_, g_, l_, d_, static_cast<T*>(dq), s.bias,
+        s.bstride, s.sq, s.sk, s.h, s.hk, s.d, s.scale, s.causal);
     const int rc = static_cast<int>(cudaGetLastError());
     if (rc) return rc;
-    flash_dkv_wgmma<T, D><<<dim3(s.hk, s.B, blocks(s.sk, KV::BKV)), kThreads,
-                            KV::kSmem, st>>>(
+    flash_dkv_wgmma<T, D, M, F><<<dim3(s.hk, s.B,
+                                    blocks(s.sk, KV::BKV) * KV::NCH),
+                               kThreads, KV::kSmem, st>>>(
         mk2, mv2, mq2, mdo2, ml, md, static_cast<T*>(dk), static_cast<T*>(dv),
-        s.sq, s.sk, s.h, s.hk, s.scale, s.causal);
+        s.bias, s.bstride, s.sq, s.sk, s.h, s.hk, s.d, s.scale, s.causal);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// The body of head dim d (its width): with the key bias (MASK), or
+// without it; the widths 64 and 128 also FIT when d is the width and
+// causal has sq == sk.
+#define PTT_FLASH_BODY(s, CALL)                                          \
+  switch (body_width((s).d)) {                                           \
+    case 64:                                                             \
+      return (s).bias ? CALL(64, true, false)                            \
+             : fits(s) ? CALL(64, false, true) : CALL(64, false, false); \
+    case 128:                                                            \
+      return (s).bias ? CALL(128, true, false)                           \
+             : fits(s) ? CALL(128, false, true)                          \
+                       : CALL(128, false, false);                        \
+    case 192:                                                            \
+      return (s).bias ? CALL(192, true, false) : CALL(192, false, false); \
+    case 256:                                                            \
+      return (s).bias ? CALL(256, true, false) : CALL(256, false, false); \
+  }
+
+bool fits(const Shape& s) {
+  return s.d == body_width(s.d) && !(s.causal && s.sq != s.sk);
+}
+
 // the grids' y and z dimensions and the 32-bit offsets of the lse and
-// delta tensor maps bound the sizes
-bool bad_shape(int B, int sq, int sk, int h, int hk, int d) {
+// delta tensor maps bound the sizes (the bias bodies' lse holds pairs);
+// causal with sq > sk leaves rows with no live key, which only the bias
+// bodies handle (a zero bias without a mask)
+bool bad_shape(int B, int sq, int sk, int h, int hk, int d, int bstride,
+               const void* bias, int causal) {
   return B <= 0 || B > 65535 || sq <= 0 || sk <= 0 || h <= 0 || h > 65535 ||
-         hk <= 0 || h % hk || (d != 64 && d != 128) ||
-         static_cast<long long>(B) * h * sq >= (1ll << 31) ||
-         sq > 65535 * 128 || sk > 65535 * 128;
+         hk <= 0 || h % hk || d < 8 || d > 256 || d % 8 ||
+         static_cast<long long>(B) * h * sq >= (bias ? 1ll << 30 : 1ll << 31) ||
+         sq > 65535 * 128 || sk > 65535 * 32 || bstride < 0 ||
+         (causal && sq > sk && bias == nullptr);
 }
 
 }  // namespace
 
-// q [B, sq, h, d], k/v [B, sk, hk, d], out like q, lse [B, h, sq] fp32;
-// all contiguous and 16-byte aligned, one dtype; d is 64 or 128.
+// q [B, sq, h, d], k/v [B, sk, hk, d], out like q, lse [B, h, sq] fp32
+// ([B, h, sq, 2] with a bias: each row's max and log sum);
+// all contiguous and 16-byte aligned, one dtype; d a multiple of 8 from 8
+// to 256.  bias: nullptr, or the fp32 key bias, row b at bias + b *
+// bstride (bstride 0: one row for every batch; a multiple of 128),
+// 16-byte aligned and readable up to sk rounded up to 128; causal with
+// sq > sk needs one.
 extern "C" int ptt_flash_fwd(int device, int dtype, const void* q,
-                             const void* k, const void* v, void* out,
-                             void* lse, int B, int sq, int sk, int h, int hk,
-                             int d, float scale, int causal, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (bad_shape(B, sq, sk, h, hk, d) || !ptt::aligned16(q) ||
-      !ptt::aligned16(k) || !ptt::aligned16(v) || !ptt::aligned16(out))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Shape s{B, sq, sk, h, hk, scale, causal};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PTT_DISPATCH(dtype, T, {
-    return d == 64 ? fwd<T, 64>(s, q, k, v, out, lse, st)
-                   : fwd<T, 128>(s, q, k, v, out, lse, st);
-  });
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// out and dout like q; lse [B, h, sq] fp32; delta [B, h, sq] fp32 is
-// scratch the first launch fills with rowsum(dout * out); dq like q,
-// dk/dv like k.  bf16/fp16: two launches, dq (with delta), then dk/dv;
-// fp32: delta, dq, dk/dv.
-extern "C" int ptt_flash_bwd(int device, int dtype, const void* q,
-                             const void* k, const void* v, const void* out,
-                             const void* dout, const void* lse, void* delta,
-                             void* dq, void* dk, void* dv, int B, int sq,
-                             int sk, int h, int hk, int d, float scale,
+                             const void* k, const void* v, const void* bias,
+                             void* out, void* lse, int B, int sq, int sk,
+                             int h, int hk, int d, int bstride, float scale,
                              int causal, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (bad_shape(B, sq, sk, h, hk, d) || !ptt::aligned16(q) ||
+  if (bad_shape(B, sq, sk, h, hk, d, bstride, bias, causal) || !ptt::aligned16(q) ||
+      !ptt::aligned16(k) || !ptt::aligned16(v) || !ptt::aligned16(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Shape s{B,     sq,     sk,
+                h,     hk,     d,
+                scale, causal, static_cast<const float*>(bias),
+                bstride};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PTT_FWD(W, M, F) fwd<T, W, M, F>(s, q, k, v, out, lse, st)
+  PTT_DISPATCH(dtype, T, { PTT_FLASH_BODY(s, PTT_FWD) });
+#undef PTT_FWD
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// out and dout like q; lse the forward's statistics; delta
+// [B, h, sq] fp32 is scratch the first launch fills with rowsum(dout *
+// out); dq like q, dk/dv like k; bias as the forward's.  bf16/fp16: two
+// launches, dq (with delta), then dk/dv; fp32: delta, dq, dk/dv.
+extern "C" int ptt_flash_bwd(int device, int dtype, const void* q,
+                             const void* k, const void* v, const void* bias,
+                             const void* out, const void* dout,
+                             const void* lse, void* delta, void* dq,
+                             void* dk, void* dv, int B, int sq, int sk, int h,
+                             int hk, int d, int bstride, float scale,
+                             int causal, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (bad_shape(B, sq, sk, h, hk, d, bstride, bias, causal) || !ptt::aligned16(q) ||
       !ptt::aligned16(k) || !ptt::aligned16(v) || !ptt::aligned16(out) ||
       !ptt::aligned16(dout) || !ptt::aligned16(lse) ||
       !ptt::aligned16(delta) || !ptt::aligned16(dq) || !ptt::aligned16(dk) ||
       !ptt::aligned16(dv))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Shape s{B, sq, sk, h, hk, scale, causal};
+  const Shape s{B,     sq,     sk,
+                h,     hk,     d,
+                scale, causal, static_cast<const float*>(bias),
+                bstride};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PTT_DISPATCH(dtype, T, {
-    return d == 64 ? bwd<T, 64>(s, q, k, v, out, dout, lse, delta, dq, dk,
-                                dv, st)
-                   : bwd<T, 128>(s, q, k, v, out, dout, lse, delta, dq, dk,
-                                 dv, st);
-  });
+#define PTT_BWD(W, M, F) \
+  bwd<T, W, M, F>(s, q, k, v, out, dout, lse, delta, dq, dk, dv, st)
+  PTT_DISPATCH(dtype, T, { PTT_FLASH_BODY(s, PTT_BWD) });
+#undef PTT_BWD
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -119,6 +119,17 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// a plain bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from device memory, completing on `bar`'s transaction count
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // -- clusters ----------------------------------------------------------------
 // every thread of every block of the cluster arrives, then waits; writes
 // to shared memory before it are seen by the cluster's reads after it
@@ -243,6 +254,7 @@ struct Wgmma {
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define PTT_D32 PTT_D8(0), PTT_D8(8), PTT_D8(16), PTT_D8(24)
 #define PTT_D64 PTT_D32, PTT_D8(32), PTT_D8(40), PTT_D8(48), PTT_D8(56)
+#define PTT_D96 PTT_D64, PTT_D8(64), PTT_D8(72), PTT_D8(80), PTT_D8(88)
 #define PTT_D128                                                         \
   PTT_D64, PTT_D8(64), PTT_D8(72), PTT_D8(80), PTT_D8(88), PTT_D8(96),   \
       PTT_D8(104), PTT_D8(112), PTT_D8(120)
@@ -255,6 +267,10 @@ struct Wgmma {
 #define PTT_REGS64                                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " PTT_R10(1) PTT_R10(2)       \
   PTT_R10(3) PTT_R10(4) PTT_R10(5) "%60, %61, %62, %63}"
+#define PTT_REGS96                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " PTT_R10(1) PTT_R10(2)       \
+  PTT_R10(3) PTT_R10(4) PTT_R10(5) PTT_R10(6) PTT_R10(7) PTT_R10(8)       \
+  "%90, %91, %92, %93, %94, %95}"
 #define PTT_REGS128                                                      \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " PTT_R10(1) PTT_R10(2)       \
   PTT_R10(3) PTT_R10(4) PTT_R10(5) PTT_R10(6) PTT_R10(7) PTT_R10(8)       \
@@ -302,6 +318,9 @@ PTT_WGMMA(__nv_bfloat16, "bf16", 128, PTT_REGS64, PTT_D64, 64, 65, 66, 67, 68,
           69)
 PTT_WGMMA(__half, "f16", 64, PTT_REGS32, PTT_D32, 32, 33, 34, 35, 36, 37)
 PTT_WGMMA(__half, "f16", 128, PTT_REGS64, PTT_D64, 64, 65, 66, 67, 68, 69)
+PTT_WGMMA(__nv_bfloat16, "bf16", 192, PTT_REGS96, PTT_D96, 96, 97, 98, 99,
+          100, 101)
+PTT_WGMMA(__half, "f16", 192, PTT_REGS96, PTT_D96, 96, 97, 98, 99, 100, 101)
 PTT_WGMMA(__nv_bfloat16, "bf16", 256, PTT_REGS128, PTT_D128, 128, 129, 130,
           131, 132, 133)
 PTT_WGMMA(__half, "f16", 256, PTT_REGS128, PTT_D128, 128, 129, 130, 131, 132,
@@ -309,10 +328,12 @@ PTT_WGMMA(__half, "f16", 256, PTT_REGS128, PTT_D128, 128, 129, 130, 131, 132,
 
 #undef PTT_WGMMA
 #undef PTT_REGS128
+#undef PTT_REGS96
 #undef PTT_REGS64
 #undef PTT_REGS32
 #undef PTT_R10
 #undef PTT_D128
+#undef PTT_D96
 #undef PTT_D64
 #undef PTT_D32
 #undef PTT_D8
@@ -344,10 +365,10 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A [B, s, heads, d] tensor of 16-bit elements (d a multiple of 64),
+// A [B, s, heads, d] tensor of 16-bit elements (d a multiple of 8),
 // read in boxes of (64 elements, 1 head, `rows` rows, 1 batch) with
-// 128-byte swizzle: rows past s are zero-filled and no box crosses into
-// the next batch.
+// 128-byte swizzle: rows past s and columns past d are zero-filled and
+// no box crosses into the next head or batch.
 inline bool map_rows16(CUtensorMap* m, const void* base, int B, int s,
                        int heads, int d, int rows) {
   const EncodeTiledFn enc = encode_tiled();

@@ -7,6 +7,8 @@ from .ernie import (ErnieConfig, ErnieForMaskedLM,
                     ernie_tiny_config)
 from .llama import (EarlyExitDraft, LlamaConfig, LlamaForCausalLM,
                     LlamaModel, llama_7b_config, llama_tiny_config)
+from .unet import (UNet2DConditionModel, UNetConfig, timestep_embedding,
+                   unet_sd_config, unet_tiny_config)
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel", "EarlyExitDraft",
            "llama_7b_config", "llama_tiny_config",
@@ -14,5 +16,7 @@ __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel", "EarlyExitDraft",
            "bert_tiny_config",
            "ErnieConfig", "ErnieModel", "ErnieForMaskedLM",
            "ErnieForSequenceClassification", "ernie_tiny_config",
+           "UNetConfig", "UNet2DConditionModel", "unet_tiny_config",
+           "unet_sd_config", "timestep_embedding",
            "load_numpy_state_dict", "numpy_state_dict",
            "load_numpy_opt_state"]

@@ -13,11 +13,10 @@ reference's numpy weights load by name (models/convert.py).
 Attention is `ops.attention(q, k, v, causal=False)` on [b, s, h, d]: the
 Hopper flash kernels, forward and backward, on the card; the plain
 version on the CPU.  A 2-D keep-mask `attention_mask` [b, sk] (1 attend,
-0 padding) becomes the bool [b, 1, 1, sk] of the reference (:117-122).
-**On the card a mask raises NotImplementedError**: the flash kernel
-takes no key-padding mask yet (ROADMAP queue 1 item 11), and the port
-has no other CUDA route (the reference sends masked calls to
-`xla_attention`).  On the CPU the plain version takes it.
+0 padding) becomes the bool [b, 1, 1, sk] of the reference (:117-122),
+which the kernels take as a key-padding mask (the reference sends masked
+calls to `xla_attention`; a fully padded sequence attends uniformly, as
+there).
 
 `config.dtype` is the COMPUTE dtype: the parameters are fp32 masters
 and `nn.set_compute_dtype` switches every Linear, Embedding and
@@ -134,11 +133,6 @@ class BertSelfAttention(Layer):
         cfg = self.config
         mask = attention_mask
         if mask is not None:
-            if x.device.type != "cpu":
-                raise NotImplementedError(
-                    "BERT attention with attention_mask on the card: the "
-                    "flash kernel takes no key-padding mask yet (ROADMAP "
-                    "queue 1 item 11); pass no mask, or run on the CPU")
             if mask.ndim == 2:
                 # [batch, seq] keep-mask (1 attend, 0 pad) -> bool
                 # [b, 1, 1, sk]

@@ -6,8 +6,9 @@ token-type + task-type), `ErnieModel` (:78), `ErnieForSequenceClassification`
 (:98) and `ErnieForMaskedLM` (:118).  The encoder blocks, the pooler and
 the MLM head are models/bert.py's, through its subclass hooks
 (`embeddings_cls`, `backbone_cls`): what models/bert.py says of
-attention (a mask raises on the card: ROADMAP queue 1 item 11), the
-compute dtype, the device rule and the seeded init holds here.
+attention (a keep-mask reaches the flash kernels as a key-padding
+mask), the compute dtype, the device rule and the seeded init holds
+here.
 
 As in the reference, `ErnieForMaskedLM.forward` always returns logits
 (it has no `FLAGS_fused_ce` gate), and `ernie` is an alias of `bert`:

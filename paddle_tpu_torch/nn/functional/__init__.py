@@ -1,9 +1,9 @@
-from .activation import gelu, relu, relu6, tanh
+from .activation import gelu, relu, relu6, silu, swish, tanh
 from .common import dropout, embedding, linear
 from .conv import (conv1d, conv1d_transpose, conv2d, conv2d_transpose,
                    conv3d, conv3d_transpose)
 from .loss import cross_entropy, fused_cross_entropy
-from .norm import batch_norm, layer_norm
+from .norm import batch_norm, group_norm, layer_norm
 from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
                       adaptive_avg_pool3d, adaptive_max_pool1d,
                       adaptive_max_pool2d, adaptive_max_pool3d, avg_pool1d,
@@ -11,7 +11,7 @@ from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
                       max_pool3d)
 
 __all__ = ["linear", "embedding", "dropout", "gelu", "tanh", "relu", "relu6",
-           "layer_norm", "batch_norm", "cross_entropy", "fused_cross_entropy",
+           "silu", "swish", "layer_norm", "batch_norm", "group_norm", "cross_entropy", "fused_cross_entropy",
            "conv1d", "conv2d", "conv3d", "conv1d_transpose",
            "conv2d_transpose", "conv3d_transpose", "max_pool1d",
            "max_pool2d", "max_pool3d", "avg_pool1d", "avg_pool2d",

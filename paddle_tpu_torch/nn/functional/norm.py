@@ -1,5 +1,5 @@
-"""`layer_norm` over the last len(normalized_shape) dims, and
-`batch_norm`.
+"""`layer_norm` over the last len(normalized_shape) dims, `batch_norm`
+and `group_norm`.
 
 Counterpart of `paddle_tpu/nn/functional/norm.py`:
 
@@ -19,7 +19,15 @@ Counterpart of `paddle_tpu/nn/functional/norm.py`:
     arrays are fp32 unless jax's x64 mode is on, has no such case); a
     half-precision one takes fp32 statistics, rounds the normalized
     value to its dtype and applies the affine in the promoted dtype, as
-    the reference does.
+    the reference does;
+  * `group_norm` (:158-198): the channels (dim 1, or the last for a
+    channels-last `data_format`) split into `num_groups` groups, each
+    normalized over its channels and the spatial dims with fp32
+    statistics (the biased variance); the normalized value is rounded to
+    the input's dtype, then `* weight` and `+ bias` in the promoted
+    dtype, so a bf16 input with fp32 parameters gives fp32, as jnp
+    promotes it.  The statistics and the normalization are one
+    `torch.nn.functional.group_norm` call on the fp32 input.
 """
 from __future__ import annotations
 
@@ -27,7 +35,7 @@ import torch
 
 from ... import ops
 
-__all__ = ["layer_norm", "batch_norm"]
+__all__ = ["layer_norm", "batch_norm", "group_norm"]
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
@@ -76,6 +84,24 @@ def _batch_norm_half(x, running_mean, running_var, weight, bias, use_batch,
         mean, var = running_mean.float(), running_var.float()
     out = ((xf - mean.reshape(shape))
            * torch.rsqrt(var.reshape(shape) + epsilon)).to(x.dtype)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def group_norm(x, num_groups, epsilon=1e-05, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    chan_last = data_format[-1] == "C" and x.ndim > 2
+    xm = x.movedim(-1, 1) if chan_last else x
+    out = torch.nn.functional.group_norm(xm.float(), num_groups,
+                                         eps=epsilon)
+    if chan_last:
+        out = out.movedim(1, -1)
+    out = out.to(x.dtype)
+    shape = [1] * x.ndim
+    shape[x.ndim - 1 if chan_last else 1] = x.shape[-1 if chan_last else 1]
     if weight is not None:
         out = out * weight.reshape(shape)
     if bias is not None:

@@ -15,6 +15,11 @@ is `nn.functional.batch_norm` in the layer's mode: in training it
 updates the buffers in place.  `BatchNorm` applies `act` (a
 `nn.functional` name) after.  `SyncBatchNorm` is not ported: it raises,
 naming ROADMAP queue 1 item 8.
+
+`GroupNorm` (:175-198): weight ones and bias zeros over the channels
+(either left out with `weight_attr` / `bias_attr` False), normalized
+through `nn.functional.group_norm` (fp32 statistics); with
+`_compute_dtype` set the result is cast to it, as LayerNorm's.
 """
 from __future__ import annotations
 
@@ -25,8 +30,8 @@ from .. import functional as F
 from .. import initializer as I
 from . import Layer
 
-__all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
-           "BatchNorm3D", "SyncBatchNorm"]
+__all__ = ["LayerNorm", "GroupNorm", "BatchNorm", "BatchNorm1D",
+           "BatchNorm2D", "BatchNorm3D", "SyncBatchNorm"]
 
 
 class LayerNorm(Layer):
@@ -57,6 +62,37 @@ class LayerNorm(Layer):
 
     def extra_repr(self):
         return f"normalized_shape={self._normalized_shape}"
+
+
+class GroupNorm(Layer):
+    _compute_dtype = None
+
+    def __init__(self, num_groups, num_channels, epsilon=1e-05,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, device=None, generator=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self._num_groups = num_groups
+        self._num_channels = num_channels
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self.weight = self.create_parameter(
+            [num_channels], weight_attr, default_initializer=I.Constant(1.0),
+            device=dev, generator=generator)
+        self.bias = self.create_parameter(
+            [num_channels], bias_attr, is_bias=True, device=dev,
+            generator=generator)
+
+    def forward(self, input):
+        out = F.group_norm(input, self._num_groups, self._epsilon,
+                           self.weight, self.bias, self._data_format)
+        if self._compute_dtype is not None:
+            out = out.to(self._compute_dtype)
+        return out
+
+    def extra_repr(self):
+        return (f"num_groups={self._num_groups}, "
+                f"num_channels={self._num_channels}")
 
 
 class _BatchNormBase(Layer):

@@ -11,18 +11,54 @@ forward `_fwd` :540 (and `_fwd_small` :131, `_fwd_1b` :367), backward
                     (ops/__init__.py:80-102): fp32 softmax, causal
                     masked bottom-right when sq != sk, a bool or additive
                     mask; the weights are rounded to v's dtype before P.V
+  plain_flash_fwd   the kernels' forward: the twin's math on the
+                    kernels' masked logits (`_masked_scores`) and the
+                    row statistics that the kernels save (`_stats`)
   plain_flash_bwd   the kernels' backward math (recompute from the saved
-                    logsumexp; p and ds rounded to the operand dtype
+                    statistics; p and ds rounded to the operand dtype
                     before their products, :618, :664, :670)
   attention         the reference's `ops.attention` (:289), q [b, sq,
                     h, d], k/v [b, sk, hk, d] (h % hk == 0): the plain
                     version for CPU tensors; on CUDA a
                     torch.autograd.Function over the kernels, saving
                     (q, k, v, out, lse) as the TPU custom VJP does (:795).
-                    It refuses a mask, dropout and causal with sq != sk
-                    (the JAX kernel refuses them too, :832-837).  The
-                    reference's `except ValueError` detour to the twin
-                    (:296-299) is not carried over: those calls raise.
+
+The saved statistics.  A call without a key bias (no mask, causal only
+with sq <= sk) saves lse [b, h, sq], the fp32 logsumexp of each row, as
+the TPU kernel does.  A call with one saves [b, h, sq, 2]: each row's
+max m and the log g of its sum of exp(x - m), so that the backward's
+p = exp((x - m) - g) loses nothing where the logits are large: under an
+additive mask of -1e9, a fully padded row's lse = -1e9 + log(sk) is
+-1e9 in fp32, and exp(x - lse) would give p = 1 where the twin has
+1/sk.
+
+The kernels take what the twin takes on the path's shapes, a wider
+domain than the TPU kernel's (d % 64 == 0, no mask, causal only with
+sq == sk, :826-837): head dims d % 8 == 0 from 8 to 256, a key-padding
+mask [b or 1, 1, 1, sk] (bool, True = attend, or additive float), and
+causal attention with sq != sk, bottom-right aligned.  The reference's
+`except ValueError` detour to the twin (:296-299) is not carried over:
+what the kernels do not take (another mask shape, another head dim,
+dropout) raises.
+
+A masked logit is -1e30, as in the twin, so a row whose every key is
+masked (a fully padded sequence; under causal with sq > sk, the first
+sq - sk rows) weighs all sk keys alike: its output is the mean of v,
+its dq and ds are 0 (autograd through the twin's `where`), and each
+key's dv gains 1/sk of its dO.  Its saved max m is +inf: exp(x - m) = 0
+gives the zeros, and the mark gives dv its 1/sk.  An additive mask is
+clamped at -1e30 (a bias of -inf or the dtype's minimum masks the key);
+elsewhere its values add to the logits, and a row whose logits all carry
+a large finite bias (-1e9) keeps the twin's gradients: uniform weights,
+ds = p (dp - delta) scale.  The kernels take no gradient for the mask:
+a float mask that requires one raises.  Where the kernels and the twin
+differ: a row whose every logit an additive bias at or below -1e30
+masks gets ds = 0, where the twin's autodiff through its sum gives
+ds = p (dp - delta) scale; and a logit that causal masks is -1e30
+whatever its bias, where the twin adds the bias to the -1e30, so a row
+whose every logit is masked, by causal and by an additive bias below
+about -4e22 (where -1e30 plus the bias is no longer -1e30 in fp32), is
+weighed by its bias in the twin and uniformly in the kernels.
 
 Dropout is not ported (dropout_p > 0 raises NotImplementedError).
 """
@@ -39,6 +75,8 @@ __all__ = ["attention", "plain_attention",
 # kernel launches per entry point since the last reset (chip_smoke.py
 # zeroes and reads them)
 launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+
+_DOMAIN = "ROADMAP queue 1 item 3"
 
 
 def _scale(q, scale):
@@ -66,38 +104,84 @@ def plain_attention(q, k, v, mask=None, causal=False, scale=None,
     return out.transpose(1, 2).to(q.dtype)
 
 
-def _masked_scores(q, k, causal, scale):
-    """scale·q·kᵀ [b, h, sq, sk] fp32, NEG_INF above the top-left
-    diagonal when causal (the kernels' convention)."""
+def _masked_scores(q, k, causal, scale, mask=None):
+    """The kernels' logits [b, h, sq, sk] fp32: scale·q·kᵀ plus an
+    additive mask clamped at NEG_INF, or NEG_INF where a bool mask
+    masks; then NEG_INF where causal masks (bottom-right: key j live for
+    row i iff j <= i + sk - sq), whatever the bias there."""
     s = gqa_scores(q, k) * scale
+    if mask is not None:
+        if mask.dtype == torch.bool:
+            s = torch.where(mask, s, NEG_INF)
+        else:
+            s = s + mask.float().clamp_min(NEG_INF)
     if causal:
-        cm = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
-                        device=q.device).tril()
+        sq, sk = q.shape[1], k.shape[1]
+        cm = torch.ones((sq, sk), dtype=torch.bool,
+                        device=q.device).tril(diagonal=sk - sq)
         s = torch.where(cm[None, None], s, NEG_INF)
     return s
 
 
-def plain_flash_fwd(q, k, v, causal=False, scale=None):
-    """(out, lse): the attention and the fp32 logsumexp [b, h, sq] of
-    the scaled, masked logits that the forward kernel saves."""
+def _biased(mask, q, k, causal):
+    """Whether the kernels take a key bias for this call (`_key_bias`):
+    a mask, or causal with sq > sk.  Such a call saves the two-statistic
+    form [b, h, sq, 2]."""
+    return mask is not None or (causal and q.shape[1] > k.shape[1])
+
+
+def _stats(x, biased):
+    """The row statistics the forward kernels save for the logits x
+    [b, h, sq, sk]: lse [b, h, sq] without a key bias; with one, [b, h,
+    sq, 2] of the row max m (+inf for a row whose every logit is masked)
+    and g = log sum exp(x - m)."""
+    if not biased:
+        return torch.logsumexp(x, dim=-1)
+    m = x.amax(-1)
+    g = torch.exp(x - m[..., None]).sum(-1).log()
+    return torch.stack((m.masked_fill(m <= 0.5 * NEG_INF, float("inf")), g),
+                       dim=-1)
+
+
+def _weights(x, lse):
+    """(p, p_v) from the logits x and the saved statistics (`_stats`):
+    p = exp(x - lse), or exp((x - m) - g), the weights of dS (0 across a
+    row marked +inf), and p_v, those of P.V and Pᵀ.dO: p, but 1/sk
+    across a marked row."""
+    if lse.ndim == x.ndim:
+        m, g = lse[..., :1], lse[..., 1:]
+        p = torch.exp((x - m) - g)
+    else:
+        m = lse[..., None]
+        p = torch.exp(x - m)
+    return p, torch.where(torch.isinf(m), 1.0 / x.shape[-1], p)
+
+
+def plain_flash_fwd(q, k, v, causal=False, scale=None, mask=None):
+    """(out, lse): the attention and the row statistics of the scaled,
+    masked logits that the forward kernel saves (`_stats`)."""
     s = _scale(q, scale)
-    lse = torch.logsumexp(_masked_scores(q, k, causal, s), dim=-1)
-    return plain_attention(q, k, v, causal=causal, scale=s), lse
+    x = _masked_scores(q, k, causal, s, mask)
+    lse = _stats(x, _biased(mask, q, k, causal))
+    out = gqa_weighted_v(torch.softmax(x, dim=-1).to(v.dtype), v)
+    return out.transpose(1, 2).to(q.dtype), lse
 
 
-def plain_flash_bwd(q, k, v, out, lse, dout, causal=False, scale=None):
+def plain_flash_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
+                    mask=None):
     """(dq, dk, dv) of `_bwd_dq_kernel` / `_bwd_dkv_kernel`, in the
-    operands' dtypes: p = exp(s - lse), delta = rowsum(dO·O),
-    ds = p·(dO·vᵀ - delta)·scale; dq = ds·k, dk = Σ_group dsᵀ·q,
-    dv = Σ_group pᵀ·dO, with p and ds rounded to the operand dtype."""
+    operands' dtypes: p and p_v from the saved statistics (`_weights`),
+    delta = rowsum(dO·O), ds = p·(dO·vᵀ - delta)·scale; dq = ds·k,
+    dk = Σ_group dsᵀ·q, dv = Σ_group p_vᵀ·dO, with p and ds rounded to
+    the operand dtype."""
     s = _scale(q, scale)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     G = h // hk
-    p = torch.exp(_masked_scores(q, k, causal, s) - lse[..., None])
+    p, pv = _weights(_masked_scores(q, k, causal, s, mask), lse)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
     ds = p * (gqa_scores(dout, v) - delta[..., None]) * s
-    p_r = p.to(v.dtype).float().reshape(b, hk, G, sq, sk)
+    p_r = pv.to(v.dtype).float().reshape(b, hk, G, sq, sk)
     ds_r = ds.to(q.dtype).float()
     dq = gqa_weighted_v(ds_r, k.float()).transpose(1, 2)
     qg = q.float().reshape(b, sq, hk, G, d)
@@ -113,29 +197,39 @@ def attention(q, k, v, mask=None, causal=False, scale=None, dropout_p=0.0):
     if dropout_p > 0.0:
         raise NotImplementedError("attention dropout is not ported yet")
     if mask is not None:
-        raise ValueError("the flash_attention kernel takes no mask")
-    if causal and q.shape[1] != k.shape[1]:
-        raise ValueError("flash_attention kernel: causal attention needs "
-                         f"sq == sk (got {q.shape[1]} and {k.shape[1]}); "
-                         "the kernel masks top-left aligned")
+        _check_mask(mask, q, k)
+        _build.require(
+            not mask.requires_grad,
+            "flash_attention kernel takes no gradient for the mask: a float "
+            f"mask that requires grad is not taken ({_DOMAIN})", mask)
     return _FlashAttention.apply(q, k, v, bool(causal),
-                                 float(_scale(q, scale)))
+                                 float(_scale(q, scale)), mask)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, lse = _launch_fwd(q, k, v, causal, scale)
+    def forward(ctx, q, k, v, causal, scale, mask=None):
+        out, lse = _launch_fwd(q, k, v, causal, scale, mask)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.mask = causal, scale, mask
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _launch_bwd(q, k, v, out, lse, dout.contiguous(),
-                                 ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+                                 ctx.causal, ctx.scale, ctx.mask)
+        return (dq, dk, dv) + (None,) * (len(ctx.needs_input_grad) - 3)
+
+
+def _check_mask(mask, q, k):
+    b, sk = q.shape[0], k.shape[1]
+    _build.require(
+        mask.ndim == 4 and mask.shape[0] in (1, b)
+        and tuple(mask.shape[1:]) == (1, 1, sk)
+        and (mask.dtype == torch.bool or mask.is_floating_point()),
+        "flash_attention kernel takes a key-padding mask [b or 1, 1, 1, "
+        f"sk], bool or float ({_DOMAIN})", mask, q, k)
 
 
 def _check(q, k, v, *more):
@@ -147,8 +241,9 @@ def _check(q, k, v, *more):
     req(k.shape[0] == b and k.shape[3] == d and h % k.shape[2] == 0,
         "flash_attention kernel: k/v differ from q in batch or head_dim, "
         "or kv heads do not divide q heads", q, k)
-    req(d in (64, 128), "flash_attention kernel takes head_dim 64 or 128",
-        q)
+    req(d % 8 == 0 and 8 <= d <= 256,
+        f"flash_attention kernel takes head_dim 8-256, a multiple of 8 "
+        f"({_DOMAIN})", q)
     req(k.dtype == q.dtype and v.dtype == q.dtype
         and all(t.dtype == q.dtype and t.shape == q.shape for t in more),
         "flash_attention kernel: operands differ in dtype or shape",
@@ -161,38 +256,67 @@ def _check(q, k, v, *more):
             _build.dtype_code(q.dtype))
 
 
-def _launch_fwd(q, k, v, causal, scale):
+def _key_bias(mask, q, k, causal):
+    """(tensor, pointer, row stride) of the kernels' key bias for
+    `mask`: fp32 [b or 1, skp], skp = sk rounded up to 128 (the kernels
+    read whole key tiles), a bool mask as 0 / NEG_INF, an additive one
+    clamped at NEG_INF; the row stride 0 for one row shared by the
+    batch.  Without a mask none, (None, None, 0), except under causal
+    with sq > sk, whose first rows have no live key: only the kernels'
+    bias bodies handle those, so they get a zero bias."""
+    sk = k.shape[1]
+    if not _biased(mask, q, k, causal):
+        return None, None, 0
+    mb = 1 if mask is None else mask.shape[0]
+    skp = -(-sk // 128) * 128
+    bias = torch.zeros((mb, skp), dtype=torch.float32, device=q.device)
+    if mask is not None:
+        _check_mask(mask, q, k)
+        m = mask.reshape(mb, sk)
+        if m.dtype == torch.bool:
+            bias[:, :sk].masked_fill_(~m, NEG_INF)
+        else:
+            torch.clamp_min(m.float(), NEG_INF, out=bias[:, :sk])
+    return bias, bias.data_ptr(), skp if mb > 1 else 0
+
+
+def _launch_fwd(q, k, v, causal, scale, mask=None):
     dev, code = _check(q, k, v)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
+    bias, bptr, bstride = _key_bias(mask, q, k, causal)
     out = torch.empty_like(q)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # with a key bias: each row's max and log sum (`_stats`)
+    lse = torch.empty((b, h, sq) + ((2,) if bias is not None else ()),
+                      dtype=torch.float32, device=q.device)
     rc = _build.library().ptt_flash_fwd(
-        dev, code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, sq, sk, h, hk, d, scale, int(causal),
-        _build.stream_of(q.device))
+        dev, code, q.data_ptr(), k.data_ptr(), v.data_ptr(), bptr,
+        out.data_ptr(), lse.data_ptr(), b, sq, sk, h, hk, d, bstride, scale,
+        int(causal), _build.stream_of(q.device))
     _build.check(rc, "flash_attention")
     launches["flash_attention"] += 1
     return out, lse
 
 
-def _launch_bwd(q, k, v, out, lse, dout, causal, scale):
+def _launch_bwd(q, k, v, out, lse, dout, causal, scale, mask=None):
     dev, code = _check(q, k, v, out, dout)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
-    _build.require(lse.shape == (b, h, sq) and lse.dtype == torch.float32
-                   and lse.is_contiguous(),
-                   "flash_attention kernel: lse must be fp32 [b, h, sq]",
-                   lse)
+    bias, bptr, bstride = _key_bias(mask, q, k, causal)
+    _build.require(
+        lse.shape == (b, h, sq) + ((2,) if bias is not None else ())
+        and lse.dtype == torch.float32 and lse.is_contiguous(),
+        "flash_attention kernel: lse must be the forward's fp32 [b, h, sq] "
+        "([b, h, sq, 2] with a mask or causal sq > sk)", lse)
     # rowsum(dO·O) in fp32 (the TPU wrapper's, :686): scratch that the
     # first kernel of the launch fills for the second
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     rc = _build.library().ptt_flash_bwd(
-        dev, code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, hk, d, scale, int(causal),
-        _build.stream_of(q.device))
+        dev, code, q.data_ptr(), k.data_ptr(), v.data_ptr(), bptr,
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, hk, d,
+        bstride, scale, int(causal), _build.stream_of(q.device))
     _build.check(rc, "flash_attention_bwd")
     launches["flash_attention_bwd"] += 1
     return dq, dk, dv

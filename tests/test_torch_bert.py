@@ -242,6 +242,33 @@ def test_mlm_loss_and_grads_match_reference(name, fused, fused_ce):
     assert not any("decoder" in n and "bias" not in n for n in params)
 
 
+@pytest.mark.parametrize("route", ["plain", "flash_function"])
+def test_masked_mlm_loss_and_grads_match_reference(monkeypatch, route):
+    """The MLM loss and every gradient with a 2-D keep-mask that pads the
+    tail of row 0 and all of row 1 (a fully padded sequence, which the
+    reference's attention weighs uniformly), against jax.grad.  "plain":
+    the CPU's plain attention under native autograd; "flash_function":
+    `ops.attention` through the flash kernels' autograd Function with
+    `_launch_fwd` / `_launch_bwd` standing in as the plain versions (the
+    kernels' math: the saved lse, its +inf mark on the padded row, 1/sk
+    in dv)."""
+    import paddle_tpu_torch.ops as tops
+    if route == "flash_function":
+        fa = tops.kernel_module("flash_attention")
+        monkeypatch.setattr(fa, "_launch_fwd", tops.plain_flash_fwd)
+        monkeypatch.setattr(fa, "_launch_bwd", tops.plain_flash_bwd)
+        monkeypatch.setattr(
+            tops, "attention",
+            lambda q, k, v, mask=None, causal=False, scale=None:
+            fa._FlashAttention.apply(q, k, v, causal,
+                                     float(fa._scale(q, scale)), mask))
+    jm, tm = _pair("bert_mlm")
+    ids, types, mask, labels = _inputs()
+    mask[0, 11:] = 0
+    mask[1, :] = 0
+    _check_loss_and_grads(jm, tm, (ids, types, mask), labels)
+
+
 def test_classification_loss_and_grads_match_reference():
     jm, tm = _pair("ernie_cls")
     ids, types, _, _ = _inputs()
@@ -439,11 +466,28 @@ def test_constructors_follow_the_device_rule(make, monkeypatch):
         make(device="cuda")
 
 
-def test_attention_mask_off_the_cpu_raises():
-    """A mask off the CPU raises NotImplementedError naming ROADMAP queue
-    1 item 11 before any kernel runs (a model on the `meta` device stands
-    in for the card here)."""
+def test_attention_mask_off_the_cpu_raises(monkeypatch):
+    """Off the CPU a 2-D keep-mask reaches the flash kernels' launch as
+    the bool key-padding mask [b, 1, 1, sk] (a model on the `meta` device
+    stands in for the card here): the plain version never runs, and the
+    kernel path raises for the meta tensors, as for any tensor that is
+    not a CUDA one."""
+    import paddle_tpu_torch.ops as tops
+    fa = tops.kernel_module("flash_attention")
+    seen, launch = [], fa._launch_fwd
+
+    def spy(q, k, v, causal, scale, mask=None):
+        seen.append(mask)
+        return launch(q, k, v, causal, scale, mask)
+
+    def never(*a, **k):
+        raise AssertionError("the plain attention ran off the CPU")
+
+    monkeypatch.setattr(fa, "_launch_fwd", spy)
+    monkeypatch.setattr(fa, "plain_attention", never)
     tm = BertForMaskedLM(bert_tiny_config(), device="cpu").to("meta")
     ids = torch.zeros((B, S), dtype=torch.int64, device="meta")
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         tm(ids, attention_mask=torch.ones((B, S), device="meta"))
+    (mask,) = seen
+    assert mask.dtype == torch.bool and tuple(mask.shape) == (B, 1, 1, S)

@@ -1,0 +1,452 @@
+"""The flash attention domain the kernels take beyond the TPU kernel's:
+head dims 8-256 (a multiple of 8), key-padding masks (bool and additive)
+and causal attention with sq != sk (bottom-right), on the CPU.
+
+The port's plain versions (`plain_attention`, the twin; `plain_flash_fwd`
+and `plain_flash_bwd`, the kernels' math) are held against the
+reference twin `paddle_tpu.ops.xla_attention` and `jax.vjp` of it, rows
+whose every key is masked included (a fully padded sequence; under
+causal with sq > sk the first sq - sk rows): there the twin weighs all
+sk keys alike (every logit is -1e30), its dq and ds are 0 and each dv
+gains 1/sk of the row's dO.  A fully padded sequence under an additive
+mask of -1e9 keeps the twin's gradients too: uniform weights and
+ds = p (dp - delta) scale, which the saved (max, log sum) pair gives
+where a saved lse, -1e9 + log(sk) rounded to -1e9, would not.  The autograd Function that carries the
+kernels on the card runs here with `_launch_fwd` / `_launch_bwd`
+monkeypatched to the plain functions, as tests/test_torch_train_ops.py
+runs it; and `_launch_fwd` / `_launch_bwd` run against a stand-in for
+the kernel library, which checks the key bias they hand the kernels.
+
+Inputs are made from a seed with numpy and handed to both packages.
+Tolerances, with their reasons:
+
+  * fp32: atol = rtol = 1e-5 for outputs, 2e-5 for gradients (sums over
+    a sequence and a GQA group) -- the same fp32 arithmetic in other
+    reduction orders;
+  * bf16 forward: 2^-7 of the largest entry (one bf16 ulp of it): both
+    round the weights to bf16 before P.V and the output once;
+  * bf16 gradients of the kernels' math against the twin's autodiff in
+    fp32 on the same bf16 inputs: 2^-5 of the largest entry -- the
+    kernels round p and ds to bf16 before their products (each term
+    carries a 2^-8 relative rounding), the twin's fp32 autodiff does not.
+"""
+import ctypes
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_cpu import one_cpu_thread  # noqa: F401 (autouse)
+
+import paddle_tpu.ops as jops
+
+import paddle_tpu_torch.ops as tops
+from paddle_tpu_torch.ops import _build
+
+fa = tops.kernel_module("flash_attention")
+
+F32_OUT, F32_GRAD = 1e-5, 2e-5
+DT = {"float32": (torch.float32, jnp.float32),
+      "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+# (id, b, sq, sk, h, hk, d, causal, mask kind, kept lengths)
+CASES = [
+    ("d16", 2, 24, 24, 4, 4, 16, False, None, None),
+    ("d16_gqa_causal", 2, 24, 24, 4, 2, 16, True, None, None),
+    ("d40", 2, 33, 20, 4, 4, 40, False, None, None),
+    ("d40_gqa_causal", 1, 33, 33, 6, 2, 40, True, None, None),
+    ("d80", 2, 32, 32, 2, 2, 80, False, None, None),
+    ("d80_gqa_cross", 2, 32, 7, 4, 2, 80, False, None, None),
+    ("d160", 2, 16, 16, 2, 2, 160, True, None, None),
+    ("d160_gqa_cross", 2, 16, 7, 4, 1, 160, False, None, None),
+    ("d192", 1, 20, 20, 2, 2, 192, True, None, None),
+    ("d192_gqa", 1, 20, 28, 4, 2, 192, False, None, None),
+    ("d256", 1, 20, 20, 2, 2, 256, False, None, None),
+    ("d256_gqa_causal", 1, 20, 20, 4, 2, 256, True, None, None),
+    ("bool_mask", 4, 24, 24, 4, 4, 64, False, "bool", [24, 0, 9, 17]),
+    ("bool_mask_gqa_d80", 3, 20, 20, 4, 2, 80, False, "bool", [0, 5, 20]),
+    ("bool_mask_shared", 1, 24, 24, 2, 2, 64, False, "bool", [13]),
+    ("bool_mask_causal", 3, 20, 20, 2, 2, 64, True, "bool", [0, 7, 20]),
+    ("additive_mask", 3, 24, 24, 4, 4, 64, False, "additive",
+     [24, 3, 17]),
+    ("additive_mask_gqa_d160", 2, 16, 16, 4, 2, 160, False, "additive",
+     [16, 5]),
+    ("additive_mask_causal_sq_lt_sk", 2, 12, 20, 2, 2, 40, True, "additive",
+     [20, 9]),
+    ("padding_1e9", 3, 24, 24, 4, 4, 64, False, "additive_1e9",
+     [24, 0, 9]),
+    ("padding_1e9_gqa_causal_d80", 3, 20, 20, 4, 2, 80, True,
+     "additive_1e9", [0, 7, 20]),
+    ("causal_sq_lt_sk", 2, 12, 30, 4, 2, 64, True, None, None),
+    ("causal_sq_gt_sk", 2, 30, 12, 4, 2, 64, True, None, None),
+    ("causal_sq_gt_sk_d80", 1, 40, 9, 2, 1, 80, True, None, None),
+    ("causal_sq_lt_sk_d256", 1, 8, 33, 2, 2, 256, True, None, None),
+    ("causal_sq_gt_sk_bool_mask", 3, 20, 12, 2, 2, 64, True, "bool",
+     [12, 0, 4]),
+]
+IDS = [c[0] for c in CASES]
+
+
+def _inputs(case, seed):
+    """q, k, v, dO and the mask (numpy, None without one): the bool mask
+    keeps the first lengths[i] keys of sequence i (0: a fully padded
+    sequence); the additive one adds N(0, 0.25) on the kept keys and
+    -1e4 on the padding (a sequence keeps some key), "additive_1e9"
+    -1e9 on the padding (0: a fully padded sequence)."""
+    _, b, sq, sk, h, hk, d, _, kind, lengths = case
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, sq, h, d).astype(np.float32)
+    k = rng.randn(b, sk, hk, d).astype(np.float32)
+    v = rng.randn(b, sk, hk, d).astype(np.float32)
+    do = rng.randn(b, sq, h, d).astype(np.float32)
+    mask = None
+    if kind is not None:
+        keep = np.arange(sk)[None] < np.asarray(lengths)[:, None]
+        if kind == "bool":
+            mask = keep[:, None, None, :]
+        else:
+            pad = -1e9 if kind == "additive_1e9" else -1e4
+            mask = np.where(keep, 0.5 * rng.randn(len(lengths), sk),
+                            pad).astype(np.float32)[:, None, None, :]
+    return q, k, v, do, mask
+
+
+def _j(a, dt="float32"):
+    return jnp.asarray(a).astype(DT[dt][1])
+
+
+def _t(a, dt="float32"):
+    if a is None:
+        return None
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t if a.dtype == np.bool_ else t.to(DT[dt][0])
+
+
+def _np(x):
+    if torch.is_tensor(x):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def _ref(case, q, k, v, do, mask, dt="float32"):
+    """The twin's output and jax.vjp cotangents, in fp32 on the inputs
+    rounded to dt."""
+    causal = case[7]
+    args = [jnp.asarray(_np(_t(a, dt))) for a in (q, k, v)]
+    jm = None if mask is None else jnp.asarray(mask)
+    out, vjp = jax.vjp(lambda a, b, c: jops.xla_attention(
+        a, b, c, mask=jm, causal=causal), *args)
+    return out, vjp(jnp.asarray(_np(_t(do, dt))))
+
+
+def _mark(lse):
+    """The saved statistics' mark plane: lse [b, h, sq], or the row max
+    of the (max, log sum) pairs [b, h, sq, 2]."""
+    return lse[..., 0] if lse.ndim == 4 else lse
+
+
+def _dead_rows(case, mask):
+    """[b, sq] bool: the rows whose every key is masked."""
+    _, b, sq, sk, _, _, _, causal, kind, lengths = case
+    live = np.ones((b, sq, sk), bool)
+    if causal:
+        live &= np.tril(np.ones((sq, sk), bool), sk - sq)[None]
+    if kind == "bool":
+        live &= mask[:, 0, 0, :][:, None, :]
+    return ~live.any(-1)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_plain_flash_matches_the_twin_fp32(case):
+    """plain_flash_fwd's output against xla_attention and its lse
+    against the logsumexp of the twin's logits (+inf exactly where every
+    key of the row is masked); plain_flash_bwd's dq, dk, dv against
+    jax.vjp of xla_attention; and plain_attention with native autograd
+    against both."""
+    q, k, v, do, mask = _inputs(case, 7)
+    causal = case[7]
+    jout, jgrads = _ref(case, q, k, v, do, mask)
+    tq, tk, tv, tdo, tm = (_t(a) for a in (q, k, v, do, mask))
+    out, lse = tops.plain_flash_fwd(tq, tk, tv, causal, None, tm)
+    np.testing.assert_allclose(_np(out), _np(jout), atol=F32_OUT,
+                               rtol=F32_OUT)
+    dead = _dead_rows(case, mask)
+    inf = torch.isinf(_mark(lse)).numpy()              # [b, h, sq]
+    assert (inf == dead[:, None, :]).all()
+    assert (_mark(lse).numpy()[inf] > 0).all()
+    assert lse.ndim == (4 if tm is not None or causal and case[2] > case[3]
+                        else 3)
+    assert torch.isfinite(lse[..., 1]).all() if lse.ndim == 4 else True
+    grads = tops.plain_flash_bwd(tq, tk, tv, out, lse, tdo, causal, None,
+                                 tm)
+    for name, got, want in zip("qkv", grads, jgrads):
+        np.testing.assert_allclose(_np(got), _np(want), atol=F32_GRAD,
+                                   rtol=F32_GRAD, err_msg="d" + name)
+    # a dead row: the mean of v forward, dq = 0
+    if dead.any():
+        bi, ri = np.nonzero(dead)
+        g = case[4] // case[5]
+        mean_v = np.repeat(v.mean(1), g, axis=1)       # [b, h, d]
+        np.testing.assert_allclose(_np(out)[bi, ri], mean_v[bi],
+                                   atol=F32_OUT, rtol=F32_OUT)
+        assert (_np(grads[0])[bi, ri] == 0).all()
+    leaves = [torch.from_numpy(a.copy()).requires_grad_(True)
+              for a in (q, k, v)]
+    (tops.plain_attention(*leaves, mask=tm, causal=causal)
+     * tdo).sum().backward()
+    for name, leaf, want in zip("qkv", leaves, jgrads):
+        np.testing.assert_allclose(_np(leaf.grad), _np(want), atol=F32_GRAD,
+                                   rtol=F32_GRAD, err_msg="d" + name)
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c[0] in (
+    "d80", "d160_gqa_cross", "d256_gqa_causal", "bool_mask",
+    "additive_mask", "causal_sq_gt_sk", "causal_sq_lt_sk_d256",
+    "padding_1e9")],
+    ids=lambda c: c[0])
+def test_plain_flash_matches_the_twin_bf16(case):
+    """In bf16: the forward against the twin at one bf16 ulp of the
+    largest entry, the kernels' backward math against the twin's fp32
+    autodiff on the same bf16 inputs at 2^-5 of the largest entry."""
+    q, k, v, do, mask = _inputs(case, 11)
+    causal = case[7]
+    jq, jk, jv = (_j(a, "bfloat16") for a in (q, k, v))
+    jm = None if mask is None else jnp.asarray(mask)
+    jout = jops.xla_attention(jq, jk, jv, mask=jm, causal=causal)
+    _, jgrads = _ref(case, q, k, v, do, mask, "bfloat16")
+    tq, tk, tv, tdo = (_t(a, "bfloat16") for a in (q, k, v, do))
+    tm = _t(mask)
+    out, lse = tops.plain_flash_fwd(tq, tk, tv, causal, None, tm)
+    ref = _np(jout)
+    np.testing.assert_allclose(_np(out), ref, rtol=0,
+                               atol=2.0 ** -7 * np.abs(ref).max())
+    grads = tops.plain_flash_bwd(tq, tk, tv, out, lse, tdo, causal, None,
+                                 tm)
+    for name, got, want in zip("qkv", grads, jgrads):
+        w = _np(want)
+        np.testing.assert_allclose(_np(got), w, rtol=0,
+                                   atol=2.0 ** -5 * np.abs(w).max(),
+                                   err_msg="d" + name)
+
+
+def test_causal_logit_is_masked_whatever_its_bias():
+    """A logit that causal masks is -1e30 in the kernels' math whatever
+    the additive bias there (the twin adds the bias to -1e30): a row
+    whose every key is masked, by causal and by a -1e30 bias, weighs
+    all sk keys alike, and its lse carries the +inf mark."""
+    q, k, v, do, _ = _inputs(("", 1, 6, 4, 2, 2, 16, True, None, None), 3)
+    bias = np.zeros((1, 1, 1, 4), np.float32)
+    bias[..., :2] = -np.inf                # clamped to -1e30: masked
+    tq, tk, tv = (_t(a) for a in (q, k, v))
+    out, lse = tops.plain_flash_fwd(tq, tk, tv, True, None, _t(bias))
+    # rows 0 and 1 see keys <= i - 2: none; rows 2 and 3 only masked keys
+    assert torch.isinf(_mark(lse)[0, :, :4]).all()
+    assert torch.isfinite(_mark(lse)[0, :, 4:]).all()
+    np.testing.assert_allclose(_np(out)[0, :4], np.broadcast_to(
+        v.mean(1)[0], (4, 2, 16)), atol=F32_OUT, rtol=F32_OUT)
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c[0] in (
+    "d40_gqa_causal", "d192_gqa", "bool_mask", "additive_mask",
+    "causal_sq_gt_sk", "causal_sq_gt_sk_bool_mask", "padding_1e9",
+    "padding_1e9_gqa_causal_d80")], ids=lambda c: c[0])
+def test_flash_function_with_plain_launches(monkeypatch, case):
+    """`_FlashAttention` with `_launch_fwd` / `_launch_bwd` replaced by
+    the plain functions: its gradients equal native autograd of the
+    plain attention, masks and offsets included, and the mask reaches
+    both launches."""
+    seen = []
+
+    def fwd(q, k, v, causal, scale, mask=None):
+        seen.append(mask)
+        return tops.plain_flash_fwd(q, k, v, causal, scale, mask)
+
+    def bwd(q, k, v, out, lse, dout, causal, scale, mask=None):
+        seen.append(mask)
+        return tops.plain_flash_bwd(q, k, v, out, lse, dout, causal, scale,
+                                    mask)
+
+    monkeypatch.setattr(fa, "_launch_fwd", fwd)
+    monkeypatch.setattr(fa, "_launch_bwd", bwd)
+    q, k, v, do, mask = _inputs(case, 5)
+    causal, tm, cot = case[7], _t(mask), torch.from_numpy(do)
+    sc = case[6] ** -0.5
+
+    def grads(fn):
+        leaves = [torch.from_numpy(a.copy()).requires_grad_(True)
+                  for a in (q, k, v)]
+        (fn(*leaves) * cot).sum().backward()
+        return [x.grad for x in leaves]
+
+    got = grads(lambda a, b, c: fa._FlashAttention.apply(a, b, c, causal,
+                                                         sc, tm))
+    want = grads(lambda a, b, c: tops.plain_attention(a, b, c, mask=tm,
+                                                      causal=causal))
+    assert len(seen) == 2 and all(m is tm for m in seen)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=F32_GRAD, rtol=F32_GRAD)
+
+
+def _view(ptr, shape, dtype):
+    n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+    buf = (ctypes.c_char * n).from_address(ptr)
+    return torch.frombuffer(buf, dtype=dtype).view(shape)
+
+
+class _BiasLib:
+    """Stands in for the kernel library's flash entry points: checks
+    each call's arguments against `_build._SIGNATURES`, reads the key
+    bias it was handed, and writes the plain math's results."""
+
+    CTYPE = {ctypes.c_void_p: int, ctypes.c_int: int, ctypes.c_float: float}
+    DTYPE = {code: dt for dt, code in _build.DTYPE_CODES.items()}
+
+    def __init__(self):
+        self.bias = []
+
+    def _record(self, name, args):
+        sig = _build._SIGNATURES[name]
+        assert len(args) == len(sig), name
+        for a, c in zip(args, sig):
+            assert type(a) is self.CTYPE[c] or (
+                a is None and c is ctypes.c_void_p), (name, a, c)
+
+    def _read_bias(self, ptr, b, sk, bstride):
+        if ptr is None:
+            self.bias.append(None)
+            return None
+        rows = b if bstride else 1
+        skp = bstride or -(-sk // 128) * 128
+        full = _view(ptr, (rows, skp), torch.float32).clone()
+        self.bias.append((full, bstride))
+        return full
+
+    def ptt_flash_fwd(self, *args):
+        self._record("ptt_flash_fwd", args)
+        dev, code, q, k, v, bias, out, lse, b, sq, sk, h, hk, d, bstride, \
+            scale, causal, stream = args
+        dt = self.DTYPE[code]
+        full = self._read_bias(bias, b, sk, bstride)
+        m = None if full is None else full[:, None, None, :sk]
+        o, l = tops.plain_flash_fwd(
+            _view(q, (b, sq, h, d), dt), _view(k, (b, sk, hk, d), dt),
+            _view(v, (b, sk, hk, d), dt), bool(causal), scale, m)
+        _view(out, (b, sq, h, d), dt).copy_(o)
+        _view(lse, l.shape, torch.float32).copy_(l)
+        return 0
+
+    def ptt_flash_bwd(self, *args):
+        self._record("ptt_flash_bwd", args)
+        dev, code, q, k, v, bias, out, dout, lse, delta, dq, dk, dv, b, sq, \
+            sk, h, hk, d, bstride, scale, causal, stream = args
+        dt = self.DTYPE[code]
+        full = self._read_bias(bias, b, sk, bstride)
+        m = None if full is None else full[:, None, None, :sk]
+        qs, ks = (b, sq, h, d), (b, sk, hk, d)
+        o, g = _view(out, qs, dt), _view(dout, qs, dt)
+        _view(delta, (b, h, sq), torch.float32).copy_(
+            (g.float() * o.float()).sum(-1).transpose(1, 2))
+        stats = (b, h, sq) + ((2,) if bias is not None else ())
+        grads = tops.plain_flash_bwd(
+            _view(q, qs, dt), _view(k, ks, dt), _view(v, ks, dt), o,
+            _view(lse, stats, torch.float32), g, bool(causal), scale, m)
+        for ptr, shape, grad in zip((dq, dk, dv), (qs, ks, ks), grads):
+            _view(ptr, shape, dt).copy_(grad)
+        return 0
+
+
+@pytest.mark.parametrize("kind,mb", [("bool", 3), ("additive", 3),
+                                     ("bool", 1), (None, 3)])
+def test_launch_hands_the_kernels_the_key_bias(monkeypatch, kind, mb):
+    """`_launch_fwd` / `_launch_bwd` with the library stood in for: the
+    key bias fp32 [b or 1, skp] (skp = sk rounded up to 128, 0 past sk),
+    0 / -1e30 for a bool mask, the additive values clamped at -1e30, the
+    row stride skp (0 for a mask shared by the batch, and no pointer
+    without a mask); the results equal the plain versions'."""
+    lib = _BiasLib()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "cuda_device_index", lambda *t: 0)
+    monkeypatch.setattr(_build, "stream_of", lambda d: 0)
+    rng = np.random.RandomState(3)
+    b, sq, sk, h, hk, d = 3, 10, 130, 2, 1, 24
+    q, do = (torch.from_numpy(rng.randn(b, sq, h, d).astype(np.float32))
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(b, sk, hk, d).astype(np.float32))
+            for _ in range(2))
+    keep = torch.from_numpy(np.arange(sk)[None]
+                            < np.array([130, 0, 77])[:mb, None])
+    mask = want = None
+    if kind == "bool":
+        mask = keep[:, None, None, :]
+        want = torch.where(keep, 0.0, -1e30)
+    elif kind == "additive":
+        vals = torch.from_numpy(rng.randn(mb, sk).astype(np.float32))
+        vals[~keep] = -np.inf
+        vals[0, 5] = -3e38
+        mask = vals[:, None, None, :]
+        want = vals.clamp_min(-1e30)
+    out, lse = fa._launch_fwd(q, k, v, False, 0.2, mask)
+    grads = fa._launch_bwd(q, k, v, out, lse, do, False, 0.2, mask)
+    assert len(lib.bias) == 2
+    for got in lib.bias:
+        if kind is None:
+            assert got is None
+            continue
+        full, bstride = got
+        assert full.shape == (mb, 256)
+        assert bstride == (256 if mb > 1 else 0)
+        assert torch.equal(full[:, :sk], want)
+        assert (full[:, sk:] == 0).all()
+    p_out, p_lse = tops.plain_flash_fwd(q, k, v, False, 0.2, mask)
+    assert torch.equal(out, p_out) and torch.equal(lse, p_lse)
+    for g, w in zip(grads, tops.plain_flash_bwd(q, k, v, out, lse, do,
+                                                False, 0.2, mask)):
+        assert torch.equal(g, w)
+
+
+def test_causal_with_more_rows_than_keys_gets_a_zero_bias(monkeypatch):
+    """Causal with sq > sk and no mask: the first sq - sk rows have no
+    live key, which only the kernels' bias bodies handle, so the launch
+    hands them a zero bias shared by the batch; sq <= sk gets none."""
+    lib = _BiasLib()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "cuda_device_index", lambda *t: 0)
+    monkeypatch.setattr(_build, "stream_of", lambda d: 0)
+    rng = np.random.RandomState(4)
+    for sq, sk in ((9, 5), (5, 9)):
+        q = torch.from_numpy(rng.randn(2, sq, 2, 16).astype(np.float32))
+        k = torch.from_numpy(rng.randn(2, sk, 2, 16).astype(np.float32))
+        out, lse = fa._launch_fwd(q, k, k, True, 0.25)
+        p_out, p_lse = tops.plain_flash_fwd(q, k, k, True, 0.25)
+        assert torch.equal(out, p_out) and torch.equal(lse, p_lse)
+    (full, bstride), none = lib.bias
+    assert none is None and bstride == 0
+    assert full.shape == (1, 128) and (full == 0).all()
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.zeros(shape, device="meta", dtype=dtype)
+
+
+@pytest.mark.parametrize("d", [16, 40, 80, 160, 192, 256])
+def test_attention_takes_the_new_head_dims(d):
+    """Off the CPU (a meta tensor stands in for the card's here) head
+    dims 8-256 that are multiples of 8 pass the kernels' domain check
+    and reach the device check."""
+    with pytest.raises(ValueError, match="must be CUDA tensors"):
+        tops.attention(_meta(1, 4, 2, d), _meta(1, 6, 2, d),
+                       _meta(1, 6, 2, d), causal=True,
+                       mask=_meta(1, 1, 1, 6, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 4, 6), (1, 2, 1, 6), (2, 6),
+                                   (3, 1, 1, 6), (1, 1, 1, 5)],
+                         ids=["per_query", "per_head", "2d", "batch_3",
+                              "short"])
+def test_attention_refuses_other_mask_shapes(shape):
+    before = tops.launch_counts()
+    with pytest.raises(ValueError, match="ROADMAP"):
+        tops.attention(_meta(2, 4, 2, 64), _meta(2, 6, 2, 64),
+                       _meta(2, 6, 2, 64), mask=_meta(*shape))
+    assert tops.launch_counts() == before

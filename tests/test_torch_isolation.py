@@ -74,7 +74,7 @@ def test_vision_package_is_walked_by_the_import_check():
     zoo = {"paddle_tpu_torch.vision", "paddle_tpu_torch.vision.models"} | {
         f"paddle_tpu_torch.vision.models.{n}" for n in (
             "resnet", "lenet", "alexnet", "vgg", "mobilenetv1",
-            "mobilenetv2")}
+            "mobilenetv2", "vit")} | {"paddle_tpu_torch.models.unet"}
     assert zoo <= names
     assert paddle_tpu_torch.vision.resnet50 is not None
 
@@ -131,7 +131,8 @@ def test_constructor_without_device_raises(no_cuda):
 
 @pytest.mark.parametrize("ctor", ["resnet50", "resnet18", "resnext50_32x4d",
                                   "LeNet", "alexnet", "vgg11",
-                                  "mobilenet_v1", "mobilenet_v2"])
+                                  "mobilenet_v1", "mobilenet_v2",
+                                  "vit_tiny_patch4", "vit_b_16"])
 def test_vision_constructors_without_device_raise(no_cuda, ctor):
     """The zoo builds on CUDA unless asked for the CPU."""
     from paddle_tpu_torch.vision import models
@@ -139,6 +140,15 @@ def test_vision_constructors_without_device_raise(no_cuda, ctor):
         getattr(models, ctor)(num_classes=10)
     with pytest.raises(RuntimeError, match="no CUDA"):
         getattr(models, ctor)(num_classes=10, device="cuda")
+
+
+def test_unet_without_device_raises(no_cuda):
+    """The UNet builds on CUDA unless asked for the CPU."""
+    from paddle_tpu_torch.models import UNet2DConditionModel, unet_tiny_config
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        UNet2DConditionModel(unet_tiny_config())
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        UNet2DConditionModel(unet_tiny_config(), device="cuda")
 
 
 def test_parallel_env_and_mesh_without_device_raise(no_cuda):
@@ -218,8 +228,13 @@ def test_fleet_flags_match_reference_defaults(name):
                                t(16), "int8"),
     lambda t: ops.quant_matmul(t(2, 32), t(16, 16, dtype=torch.int8),
                                t(2, 16), "int4", 8),
+    lambda t: ops.attention(t(2, 4, 2, 80), t(2, 6, 2, 80), t(2, 6, 2, 80),
+                            mask=t(2, 1, 1, 6, dtype=torch.bool)),
+    lambda t: ops.attention(t(1, 6, 2, 40), t(1, 4, 2, 40), t(1, 4, 2, 40),
+                            causal=True),
 ], ids=["rms_norm", "rope", "paged_attention", "paged_attention_int8",
-        "quant_matmul_int8", "quant_matmul_int4"])
+        "quant_matmul_int8", "quant_matmul_int4", "attention_masked_d80",
+        "attention_causal_sq_gt_sk"])
 def test_non_cpu_tensor_never_takes_the_plain_version(call, monkeypatch):
     """A tensor off the CPU goes to the kernel path, which refuses
     anything that is not a CUDA tensor — it never computes a result
@@ -227,7 +242,9 @@ def test_non_cpu_tensor_never_takes_the_plain_version(call, monkeypatch):
     def never(*a, **k):
         raise AssertionError("a plain version ran for a non-CPU tensor")
     for mod, fn in (("paged_attention", "plain_paged_attention"),
-                    ("quant_matmul", "plain_quant_matmul")):
+                    ("quant_matmul", "plain_quant_matmul"),
+                    ("flash_attention", "plain_attention"),
+                    ("flash_attention", "plain_flash_fwd")):
         monkeypatch.setattr(ops.kernel_module(mod), fn, never)
     before = ops.launch_counts()
     with pytest.raises(ValueError, match="CUDA tensors"):

@@ -303,13 +303,15 @@ class _FlashLib:
         sig = _build._SIGNATURES[name]
         assert len(args) == len(sig), name
         for i, (a, c) in enumerate(zip(args, sig)):
-            assert type(a) is self.CTYPE[c], (name, i, a, c)
+            assert type(a) is self.CTYPE[c] or (
+                a is None and c is ctypes.c_void_p), (name, i, a, c)
         self.calls.append((name, args))
 
     def ptt_flash_fwd(self, *args):
         self._record("ptt_flash_fwd", args)
-        dev, code, q, k, v, out, lse, b, sq, sk, h, hk, d, scale, causal, \
-            stream = args
+        dev, code, q, k, v, bias, out, lse, b, sq, sk, h, hk, d, bstride, \
+            scale, causal, stream = args
+        assert bias is None and bstride == 0     # no mask
         dt = self.DTYPE[code]
         o, l = tops.plain_flash_fwd(
             _view(q, (b, sq, h, d), dt), _view(k, (b, sk, hk, d), dt),
@@ -320,8 +322,9 @@ class _FlashLib:
 
     def ptt_flash_bwd(self, *args):
         self._record("ptt_flash_bwd", args)
-        dev, code, q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk, h, \
-            hk, d, scale, causal, stream = args
+        dev, code, q, k, v, bias, out, dout, lse, delta, dq, dk, dv, b, sq, \
+            sk, h, hk, d, bstride, scale, causal, stream = args
+        assert bias is None and bstride == 0     # no mask
         dt = self.DTYPE[code]
         qs, ks = (b, sq, h, d), (b, sk, hk, d)
         o, g = _view(out, qs, dt), _view(dout, qs, dt)
@@ -366,14 +369,14 @@ def test_flash_launch_marshalling(monkeypatch, dt, causal):
     (fwd, af), (bwd, ab) = lib.calls
     code = _build.DTYPE_CODES[DT[dt][0]]
     assert (fwd, bwd) == ("ptt_flash_fwd", "ptt_flash_bwd")
-    assert af == (0, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), lse.data_ptr(), b, s, s, h, hk, d, 0.125,
-                  int(causal), 0)
-    delta, = [t for t in made if t.data_ptr() == ab[8]]
-    assert ab == (0, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    assert af == (0, code, q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                  out.data_ptr(), lse.data_ptr(), b, s, s, h, hk, d, 0,
+                  0.125, int(causal), 0)
+    delta, = [t for t in made if t.data_ptr() == ab[9]]
+    assert ab == (0, code, q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
                   out.data_ptr(), do.data_ptr(), lse.data_ptr(),
                   delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                  dv.data_ptr(), b, s, s, h, hk, d, 0.125, int(causal), 0)
+                  dv.data_ptr(), b, s, s, h, hk, d, 0, 0.125, int(causal), 0)
     assert delta.shape == (b, h, s) and delta.dtype == torch.float32
     torch.testing.assert_close(
         delta, (do.float() * out.float()).sum(-1).transpose(1, 2),
@@ -680,23 +683,33 @@ def test_wrapper_skips_the_function_without_a_graph(monkeypatch, mod, launch,
     assert type(call(m, x).grad_fn).__name__ == function + "Backward"
 
 
-@pytest.mark.parametrize("call,err", [
+@pytest.mark.parametrize("call,err,match", [
     (lambda: tops.attention(_meta(1, 4, 2, 64), _meta(1, 4, 2, 64),
                             _meta(1, 4, 2, 64), mask=_meta(1, 1, 4, 4)),
-     ValueError),
+     ValueError, "key-padding mask"),
     (lambda: tops.attention(_meta(1, 4, 2, 64), _meta(1, 4, 2, 64),
                             _meta(1, 4, 2, 64), dropout_p=0.1),
-     NotImplementedError),
-    (lambda: tops.attention(_meta(1, 4, 2, 64), _meta(1, 6, 2, 64),
-                            _meta(1, 6, 2, 64), causal=True), ValueError),
-    (lambda: tops.attention(_meta(1, 4, 2, 32), _meta(1, 4, 2, 32),
-                            _meta(1, 4, 2, 32)), ValueError),
-], ids=["mask", "dropout", "cross_causal", "head_dim_32"])
-def test_attention_kernel_refuses_what_it_does_not_take(call, err):
+     NotImplementedError, "dropout"),
+    (lambda: tops.attention(_meta(1, 4, 2, 36), _meta(1, 6, 2, 36),
+                            _meta(1, 6, 2, 36), causal=True), ValueError,
+     "head_dim 8-256"),
+    (lambda: tops.attention(_meta(1, 4, 2, 264), _meta(1, 4, 2, 264),
+                            _meta(1, 4, 2, 264)), ValueError,
+     "head_dim 8-256"),
+    (lambda: tops.attention(_meta(1, 4, 2, 64), _meta(1, 4, 2, 64),
+                            _meta(1, 4, 2, 64),
+                            mask=_meta(1, 1, 1, 4).requires_grad_()),
+     ValueError, "no gradient for the mask"),
+], ids=["mask", "dropout", "head_dim_36", "head_dim_264",
+        "mask_requires_grad"])
+def test_attention_kernel_refuses_what_it_does_not_take(call, err, match):
     """Off the CPU there is no detour to the plain version: arguments
-    the kernel does not take raise."""
+    the kernel does not take raise: a mask of another shape than [b or
+    1, 1, 1, sk], a float mask that requires grad (the kernels give it
+    none) and a head dim that is not a multiple of 8 from 8 to 256
+    (ValueError, naming ROADMAP), dropout (NotImplementedError)."""
     before = tops.launch_counts()
-    with pytest.raises(err):
+    with pytest.raises(err, match=match):
         call()
     assert tops.launch_counts() == before
 
