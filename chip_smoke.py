@@ -97,7 +97,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              from the same weights; losses and parameters must agree.
              Twice: the logits-path loss, then FLAGS_fused_ce with the
              first layer under selective recompute.  fp32 takes the
-             CUDA-core flash kernels; the tensor-core ones of the bf16
+             three-pass TF32 flash kernels; the 16-bit ones of the bf16
              path are held by phase 6
   8. train   bench.py::bench_llama's configuration (14 layers, hidden
              2560, bf16 compute, fp32 parameters, the first 3 layers
@@ -261,8 +261,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              mask (lengths from RandomState(17), one sequence fully
              padded), bottom-right causal with sq < sk and sq > sk, d 16
              and d 40 in fp16, BERT's width with a -1e9 padding bias
-             (the saved (max, log sum) pairs), and fp32 on the CUDA-core
-             bodies: ViT-B/16's [32, 197, 12, 64], d 160 with -1e9
+             (the saved (max, log sum) pairs), and fp32 on the three-pass
+             TF32 bodies: ViT-B/16's [32, 197, 12, 64], d 160 with -1e9
              padding, d 80 causal sq > sk with a bool mask), each
              forward and backward per element
              against the plain versions and launched twice with
@@ -309,6 +309,9 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor peak
 FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
+# fp32-accurate work on the tensor cores: three TF32 products (495e12,
+# dense) an fp32 one (the fp32 flash kernels' three-pass split)
+TF32X3_FLOP_PER_S = 495e12 / 3
 REPS = 30
 # the training path's shapes: bench.py::bench_llama, batch 4 x 2048,
 # the first 3 layers under selective recompute (bench.py:240-248)
@@ -1868,6 +1871,9 @@ def _flash_case(torch, ops, fa, randn, add, case, b, sq, sk, h, hk, d,
     extra = dict(case=case, kv_heads=hk, sk=sk, causal=causal, dtype=dtype,
                  **({"mask": mask} if mask else {}),
                  **({"bit_identical": True} if twice else {}))
+    # fp32 runs fp32-accurate products on the tensor cores (three TF32
+    # passes each), the 16-bit dtypes at the bf16 / fp16 rate
+    rate = TF32X3_FLOP_PER_S if dtype == "float32" else BF16_FLOP_PER_S
     # lse = m + log l (with a key bias the pair m, log l): fp32 scores,
     # exp and sums in another order move it by a few ulps of m and of
     # log l, ~1e-6 relative; an entry near 0 keeps that absolute error,
@@ -1885,7 +1891,7 @@ def _flash_case(torch, ops, fa, randn, add, case, b, sq, sk, h, hk, d,
               time_ms(torch, lambda: sdpa(qt, kt, vt, enable_gqa=True,
                                           **lib)),
               lib_name, (2 * q.numel() + 2 * k.numel()) * q.element_size()
-              + lse.numel() * 4, fwd_flops, msq_share=msq[:1], **extra)
+              + lse.numel() * 4, fwd_flops, rate, msq_share=msq[:1], **extra)
     del p_out, p_lse
     qr, kr, vr = (t.clone().requires_grad_(True) for t in (qt, kt, vt))
     lib_out = sdpa(qr, kr, vr, enable_gqa=True, **lib)
@@ -1899,8 +1905,8 @@ def _flash_case(torch, ops, fa, randn, add, case, b, sq, sk, h, hk, d,
               time_ms(torch, _grad_timer(torch, lib_out, (qr, kr, vr), dot)),
               lib_name.replace("(", " backward ("),
               (4 * q.numel() + 4 * k.numel()) * q.element_size()
-              + 2 * lse.numel() * 4, 5 * fwd_flops // 2, msq_share=msq[1:],
-              **extra)
+              + 2 * lse.numel() * 4, 5 * fwd_flops // 2, rate,
+              msq_share=msq[1:], **extra)
     log(f"[train-kernels] flash {case}: kernel / SDPA forward "
         f"{fwd['ms'] / fwd['library_ms']:.2f}x, backward "
         f"{bwd['ms'] / bwd['library_ms']:.2f}x")
@@ -4653,8 +4659,8 @@ FLASH_WIDE_CASES = [
     dict(case="bert, -1e9 key padding", b=16, sq=512, sk=512, h=12, hk=12,
          d=64, causal=False, mask="additive_1e9",
          lengths=_BERT_LENGTHS[:16]),
-    # fp32 (the CUDA-core bodies): ViT-B/16's attention as 17e trains it,
-    # and a masked width of the widened domain
+    # fp32 (the three-pass TF32 bodies): ViT-B/16's attention as 17e
+    # trains it, and a masked width of the widened domain
     dict(case="vit-b/16 fp32", b=32, sq=197, sk=197, h=12, hk=12, d=64,
          causal=False, dtype="float32"),
     dict(case="d160 fp32, -1e9 key padding", b=8, sq=256, sk=256, h=8,
@@ -5189,6 +5195,9 @@ def main():
     for name in ops.KERNELS:
         extra = {"variant_launches": variants[name]} if name in variants \
             else {}
+        if name.startswith("flash_attention"):
+            # the fp32 bodies' translation unit (its fp32 cases in `cases`)
+            extra["fp32_source"] = cu + "flash_attention_f32.cu"
         line.append(entry(name, kern[name], counts[name], **extra))
     # the int8 pool variant of paged_attention and the int4 body of
     # quant_matmul on their own lines: each its own launches and head case

@@ -42,8 +42,9 @@
 // recomputed by both backward kernels so that no sum crosses blocks).
 //
 // Design.  The TPU's sequential grid over K blocks becomes a loop inside
-// the block; no state crosses blocks, so there are no atomics and the
-// result is deterministic.
+// the block; no state crosses blocks (but within an fp32 dk/dv cluster,
+// in a fixed order), so there are no atomics and the result is
+// deterministic.
 //   * bf16/fp16: Hopper warp specialisation.  A block is three
 //     warpgroups.  Warpgroup 0 gives up its registers
 //     (setmaxnreg) and one thread of it streams the tiles with TMA
@@ -97,62 +98,23 @@
 //     elementwise work with the next tile's products; dkv has one block
 //     per 128 keys and kv head, too few to fill the card at short
 //     sequences and few kv heads.
-//   * fp32: the same three walks on CUDA cores (one lane per key, the
-//     warp reduces with shuffles), delta from a small kernel of its own.
+//   * fp32: the same three walks on the tensor cores, as a three-pass
+//     TF32 split, in flash_attention_f32.cu (a translation unit of its
+//     own; its header says what bounds those bodies and how they are
+//     built).  The pieces both share are in flash_attention.cuh.
 //   * ragged edges: rows past sq and keys past sk are masked in the
 //     kernel (the TPU kernel needs a power-of-two block dividing s).
 #include <type_traits>
 
-#include "common.cuh"
-#include "hopper.cuh"
+#include "flash_attention.cuh"
 
 namespace {
 
 using namespace ptt::sm90;
-
-constexpr float kNegInf = -1e30f;    // flash_attention.py NEG_INF
-constexpr int kSmemMax = 232448;     // H100 opt-in limit per block
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return ptt::to_f(ptt::from_f<T>(x));
-}
+using namespace ptt::flash;
 
 // the body width of head dim d: the next multiple of 64
 constexpr int body_width(int d) { return (d + 63) / 64 * 64; }
-
-// Copy rows [r0, r0 + rows) of a [*, stride]-strided matrix of width d
-// into fp32 shared memory [rows][ld] of width D >= d, zero past `limit`
-// rows and past column d.
-template <typename T, int D>
-__device__ __forceinline__ void tile_to_smem_f(const T* __restrict__ base,
-                                               long long stride, int r0,
-                                               int rows, int limit,
-                                               float* dst, int ld, int d) {
-  for (int e = threadIdx.x; e < rows * D; e += blockDim.x) {
-    const int t = e / D;
-    const int i = e - t * D;
-    dst[t * ld + i] = r0 + t < limit && i < d
-                          ? ptt::to_f(base[(r0 + t) * stride + i])
-                          : 0.f;
-  }
-}
-
-// Number of key tiles a block of query rows [q0, q0 + rows) reads: every
-// tile unless causal; under causal the tiles up to the last row's last
-// live key (j <= i + off, off = sk - sq), none when no row has one.
-// `full` (a row of the block may have no live key: the reference then
-// weighs every key alike) walks every tile too.
-__device__ __forceinline__ int live_key_tiles(int q0, int rows, int sq,
-                                              int sk, int bk, int causal,
-                                              int off, bool full) {
-  const int all = (sk + bk - 1) / bk;
-  if (!causal || full) return all;
-  const int last = min(q0 + rows, sq) - 1 + off;
-  return last < 0 ? 0 : min(all, last / bk + 1);
-}
 
 // ---------------------------------------------------------------------------
 // tensor-core kernels (bf16 / fp16)
@@ -172,16 +134,6 @@ __device__ __forceinline__ void to_a(const float* s, int kk, uint32_t* a) {
   a[1] = ptt::pack2<T>(s[8 * kk + 2], s[8 * kk + 3]);
   a[2] = ptt::pack2<T>(s[8 * kk + 4], s[8 * kk + 5]);
   a[3] = ptt::pack2<T>(s[8 * kk + 6], s[8 * kk + 7]);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // Store rows r0 and r0 + 8 of a warpgroup's [64, D] accumulators to a
@@ -215,91 +167,6 @@ struct FwdCfg {
   static constexpr int kBars = kQ + 2 * NS * kKV + NS * kB;
   static constexpr size_t kSmem = kBars + 8 * (1 + 4 * NS) + 1024;
 };
-
-// Online softmax of one key tile for the rows r0 and r0 + 8 of a thread:
-// s holds the raw scores q.k (the wgmma accumulator layout) and becomes
-// p = exp2(s * sc - m) in place, sc = scale * log2 e; m and l are the
-// running max (base-2 units) and sum; returns the factors that rescale
-// the rows' earlier output.  `rl` is r0 + sk - sq, the last live key of
-// row r0 under causal.  A key past sk weighs 0.  MASK bodies take
-// sc = scale and keep natural units: the logit x = s * scale + bias (the
-// tile's key bias `sb`, in shared memory), p = exp2((x - m) log2 e); a
-// key that causal masks takes the logit -1e30, as a -1e30 bias gives: a
-// row with no other key weighs them alike, and any live key outweighs
-// them all.
-template <int BK, bool MASK>
-__device__ __forceinline__ float2 softmax_tile(float* s, float& m0, float& m1,
-                                               float& l0, float& l1, int k0,
-                                               int sk, int rl, int t,
-                                               float sc, bool edge,
-                                               int causal, const float* sb) {
-  float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float x;
-      if constexpr (MASK)
-        x = fmaf(s[4 * j + e], sc, sb[8 * j + 2 * t + (e & 1)]);
-      else
-        x = s[4 * j + e] * sc;
-      if (edge) {     // masks only on the tiles they cut
-        const int key = k0 + 8 * j + 2 * t + (e & 1);
-        if constexpr (MASK) {
-          if (key >= sk)
-            x = -INFINITY;
-          else if (causal && key > rl + 8 * (e >> 1))
-            x = kNegInf;
-        } else if (key >= sk || (causal && key > rl + 8 * (e >> 1))) {
-          x = -INFINITY;
-        }
-      }
-      s[4 * j + e] = x;
-      if (e < 2)
-        mx0 = fmaxf(mx0, x);
-      else
-        mx1 = fmaxf(mx1, x);
-    }
-  const float n0 = fmaxf(m0, quad_max(mx0));
-  const float n1 = fmaxf(m1, quad_max(mx1));
-  // a row with every key so far masked keeps p = 0 (no inf - inf)
-  const float b0 = n0 == -INFINITY ? 0.f : n0;
-  const float b1 = n1 == -INFINITY ? 0.f : n1;
-  float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float x = s[4 * j + e] - (e < 2 ? b0 : b1);
-      const float p = exp2_ftz(MASK ? x * kLog2e : x);
-      s[4 * j + e] = p;
-      if (e < 2)
-        ps0 += p;
-      else
-        ps1 += p;
-    }
-  const float a0 = MASK ? exp2_ftz((m0 - b0) * kLog2e) : exp2_ftz(m0 - b0);
-  const float a1 = MASK ? exp2_ftz((m1 - b1) * kLog2e) : exp2_ftz(m1 - b1);
-  l0 = l0 * a0 + ps0;
-  l1 = l1 * a1 + ps1;
-  m0 = n0;
-  m1 = n1;
-  return make_float2(a0, a1);
-}
-
-// Save a row's statistics from its running max m and sum l: the
-// natural-log lse from m in base-2 units; MASK bodies (m in natural
-// units) the pair (m, log l), m = +inf marking a row whose every key is
-// masked
-template <bool MASK>
-__device__ __forceinline__ void save_stats(float* lse, long long row, float m,
-                                           float l) {
-  if constexpr (MASK)
-    reinterpret_cast<float2*>(lse)[row] =
-        make_float2(m <= 0.5f * kNegInf ? INFINITY : m, log2f(l) * kLn2);
-  else
-    lse[row] = (m + log2f(l)) * kLn2;
-}
 
 // The bodies: MASK false takes no key bias and no row without a live
 // key (causal needs sq <= sk); MASK true reads the key bias (never null)
@@ -878,347 +745,16 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_wgmma(
   }
 }
 
-// delta = rowsum(dO . O) [B, h, sq] for the fp32 path, one thread a row
-template <typename T>
-__global__ void __launch_bounds__(256) flash_delta_simt(
-    const T* __restrict__ out, const T* __restrict__ dout,
-    float* __restrict__ delta, int B, int sq, int h, int d) {
-  const long long i = blockIdx.x * 256ll + threadIdx.x;   // over [B, sq, h]
-  if (i >= static_cast<long long>(B) * sq * h) return;
-  const int hq = static_cast<int>(i % h);
-  const long long bs = i / h;
-  const int r = static_cast<int>(bs % sq), b = static_cast<int>(bs / sq);
-  float acc = 0.f;
-  for (int c = 0; c < d; ++c)
-    acc = fmaf(ptt::to_f(dout[i * d + c]), ptt::to_f(out[i * d + c]), acc);
-  delta[(static_cast<long long>(b) * h + hq) * sq + r] = acc;
-}
-
 // ---------------------------------------------------------------------------
-// CUDA-core kernels (fp32; written for any T)
+// launchers (Shape, blocks and opt_in in flash_attention.cuh)
 // ---------------------------------------------------------------------------
-constexpr int kRowsSimt = 16;   // query rows per block (4 per warp)
-constexpr int kKeysSimt = 32;   // keys per tile (one per lane)
-
-template <int D>
-constexpr size_t fwd_simt_smem() {
-  return sizeof(float) * (kRowsSimt * D + kKeysSimt * (D + 1) + kKeysSimt * D);
-}
-
-template <typename T, int D, bool MASK>
-__global__ void __launch_bounds__(128) flash_fwd_simt(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, float* __restrict__ lse,
-    const float* __restrict__ bias, int bstride, int sq, int sk, int h,
-    int hk, int d, float scale, int causal) {
-  constexpr int RQ = kRowsSimt, BK = kKeysSimt, KP = D + 1, C = D / 32;
-  extern __shared__ uint4 fa_smem[];
-  float* Qs = reinterpret_cast<float*>(fa_smem);   // [RQ][D]
-  float* Ks = Qs + RQ * D;                          // [BK][D + 1]
-  float* Vs = Ks + BK * KP;                         // [BK][D]
-  const int q0 = blockIdx.x * RQ, hq = blockIdx.y, b = blockIdx.z;
-  const int kvh = hq / (h / hk);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int off = sk - sq;
-  const float* const brow =
-      MASK ? bias + static_cast<long long>(b) * bstride : nullptr;
-  const long long qstr = static_cast<long long>(h) * d;
-  const long long kstr = static_cast<long long>(hk) * d;
-  const long long qoff = (static_cast<long long>(b) * sq * h + hq) * d;
-  const long long koff = (static_cast<long long>(b) * sk * hk + kvh) * d;
-  tile_to_smem_f<T, D>(q + qoff, qstr, q0, RQ, sq, Qs, D, d);
-  float m[4], l[4], acc[4][C];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
-  }
-  // MASK: any row may have no live key, and then needs every tile
-  const int n_kt = live_key_tiles(q0, RQ, sq, sk, BK, causal, off, MASK);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    tile_to_smem_f<T, D>(k + koff, kstr, k0, BK, sk, Ks, KP, d);
-    tile_to_smem_f<T, D>(v + koff, kstr, k0, BK, sk, Vs, D, d);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = warp * 4 + i;
-      const int r = q0 + qi;
-      if (r >= sq) continue;   // warp-uniform
-      const int key = k0 + lane;
-      float s = 0.f;
-      for (int c = 0; c < D; ++c) s = fmaf(Qs[qi * D + c], Ks[lane * KP + c], s);
-      // a key past sk weighs 0; a masked one takes the logit -1e30
-      const bool ok = key < sk;
-      if (!ok)
-        s = -INFINITY;
-      else if (causal && key > r + off)
-        s = kNegInf;
-      else if (MASK)
-        s = fmaf(s, scale, __ldg(brow + key));
-      else
-        s = s * scale;
-      const float nm = fmaxf(m[i], ptt::warp_max(s));
-      const float p = ok ? expf(s - nm) : 0.f;
-      const float alpha = expf(m[i] - nm);
-      l[i] = l[i] * alpha + ptt::warp_sum(p);
-      m[i] = nm;
-      const float pr = round_to<T>(p);
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[i][c] *= alpha;
-      for (int j = 0; j < BK; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, pr, j);
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          acc[i][c] = fmaf(pj, Vs[j * D + lane + 32 * c], acc[i][c]);
-      }
-    }
-  }
-  // MASK: pairs (max, log sum)
-  float* lrow =
-      lse + (static_cast<long long>(b) * h + hq) * sq * (MASK ? 2 : 1);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + warp * 4 + i;
-    if (r >= sq) continue;
-    const float lv = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      if (lane + 32 * c < d)
-        out[qoff + r * qstr + lane + 32 * c] = ptt::from_f<T>(acc[i][c] / lv);
-    if (lane == 0 && MASK)
-      reinterpret_cast<float2*>(lrow)[r] =
-          make_float2(m[i] <= 0.5f * kNegInf ? INFINITY : m[i], logf(lv));
-    else if (lane == 0)
-      lrow[r] = m[i] <= 0.5f * kNegInf ? INFINITY : m[i] + logf(lv);
-  }
-}
-
-template <int D>
-constexpr size_t dq_simt_smem() {
-  return sizeof(float) * (2 * kRowsSimt * D + 2 * kKeysSimt * (D + 1));
-}
-
-template <typename T, int D, bool MASK>
-__global__ void __launch_bounds__(128) flash_dq_simt(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq,
-    const float* __restrict__ bias, int bstride, int sq, int sk, int h,
-    int hk, int d, float scale, int causal) {
-  constexpr int RQ = kRowsSimt, BK = kKeysSimt, KP = D + 1, C = D / 32;
-  extern __shared__ uint4 fa_smem[];
-  float* Qs = reinterpret_cast<float*>(fa_smem);   // [RQ][D]
-  float* Os = Qs + RQ * D;                          // [RQ][D], dO
-  float* Ks = Os + RQ * D;                          // [BK][D + 1]
-  float* Vs = Ks + BK * KP;                         // [BK][D + 1]
-  const int q0 = blockIdx.x * RQ, hq = blockIdx.y, b = blockIdx.z;
-  const int kvh = hq / (h / hk);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int off = sk - sq;
-  const float* const brow =
-      MASK ? bias + static_cast<long long>(b) * bstride : nullptr;
-  const long long qstr = static_cast<long long>(h) * d;
-  const long long kstr = static_cast<long long>(hk) * d;
-  const long long qoff = (static_cast<long long>(b) * sq * h + hq) * d;
-  const long long koff = (static_cast<long long>(b) * sk * hk + kvh) * d;
-  const long long soff = (static_cast<long long>(b) * h + hq) * sq;
-  tile_to_smem_f<T, D>(q + qoff, qstr, q0, RQ, sq, Qs, D, d);
-  tile_to_smem_f<T, D>(dout + qoff, qstr, q0, RQ, sq, Os, D, d);
-  float acc[4][C];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
-  const int n_kt = live_key_tiles(q0, RQ, sq, sk, BK, causal, off, false);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    tile_to_smem_f<T, D>(k + koff, kstr, k0, BK, sk, Ks, KP, d);
-    tile_to_smem_f<T, D>(v + koff, kstr, k0, BK, sk, Vs, KP, d);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = warp * 4 + i;
-      const int r = q0 + qi;
-      if (r >= sq) continue;   // warp-uniform
-      const int key = k0 + lane;
-      float s = 0.f, dp = 0.f;
-      for (int c = 0; c < D; ++c) {
-        s = fmaf(Qs[qi * D + c], Ks[lane * KP + c], s);
-        dp = fmaf(Os[qi * D + c], Vs[lane * KP + c], dp);
-      }
-      const bool ok = key < sk && (!causal || key <= r + off);
-      float p;
-      if (MASK) {
-        const float2 st = reinterpret_cast<const float2*>(lse)[soff + r];
-        p = ok ? expf((fmaf(s, scale, __ldg(brow + key)) - st.x) - st.y) : 0.f;
-      } else
-        p = ok ? expf(s * scale - lse[soff + r]) : 0.f;
-      const float ds = round_to<T>(p * (dp - delta[soff + r]) * scale);
-      for (int j = 0; j < BK; ++j) {
-        const float dj = __shfl_sync(0xffffffffu, ds, j);
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          acc[i][c] = fmaf(dj, Ks[j * KP + lane + 32 * c], acc[i][c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + warp * 4 + i;
-    if (r >= sq) continue;
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      if (lane + 32 * c < d)
-        dq[qoff + r * qstr + lane + 32 * c] = ptt::from_f<T>(acc[i][c]);
-  }
-}
-
-template <int D>
-constexpr size_t dkv_simt_smem() {
-  return sizeof(float) * (4 * 32 * (D + 1) + 2 * 32 * 33 + 3 * 32);
-}
-
-template <typename T, int D, bool MASK>
-__global__ void __launch_bounds__(128) flash_dkv_simt(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    const float* __restrict__ bias, int bstride, int sq, int sk, int h,
-    int hk, int d, float scale, int causal) {
-  constexpr int BKV = 32, BQ = 32, KP = D + 1, C = D / 4;
-  extern __shared__ uint4 fa_smem[];
-  float* Ks = reinterpret_cast<float*>(fa_smem);   // [BKV][D + 1]
-  float* Vs = Ks + BKV * KP;                        // [BKV][D + 1]
-  float* Qs = Vs + BKV * KP;                        // [BQ][D + 1]
-  float* Os = Qs + BQ * KP;                         // [BQ][D + 1], dO
-  float* Ps = Os + BQ * KP;                         // [BQ][33] rounded p
-  float* Ss = Ps + BQ * 33;                         // [BQ][33] rounded ds
-  float* Ls = Ss + BQ * 33;                         // [BQ] lse (MASK: max)
-  float* Gs = Ls + BQ;                              // [BQ] MASK: log sum
-  float* Dl = Gs + BQ;                              // [BQ]
-  const int k0 = blockIdx.x * BKV, kvh = blockIdx.y, b = blockIdx.z;
-  const int group = h / hk;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int off = sk - sq;
-  const float* const brow =
-      MASK ? bias + static_cast<long long>(b) * bstride : nullptr;
-  const long long qstr = static_cast<long long>(h) * d;
-  const long long kstr = static_cast<long long>(hk) * d;
-  const long long koff = (static_cast<long long>(b) * sk * hk + kvh) * d;
-  tile_to_smem_f<T, D>(k + koff, kstr, k0, BKV, sk, Ks, KP, d);
-  tile_to_smem_f<T, D>(v + koff, kstr, k0, BKV, sk, Vs, KP, d);
-  const int key = k0 + lane;
-  const float kb = MASK ? __ldg(brow + key) : 0.f;
-  const float inv_sk = 1.f / sk;
-  // lane owns key `lane`; warp w owns columns w, w + 4, w + 8, ...
-  float dka[C], dva[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) dka[c] = dva[c] = 0.f;
-  // MASK: a row with no live key adds 1/sk of its dO to every dv, so
-  // every query tile is walked
-  const int qt0 = causal && !MASK ? max(k0 - off, 0) / BQ : 0;
-  const int n_qt = (sq + BQ - 1) / BQ;
-  for (int gi = 0; gi < group; ++gi) {
-    const int hq = kvh * group + gi;
-    const long long qoff = (static_cast<long long>(b) * sq * h + hq) * d;
-    const long long soff = (static_cast<long long>(b) * h + hq) * sq;
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();
-      tile_to_smem_f<T, D>(q + qoff, qstr, q0, BQ, sq, Qs, KP, d);
-      tile_to_smem_f<T, D>(dout + qoff, qstr, q0, BQ, sq, Os, KP, d);
-      for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
-        const bool in = q0 + i < sq;
-        if (MASK) {
-          const float2 st =
-              in ? reinterpret_cast<const float2*>(lse)[soff + q0 + i]
-                 : make_float2(0.f, 0.f);
-          Ls[i] = st.x;
-          Gs[i] = st.y;
-        } else {
-          Ls[i] = in ? lse[soff + q0 + i] : 0.f;
-        }
-        Dl[i] = in ? delta[soff + q0 + i] : 0.f;
-      }
-      __syncthreads();
-      for (int qi = warp; qi < BQ; qi += 4) {
-        const int row = q0 + qi;
-        float s = 0.f, dp = 0.f;
-        for (int c = 0; c < D; ++c) {
-          s = fmaf(Qs[qi * KP + c], Ks[lane * KP + c], s);
-          dp = fmaf(Os[qi * KP + c], Vs[lane * KP + c], dp);
-        }
-        const bool ok = row < sq && key < sk && (!causal || row + off >= key);
-        float p;
-        if (MASK)
-          p = ok ? expf((fmaf(s, scale, kb) - Ls[qi]) - Gs[qi]) : 0.f;
-        else
-          p = ok ? expf(s * scale - Ls[qi]) : 0.f;
-        const float pv = MASK && row < sq && Ls[qi] == INFINITY ? inv_sk : p;
-        Ps[qi * 33 + lane] = round_to<T>(pv);
-        Ss[qi * 33 + lane] = round_to<T>(p * (dp - Dl[qi]) * scale);
-      }
-      __syncthreads();
-      for (int qi = 0; qi < BQ; ++qi) {
-        const float pv = Ps[qi * 33 + lane];
-        const float sv = Ss[qi * 33 + lane];
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          dva[c] = fmaf(pv, Os[qi * KP + warp + 4 * c], dva[c]);
-          dka[c] = fmaf(sv, Qs[qi * KP + warp + 4 * c], dka[c]);
-        }
-      }
-    }
-  }
-  if (key >= sk) return;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    if (warp + 4 * c >= d) continue;
-    const long long at = koff + key * kstr + warp + 4 * c;
-    dk[at] = ptt::from_f<T>(dka[c]);
-    dv[at] = ptt::from_f<T>(dva[c]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// launchers
-// ---------------------------------------------------------------------------
-template <typename K>
-int opt_in(K kernel, size_t smem) {
-  if (smem > static_cast<size_t>(kSmemMax))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax));
-}
-
-struct Shape {
-  int B, sq, sk, h, hk, d;
-  float scale;
-  int causal;
-  const float* bias;   // [B or 1, bstride] fp32 key bias, or nullptr
-  int bstride;
-};
-
-int blocks(int n, int rows) { return (n + rows - 1) / rows; }
-
 template <typename T, int D, bool M, bool F>
 int fwd(const Shape& s, const void* q, const void* k, const void* v,
         void* out, void* lse, cudaStream_t st) {
   if constexpr (std::is_same<T, float>::value) {
-    const size_t smem = fwd_simt_smem<D>();
-    static int rc_opt = opt_in(flash_fwd_simt<T, D, M>, smem);
-    if (rc_opt) return rc_opt;
-    const dim3 grid((s.sq + kRowsSimt - 1) / kRowsSimt, s.h, s.B);
-    flash_fwd_simt<T, D, M><<<grid, 128, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out),
-        static_cast<float*>(lse), s.bias, s.bstride, s.sq, s.sk, s.h, s.hk,
-        s.d, s.scale, s.causal);
+    return fwd_f32(s, D, M, static_cast<const float*>(q),
+                   static_cast<const float*>(k), static_cast<const float*>(v),
+                   static_cast<float*>(out), static_cast<float*>(lse), st);
   } else {
     using C = FwdCfg<D, M>;
     static int rc_opt = opt_in(flash_fwd_wgmma<T, D, M, F>, C::kSmem);
@@ -1248,26 +784,8 @@ int bwd(const Shape& s, const void* q, const void* k, const void* v,
   const float* l_ = static_cast<const float*>(lse);
   float* d_ = static_cast<float*>(delta);
   if constexpr (std::is_same<T, float>::value) {
-    const size_t smem_q = dq_simt_smem<D>(), smem_kv = dkv_simt_smem<D>();
-    static int rc_q = opt_in(flash_dq_simt<T, D, M>, smem_q);
-    static int rc_kv = opt_in(flash_dkv_simt<T, D, M>, smem_kv);
-    if (rc_q) return rc_q;
-    if (rc_kv) return rc_kv;
-    const long long rows = static_cast<long long>(s.B) * s.sq * s.h;
-    flash_delta_simt<T><<<static_cast<unsigned>((rows + 255) / 256), 256, 0,
-                          st>>>(o_, g_, d_, s.B, s.sq, s.h, s.d);
-    int rc = static_cast<int>(cudaGetLastError());
-    if (rc) return rc;
-    const dim3 gq((s.sq + kRowsSimt - 1) / kRowsSimt, s.h, s.B);
-    flash_dq_simt<T, D, M><<<gq, 128, smem_q, st>>>(
-        q_, k_, v_, g_, l_, d_, static_cast<T*>(dq), s.bias, s.bstride, s.sq,
-        s.sk, s.h, s.hk, s.d, s.scale, s.causal);
-    rc = static_cast<int>(cudaGetLastError());
-    if (rc) return rc;
-    const dim3 gkv((s.sk + 31) / 32, s.hk, s.B);
-    flash_dkv_simt<T, D, M><<<gkv, 128, smem_kv, st>>>(
-        q_, k_, v_, g_, l_, d_, static_cast<T*>(dk), static_cast<T*>(dv),
-        s.bias, s.bstride, s.sq, s.sk, s.h, s.hk, s.d, s.scale, s.causal);
+    return bwd_f32(s, D, M, q_, k_, v_, o_, g_, l_, d_, static_cast<T*>(dq),
+                   static_cast<T*>(dk), static_cast<T*>(dv), st);
   } else {
     using Q = DqCfg<D, M>;
     using KV = DkvCfg<D, M>;
@@ -1370,8 +888,8 @@ extern "C" int ptt_flash_fwd(int device, int dtype, const void* q,
 
 // out and dout like q; lse the forward's statistics; delta
 // [B, h, sq] fp32 is scratch the first launch fills with rowsum(dout *
-// out); dq like q, dk/dv like k; bias as the forward's.  bf16/fp16: two
-// launches, dq (with delta), then dk/dv; fp32: delta, dq, dk/dv.
+// out); dq like q, dk/dv like k; bias as the forward's.  Two launches,
+// dq (with delta), then dk/dv (fp32: in clusters of `dkv_splits`).
 extern "C" int ptt_flash_bwd(int device, int dtype, const void* q,
                              const void* k, const void* v, const void* bias,
                              const void* out, const void* dout,

@@ -1,6 +1,6 @@
 """Attention for training: the Hopper flash-attention kernels
-(csrc/flash_attention.cu), forward and backward, and their plain
-PyTorch versions.
+(csrc/flash_attention.cu; fp32: csrc/flash_attention_f32.cu), forward
+and backward, and their plain PyTorch versions.
 
 Replaces the TPU kernel
 `paddle_tpu/ops/pallas/flash_attention.py::flash_attention` (:816):

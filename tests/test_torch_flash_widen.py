@@ -31,6 +31,7 @@ Tolerances, with their reasons:
     carries a 2^-8 relative rounding), the twin's fp32 autodiff does not.
 """
 import ctypes
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -129,15 +130,19 @@ def _np(x):
     return np.asarray(jnp.asarray(x).astype(jnp.float32))
 
 
+@functools.partial(jax.jit, static_argnames="causal")
+def _twin_vjp(q, k, v, do, mask, causal):
+    out, vjp = jax.vjp(lambda a, b, c: jops.xla_attention(
+        a, b, c, mask=mask, causal=causal), q, k, v)
+    return out, vjp(do)
+
+
 def _ref(case, q, k, v, do, mask, dt="float32"):
     """The twin's output and jax.vjp cotangents, in fp32 on the inputs
-    rounded to dt."""
-    causal = case[7]
-    args = [jnp.asarray(_np(_t(a, dt))) for a in (q, k, v)]
+    rounded to dt (jitted: one compile a shape, not one an op)."""
+    args = [jnp.asarray(_np(_t(a, dt))) for a in (q, k, v, do)]
     jm = None if mask is None else jnp.asarray(mask)
-    out, vjp = jax.vjp(lambda a, b, c: jops.xla_attention(
-        a, b, c, mask=jm, causal=causal), *args)
-    return out, vjp(jnp.asarray(_np(_t(do, dt))))
+    return _twin_vjp(*args, jm, causal=case[7])
 
 
 def _mark(lse):

@@ -377,8 +377,10 @@ def test_build_key_follows_the_sources():
     srcs, headers = _build._sources()
     assert {s.name for s in srcs} == {"rms_norm.cu", "rope.cu",
                                       "paged_attention.cu",
-                                      "flash_attention.cu", "fused_adamw.cu",
-                                      "cross_entropy.cu", "quant_matmul.cu"}
+                                      "flash_attention.cu",
+                                      "flash_attention_f32.cu",
+                                      "fused_adamw.cu", "cross_entropy.cu",
+                                      "quant_matmul.cu"}
     assert _build._digest(srcs + headers) == _build._digest(srcs + headers)
     assert _build._digest(srcs + headers) != _build._digest(srcs)
 

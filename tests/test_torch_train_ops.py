@@ -43,6 +43,7 @@ Tolerances, with their reasons:
     weights — every term of the sum carries its own one-ulp difference.
 """
 import ctypes
+import functools
 import importlib.util
 import pathlib
 
@@ -197,6 +198,22 @@ def test_rope_backward_asymmetric_sin_halves(dt, per_slot):
 # ---------------------------------------------------------------------------
 # flash attention
 # ---------------------------------------------------------------------------
+# the Pallas kernels' and the twin's vjp, jitted: one compile a shape,
+# not one an interpreted grid step or op
+@functools.partial(jax.jit, static_argnames="causal")
+def _pallas_flash_vjp(q, k, v, do, causal):
+    out, vjp = jax.vjp(lambda a, c, e: pallas_flash_attention(
+        a, c, e, causal=causal, block_q=16, block_k=16), q, k, v)
+    return out, vjp(do)
+
+
+@functools.partial(jax.jit, static_argnames="causal")
+def _twin_vjp(q, k, v, do, causal):
+    out, vjp = jax.vjp(lambda a, c, e: jops.xla_attention(
+        a, c, e, causal=causal), q, k, v)
+    return out, vjp(do)
+
+
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("group,d", [(1, 64), (2, 128), (5, 64)])
 @pytest.mark.parametrize("causal", [False, True])
@@ -208,8 +225,7 @@ def test_flash_attention(dt, group, d, causal):
         _rand(rng, b, s, hk, d)
     do = _rand(rng, b, s, h, d)
     jq, jk, jv = _j(q, dt), _j(k, dt), _j(v, dt)
-    jout, vjp = jax.vjp(lambda a, c, e: pallas_flash_attention(
-        a, c, e, causal=causal, block_q=16, block_k=16), jq, jk, jv)
+    jout, jgrads = _pallas_flash_vjp(jq, jk, jv, _j(do, dt), causal)
     tq, tk, tv = _t(q, dt), _t(k, dt), _t(v, dt)
     out, lse = tops.plain_flash_fwd(tq, tk, tv, causal)
     _close(out, jout, dt, rel=2.0 ** -5)
@@ -219,15 +235,14 @@ def test_flash_attention(dt, group, d, causal):
     # Pallas forward's output
     t_out = torch.from_numpy(np.array(_np(jout))).to(DT[dt][0])
     grads = tops.plain_flash_bwd(tq, tk, tv, t_out, lse, _t(do, dt), causal)
-    for port, ref in zip(grads, vjp(_j(do, dt))):
+    for port, ref in zip(grads, jgrads):
         _close(port, ref, dt, atol=2e-5, rtol=2e-5)
     if dt == "float32":
         lq, lk, lv = _leaf(q), _leaf(k), _leaf(v)
         (tops.plain_attention(lq, lk, lv, causal=causal)
          * torch.from_numpy(do)).sum().backward()
-        _, vjp_x = jax.vjp(lambda a, c, e: jops.xla_attention(
-            a, c, e, causal=causal), jq, jk, jv)
-        for port, ref in zip((lq.grad, lk.grad, lv.grad), vjp_x(_j(do, dt))):
+        _, xgrads = _twin_vjp(jq, jk, jv, _j(do, dt), causal)
+        for port, ref in zip((lq.grad, lk.grad, lv.grad), xgrads):
             _close(port, ref, dt, atol=2e-5, rtol=2e-5)
 
 

@@ -36,6 +36,8 @@ their reasons:
     square, so an entry whose gradient is rounding noise in both
     packages moves ~lr in either direction).
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -46,10 +48,12 @@ from torch_cpu import one_cpu_thread  # noqa: F401 (autouse)
 import paddle_tpu
 import paddle_tpu.nn as jnn
 import paddle_tpu.nn.functional as JF
+from paddle_tpu.framework import dtypes as jdtypes
 from paddle_tpu.framework.tensor import Tensor as JTensor
 from paddle_tpu.jit import TrainStep as JTrainStep
 from paddle_tpu.jit import _swapped_state
 from paddle_tpu.models import unet as junet
+from paddle_tpu.nn.layer import layers as jlayers
 
 from paddle_tpu_torch import nn
 from paddle_tpu_torch.jit import TrainStep
@@ -199,10 +203,33 @@ def _weights(jm, seed):
     return out
 
 
+@contextlib.contextmanager
+def _zero_parameters():
+    """The reference's layers built with zero parameters, put on the
+    device from numpy: `_pair` sets every one from numpy right after,
+    and the reference's initializers compile one XLA kernel a parameter
+    shape on first use (~15 s a config on the CPU)."""
+    create = jlayers.Layer.create_parameter
+
+    def zeros(shape, dtype):
+        return jnp.asarray(np.zeros(shape, jdtypes.to_jax(dtype)))
+
+    def create_zero(self, shape, attr=None, dtype=None, is_bias=False,
+                    default_initializer=None):
+        return create(self, shape, attr=attr, dtype=dtype, is_bias=is_bias,
+                      default_initializer=zeros)
+    jlayers.Layer.create_parameter = create_zero
+    try:
+        yield
+    finally:
+        jlayers.Layer.create_parameter = create
+
+
 def _pair(name, seed=0, dtype="float32"):
     make, hw, ctx_len = CONFIGS[name]
     kw = make(dtype=dtype)
-    jm = junet.UNet2DConditionModel(junet.unet_tiny_config(**kw))
+    with _zero_parameters():
+        jm = junet.UNet2DConditionModel(junet.unet_tiny_config(**kw))
     w = _weights(jm, seed)
     jm.set_state_dict(w)
     tm = UNet2DConditionModel(unet_tiny_config(**kw), device="cpu")
@@ -264,7 +291,14 @@ def test_unet_bf16_output_matches_reference():
     packages: the output within the bf16 rounding of its scale."""
     jm, tm, hw, ctx_len = _pair("tiny", dtype="bfloat16")
     x, t, ctx, _ = _batch(4, 32, hw, ctx_len)
-    want = jm(*(JTensor(jnp.asarray(a)) for a in (x, t, ctx)))
+    names = [n for n, _ in jm.named_parameters()]
+    sd = jm.state_dict()
+
+    def forward(vals, xv, tv, cv):      # jitted: one compile, not one an op
+        with _swapped_state(jm, names, list(vals)):
+            return jm(JTensor(xv), JTensor(tv), JTensor(cv)).value
+    want = JTensor(jax.jit(forward)([sd[n]._value for n in names],
+                                    *(jnp.asarray(a) for a in (x, t, ctx))))
     got = tm(*(torch.from_numpy(a) for a in (x, t, ctx)))
     assert got.dtype == torch.bfloat16 == getattr(torch, str(
         want.value.dtype))

@@ -1,23 +1,36 @@
 #!/usr/bin/env python3
-"""Hold this tree's unmasked flash kernels to an earlier tree's, bit for
-bit and in time.
+"""Hold this tree's flash kernels to an earlier tree's: the 16-bit bodies
+bit for bit, the fp32 bodies to the plain versions, and both in time.
 
     python3 tools/flash_parent_ab.py OLD_CSRC
 
 OLD_CSRC holds the earlier tree's `flash_attention.cu`, `hopper.cuh` and
-`common.cuh` with the C entry points of commit d0025e8 (no key bias:
-`ptt_flash_fwd(device, dtype, q, k, v, out, lse, B, sq, sk, h, hk, d,
-scale, causal, stream)` and the matching `ptt_flash_bwd`), for example
-unpacked with `git show d0025e8:paddle_tpu_torch/csrc/<file>` into a
-directory under build/.  From the repo root, on one CUDA card: builds
-this tree's library (`_build.library()`) and the old source alone into
-OLD_CSRC/libold.so, then at each shape of `SHAPES` launches both trees'
-forward and backward on the same inputs and checks out, lse, dq, dk and
-dv for identical bits; the shapes marked timed also get each tree's
-forward and backward time (`chip_smoke.time_ms`) in the order old, new,
-new, old.  Prints the card's name and power limit, one JSON line a
-shape and a last line `{"ok": ...}`; exits 1 if any output differs, 2
-without a CUDA device.
+`common.cuh` with this tree's C entry points (`ptt_flash_fwd` /
+`ptt_flash_bwd` as `_build._SIGNATURES` has them, key bias included: commit
+4a6fc6d on), for example unpacked with `git show
+4a6fc6d:paddle_tpu_torch/csrc/<file>` into a directory under build/.
+From the repo root, on one CUDA card: builds this tree's library
+(`_build.library()`) and the old source alone into OLD_CSRC/libold.so,
+then launches both trees' forward and backward on the same inputs:
+
+  * 16-bit shapes (`SHAPES`, and every bf16 / fp16 case of
+    `chip_smoke.FLASH_WIDE_CASES`): out, lse, dq, dk and dv must have
+    identical bits; the shapes marked timed also get each tree's forward
+    and backward time (`chip_smoke.time_ms`), old, new, new, old;
+  * fp32 shapes (`F32_SHAPES`, and the fp32 cases of `FLASH_WIDE_CASES`):
+    each tree's outputs against the plain versions, as a share of
+    `chip_smoke._flash_tolerances` (and of 1e-5 (1 + |lse|) for lse);
+    this tree's must stay within them.  The 17a cases are timed old, new,
+    new, old, beside SDPA's forward and backward and the bound at the
+    three-pass TF32 rate (`chip_smoke.TF32X3_FLOP_PER_S`);
+  * ViT-B/16's fp32 training (phase 17e: `vit_b_16(num_classes=10)`,
+    batch 32 of 224x224, AdamW in `TrainStep`): after a warm-up step,
+    the wall of two steps with the old flash kernels and with the new
+    (the rest of the library this tree's), old, new, new, old.
+
+Prints the card's name and power limit, one JSON line a shape and a last
+line `{"ok": ...}`; exits 1 if a 16-bit output differs or an fp32 one
+leaves its tolerance, 2 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -26,17 +39,42 @@ import json
 import os
 import subprocess
 import sys
+import time
+
+import numpy as np
 
 # (b, sq, sk, h, hk, d, causal, dtype, timed): the 64 / 128 bodies with
-# the causal mask and without, GQA and MHA, ragged lengths, the three
-# dtypes; timed: the training shape and BERT-base's
+# the causal mask and without, GQA and MHA, ragged lengths; timed: the
+# training shape and BERT-base's
 SHAPES = [(2, 1000, 1000, 8, 2, 128, True, "bfloat16", False),
           (3, 77, 77, 4, 1, 64, True, "float16", False),
           (2, 300, 1000, 16, 2, 128, False, "bfloat16", False),
-          (2, 256, 256, 4, 2, 64, True, "float32", False),
-          (2, 100, 300, 4, 2, 128, False, "float32", False),
           (4, 2048, 2048, 20, 4, 128, True, "bfloat16", True),
           (64, 512, 512, 12, 12, 64, False, "bfloat16", True)]
+# fp32 beyond 17a's: causal GQA, ragged lengths, the head dims of every
+# body width (8, 136 and 200 split dK / dV's columns), a key padding
+F32_SHAPES = [
+    dict(case="causal gqa", b=2, sq=256, sk=256, h=4, hk=2, d=64),
+    dict(case="sq < sk", b=2, sq=100, sk=300, h=4, hk=2, d=128,
+         causal=False),
+    dict(case="d8", b=2, sq=100, sk=100, h=4, hk=2, d=8, causal=False),
+    dict(case="d136 additive", b=3, sq=130, sk=200, h=4, hk=4, d=136,
+         causal=False, mask="additive", lengths=[200, 0, 77]),
+    dict(case="d200 bool causal sq < sk", b=2, sq=100, sk=300, h=4, hk=1,
+         d=200, mask="bool", lengths=[300, 150]),
+    dict(case="d256 causal", b=2, sq=300, sk=300, h=4, hk=4, d=256),
+]
+
+
+class _Mixed:
+    """The kernel library with its flash entry points taken from `old`."""
+
+    def __init__(self, old, new):
+        self.old, self.new = old, new
+
+    def __getattr__(self, name):
+        return getattr(self.old if name.startswith("ptt_flash")
+                       else self.new, name)
 
 
 def main(old_dir):
@@ -48,6 +86,8 @@ def main(old_dir):
     import chip_smoke as cs
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.ops import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "-i", "0",
                           "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -57,77 +97,175 @@ def main(old_dir):
         [_build._nvcc(), *_build.NVCC_FLAGS, "-I", old_dir, "-shared", "-o",
          old_so, os.path.join(old_dir, "flash_attention.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    _build.library()
+    new = _build.library()
     log = build.communicate()[0]
     if build.returncode:
         print(log[-5000:], file=sys.stderr)
         return 1
     old = ctypes.CDLL(old_so)
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    old.ptt_flash_fwd.argtypes = [I, I, P, P, P, P, P, I, I, I, I, I, I, F,
-                                  I, P]
-    old.ptt_flash_bwd.argtypes = [I, I, P, P, P, P, P, P, P, P, P, P, I, I,
-                                  I, I, I, I, F, I, P]
+    for name in ("ptt_flash_fwd", "ptt_flash_bwd"):
+        getattr(old, name).argtypes = list(_build._SIGNATURES[name])
+        getattr(old, name).restype = ctypes.c_int
+    mixed = _Mixed(old, new)
     fa = ops.kernel_module("flash_attention")
     dev = torch.device("cuda", 0)
-    stream = _build.stream_of(dev)
     g = torch.Generator(device=dev)
     g.manual_seed(5)
 
-    def old_fwd(q, k, v, causal, sc):
-        b, sq, h, d = q.shape
-        out = torch.empty_like(q)
-        lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-        rc = old.ptt_flash_fwd(0, _build.dtype_code(q.dtype), q.data_ptr(),
-                               k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                               lse.data_ptr(), b, sq, k.shape[1], h,
-                               k.shape[2], d, sc, int(causal), stream)
-        cs.check(rc == 0, f"old flash forward returned {rc}")
-        return out, lse
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.float32).to(dtype)
 
-    def old_bwd(q, k, v, out, lse, do, causal, sc):
-        b, sq, h, d = q.shape
-        delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-        rc = old.ptt_flash_bwd(0, _build.dtype_code(q.dtype), q.data_ptr(),
-                               k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                               do.data_ptr(), lse.data_ptr(),
-                               delta.data_ptr(), dq.data_ptr(),
-                               dk.data_ptr(), dv.data_ptr(), b, sq,
-                               k.shape[1], h, k.shape[2], d, sc, int(causal),
-                               stream)
-        cs.check(rc == 0, f"old flash backward returned {rc}")
-        return dq, dk, dv
+    def on(lib, fn):
+        """fn() with `lib` as the kernel library."""
+        def call():
+            saved = _build.library
+            _build.library = lambda: lib
+            try:
+                return fn()
+            finally:
+                _build.library = saved
+        return call
 
     ok = True
-    for b, sq, sk, h, hk, d, causal, dtype, timed in SHAPES:
+
+    def run_16bit(case, b, sq, sk, h, hk, d, causal=True, dtype="bfloat16",
+                  mask=None, lengths=None, timed=False):
+        nonlocal ok
         dt = getattr(torch, dtype)
-        q, do = (torch.randn(b, sq, h, d, generator=g, device=dev).to(dt)
-                 for _ in range(2))
-        k, v = (torch.randn(b, sk, hk, d, generator=g, device=dev).to(dt)
-                for _ in range(2))
+        q, do = randn(b, sq, h, d, dtype=dt), randn(b, sq, h, d, dtype=dt)
+        k, v = randn(b, sk, hk, d, dtype=dt), randn(b, sk, hk, d, dtype=dt)
+        m = None if mask is None else cs._flash_mask(torch, randn, mask,
+                                                     lengths, sk, dev)
         sc = d ** -0.5
-        n_fwd = fa._launch_fwd(q, k, v, causal, sc)
-        o_fwd = old_fwd(q, k, v, causal, sc)
-        n_bwd = fa._launch_bwd(q, k, v, *n_fwd, do, causal, sc)
-        o_bwd = old_bwd(q, k, v, *o_fwd, do, causal, sc)
-        same = [torch.equal(x, y) for x, y in zip((*n_fwd, *n_bwd),
-                                                  (*o_fwd, *o_bwd))]
+        f = {t: on(lib, lambda: fa._launch_fwd(q, k, v, causal, sc, m))
+             for t, lib in (("old", mixed), ("new", new))}
+        outs = {t: f[t]() for t in f}
+        bw = {t: on(lib, lambda t=t: fa._launch_bwd(q, k, v, *outs[t], do,
+                                                    causal, sc, m))
+              for t, lib in (("old", mixed), ("new", new))}
+        grads = {t: bw[t]() for t in bw}
+        same = [torch.equal(x, y) for x, y in zip(
+            (*outs["new"], *grads["new"]), (*outs["old"], *grads["old"]))]
         ok &= all(same)
-        rec = dict(shape=[b, sq, sk, h, hk, d], causal=causal, dtype=dtype,
-                   same=same)
+        rec = dict(case=case, shape=[b, sq, sk, h, hk, d], causal=causal,
+                   dtype=dtype, mask=mask, same=same)
         if timed:
-            runs = dict(
-                fwd=(lambda: old_fwd(q, k, v, causal, sc),
-                     lambda: fa._launch_fwd(q, k, v, causal, sc)),
-                bwd=(lambda: old_bwd(q, k, v, *o_fwd, do, causal, sc),
-                     lambda: fa._launch_bwd(q, k, v, *n_fwd, do, causal, sc)))
-            for name, (f_old, f_new) in runs.items():
+            for name, fn in (("fwd", f), ("bwd", bw)):
                 rec[name + "_ms_old_new_new_old"] = [
-                    cs.time_ms(torch, f) for f in (f_old, f_new, f_new, f_old)]
+                    cs.time_ms(torch, fn[t]) for t in ("old", "new", "new",
+                                                       "old")]
         print(json.dumps(rec), flush=True)
+
+    def run_fp32(case, b, sq, sk, h, hk, d, causal=True, dtype="float32",
+                 mask=None, lengths=None, timed=False):
+        nonlocal ok
+        dt = torch.float32
+        q, do = randn(b, sq, h, d, dtype=dt), randn(b, sq, h, d, dtype=dt)
+        k, v = randn(b, sk, hk, d, dtype=dt), randn(b, sk, hk, d, dtype=dt)
+        m = None if mask is None else cs._flash_mask(torch, randn, mask,
+                                                     lengths, sk, dev)
+        sc = d ** -0.5
+        p_out, p_lse = ops.plain_flash_fwd(q, k, v, causal, sc, m)
+        rec = dict(case=case, shape=[b, sq, sk, h, hk, d], causal=causal,
+                   dtype=dtype, mask=mask)
+        f, bw = {}, {}
+        for t, lib in (("old", mixed), ("new", new)):
+            f[t] = on(lib, lambda: fa._launch_fwd(q, k, v, causal, sc, m))
+            out, lse = f[t]()
+            bw[t] = on(lib, lambda out=out, lse=lse: fa._launch_bwd(
+                q, k, v, out, lse, do, causal, sc, m))
+            grads = bw[t]()
+            refs = ops.plain_flash_bwd(q, k, v, out, lse, do, causal, sc, m)
+            tols = [tl for tl, _ in cs._flash_tolerances(
+                torch, ops, fa, q, k, v, out, lse, do, [p_out, *refs], sc,
+                causal, m)]
+            live = torch.isfinite(p_lse)
+            tols.append(1e-5 * (1.0 + p_lse.abs().where(live, 0.0)))
+            shares = [r["share"] for r in cs._compare(
+                (out, *grads, lse.where(live, 0.0)),
+                (p_out, *refs, p_lse.where(live, 0.0)), tols)]
+            marks = torch.equal(torch.isinf(lse), torch.isinf(p_lse))
+            rec[t + "_tol_shares_out_dq_dk_dv_lse"] = shares
+            if t == "new":
+                ok &= marks and all(s <= 1.0 for s in shares)
+                again = (*f[t](), *bw[t]())
+                rec["new_bit_identical_twice"] = all(
+                    torch.equal(x, y) for x, y in zip((out, lse, *grads),
+                                                      again))
+                ok &= rec["new_bit_identical_twice"]
+        if timed:
+            for name, fn in (("fwd", f), ("bwd", bw)):
+                rec[name + "_ms_old_new_new_old"] = [
+                    cs.time_ms(torch, fn[t]) for t in ("old", "new", "new",
+                                                       "old")]
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            if m is not None:
+                lib = dict(attn_mask=m if m.dtype == torch.bool
+                           else m.clamp_min(-1e30))
+            elif causal and sq != sk:
+                lib = dict(attn_mask=torch.ones(sq, sk, dtype=torch.bool,
+                                                device=dev).tril(sk - sq))
+            else:
+                lib = dict(is_causal=causal)
+            rec["sdpa_fwd_ms"] = cs.time_ms(
+                torch, lambda: sdpa(qt, kt, vt, enable_gqa=True, **lib))
+            qr, kr, vr = (x.clone().requires_grad_(True) for x in (qt, kt, vt))
+            lo = sdpa(qr, kr, vr, enable_gqa=True, **lib)
+            rec["sdpa_bwd_ms"] = cs.time_ms(torch, cs._grad_timer(
+                torch, lo, (qr, kr, vr), do.transpose(1, 2).contiguous()))
+            flops = 4 * h * cs._flash_pairs(b, sq, sk, causal, lengths) * d
+            fwd_bytes = (2 * q.numel() + 2 * k.numel()) * 4 + p_lse.numel() * 4
+            rec["bound_fwd_ms"] = cs.bound(fwd_bytes, flops,
+                                           cs.TF32X3_FLOP_PER_S)
+            rec["bound_bwd_ms"] = cs.bound(
+                (4 * q.numel() + 4 * k.numel()) * 4 + 2 * p_lse.numel() * 4,
+                5 * flops // 2, cs.TF32X3_FLOP_PER_S)
+        print(json.dumps(rec), flush=True)
+
+    for b, sq, sk, h, hk, d, causal, dtype, timed in SHAPES:
+        run_16bit("ab", b, sq, sk, h, hk, d, causal, dtype, timed=timed)
+    for c in cs.FLASH_WIDE_CASES:
+        if c.get("dtype", "bfloat16") != "float32":
+            run_16bit(**c)
+        torch.cuda.empty_cache()
+    for c in F32_SHAPES:
+        run_fp32(**c)
+    for c in cs.FLASH_WIDE_CASES:
+        if c.get("dtype") == "float32":
+            run_fp32(timed=True, **c)
+        torch.cuda.empty_cache()
+    print(json.dumps(dict(vit_b_16_two_steps_s_old_new_new_old=_vit_walls(
+        torch, cs, dev, {"old": mixed, "new": new}, on))), flush=True)
     print(json.dumps({"ok": bool(ok)}))
     return 0 if ok else 1
+
+
+def _vit_walls(torch, cs, dev, libs, on):
+    """Phase 17e's two ViT-B/16 steps, timed with each library in turns
+    old, new, new, old after a warm-up step."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.vision.models import vit_b_16
+    model = vit_b_16(num_classes=10, device=dev, seed=17)
+    rng = np.random.RandomState(17)
+    x = rng.randn(cs.VIT_BATCH, 3, 224, 224).astype(np.float32)
+    y = rng.randint(0, 10, cs.VIT_BATCH).astype(np.int64)
+    step = TrainStep(model, F.cross_entropy,
+                     AdamW(1e-4, parameters=model.parameters()))
+    step(x, y).item()
+    walls = []
+    for t in ("old", "new", "new", "old"):
+        def two():
+            return [step(x, y).item() for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on(libs[t], two)()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
 
 
 if __name__ == "__main__":
