@@ -266,7 +266,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              padding, d 80 causal sq > sk with a bool mask), each
              forward and backward per element
              against the plain versions and launched twice with
-             identical bits, beside SDPA; phases 6 and 15d's widths 64 and
+             identical bits, beside SDPA, each with the body the library
+             plans for it (`kernel_plan`: the width its products run
+             over, its key tile, dk/dv's column chunks) held to
+             FLASH_WIDE_BODIES (d 16, 40, 80 and 160 in 16 bits on the
+             narrow bodies, the other widths on those of a multiple of
+             64); phases 6 and 15d's widths 64 and
              128 logged beside their earlier times.  17b: a narrow UNet with the
              SD head dims (160 / 320 channels over 2 heads) card against
              CPU from the same weights, fp32 and bf16: the loss, every
@@ -1869,6 +1874,7 @@ def _flash_case(torch, ops, fa, randn, add, case, b, sq, sk, h, hk, d,
     lib_name = "scaled_dot_product_attention(" + (
         "attn_mask" if "attn_mask" in lib else "is_causal") + ", enable_gqa)"
     extra = dict(case=case, kv_heads=hk, sk=sk, causal=causal, dtype=dtype,
+                 body=fa.kernel_plan(q, k, causal, m),
                  **({"mask": mask} if mask else {}),
                  **({"bit_identical": True} if twice else {}))
     # fp32 runs fp32-accurate products on the tensor cores (three TF32
@@ -4672,11 +4678,32 @@ FLASH_WIDE_CASES = [
 ]
 
 
+# 17a: the body each case takes (`kernel_plan`): the width its products
+# run over, the forward's key tile and dk/dv's column chunks (fp32: the
+# body's width alone).  d 16, 40, 80 and 160 in bf16 / fp16 take the
+# narrow bodies (csrc/flash_attention_narrow.cu: d rounded up to 16; 77
+# keys without a mask one key tile of 80), the rest those of a multiple
+# of 64.
+FLASH_WIDE_BODIES = {
+    "unet self d80": (80, 128, 1), "unet self d160": (160, 64, 2),
+    "unet cross d80": (80, 80, 1), "unet cross d160": (160, 80, 2),
+    "d192": (192, 64, 3), "d192 causal": (192, 64, 3),
+    "d256": (256, 64, 2), "d256 causal": (256, 64, 2),
+    "bert, bool key-padding mask": (64, 128, 1),
+    "bert, additive key-padding mask": (64, 128, 1),
+    "causal sq < sk": (128, 128, 1), "causal sq > sk": (128, 128, 1),
+    "d16": (16, 128, 1), "d40 causal, fp16": (48, 128, 1),
+    "bert, -1e9 key padding": (64, 128, 1),
+    "vit-b/16 fp32": (64, 0, 0), "d160 fp32, -1e9 key padding": (192, 0, 0),
+    "d80 fp32 causal sq > sk, bool mask": (128, 0, 0),
+}
+
+
 def phase_wide_kernels(torch, ops, dev):
     """17a: the flash kernels at FLASH_WIDE_CASES, each forward and
     backward per element against the plain versions within
     `_flash_tolerances`, launched twice with identical bits, beside
-    SDPA."""
+    SDPA, each on the body FLASH_WIDE_BODIES names for it."""
     fa = ops.kernel_module("flash_attention")
     g = torch.Generator(device=dev)
     g.manual_seed(1717)
@@ -4694,7 +4721,14 @@ def phase_wide_kernels(torch, ops, dev):
 
     settle(torch, dev)
     for case in FLASH_WIDE_CASES:
-        _flash_case(torch, ops, fa, randn, add, twice=True, **case)
+        fwd, _ = _flash_case(torch, ops, fa, randn, add, twice=True, **case)
+        body = fwd["body"]
+        want = FLASH_WIDE_BODIES[case["case"]]
+        log(f"[wide-kernels] flash {case['case']}: body {body}")
+        check((body["width"], body["key_tile"], body["dkv_chunks"]) == want
+              and body["narrow"] == (want[0] % 64 != 0),
+              f"flash attention ({case['case']}) runs the body {body}, not "
+              f"(width, key tile, dk/dv chunks) {want}")
         torch.cuda.empty_cache()
     (mm.allow_bf16_reduced_precision_reduction,
      mm.allow_fp16_reduced_precision_reduction) = reduced
@@ -5063,6 +5097,7 @@ def main():
     info = _build.build_info
     log(f"[build] {time.perf_counter() - t0:.1f} s "
         f"({'compiled' if info['built'] else 'cached'}) {info['path']}")
+    log(f"[build] each source's nvcc done at (s): {info['source_seconds']}")
     # per source file, and only the kernels that spill (with their
     # registers) or whose wgmma products ptxas serialized (ptxas -v
     # prints registers, stack and spills for every kernel instantiated)
@@ -5196,7 +5231,9 @@ def main():
         extra = {"variant_launches": variants[name]} if name in variants \
             else {}
         if name.startswith("flash_attention"):
-            # the fp32 bodies' translation unit (its fp32 cases in `cases`)
+            # the translation units of the narrow and the fp32 bodies
+            # (their cases in `cases`, each with its body)
+            extra["narrow_source"] = cu + "flash_attention_narrow.cu"
             extra["fp32_source"] = cu + "flash_attention_f32.cu"
         line.append(entry(name, kern[name], counts[name], **extra))
     # the int8 pool variant of paged_attention and the int4 body of

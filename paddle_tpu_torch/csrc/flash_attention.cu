@@ -7,9 +7,13 @@
 // q [B, sq, h, d], k/v [B, sk, hk, d] (h % hk == 0, query head hq reads
 // kv head hq / (h / hk), `_kv_head_map` :64), addressed in that layout
 // through strides: none of the TPU wrapper's transposes to [b*h, s, d].
-// d is any multiple of 8 from 8 to 256: the body is the next multiple of
-// 64 (the TPU kernel's domain is d % 64 == 0, :826-831), columns past d
-// are zero-filled on load (TMA) or read as 0, and stores stop at d.
+// d is any multiple of 8 from 8 to 256 (the TPU kernel's domain is
+// d % 64 == 0, :826-831).  The tiles are the next multiple of 64 wide,
+// columns past d zero-filled on load (TMA) or read as 0, and stores stop
+// at d.  The bf16 / fp16 products run over the tiles' width, or, for d
+// 8-16, 40-48, 72-80 and 152-160, over d rounded up to 16: the narrow
+// bodies of flash_attention_narrow.cu (the SD UNet's heads are 80 and
+// 160 wide), which skip the k-steps and output columns past it.
 //
 // Masks follow the reference twin `xla_attention` (paddle_tpu/ops/
 // __init__.py:80-102), which replaces a masked logit by -1e30:
@@ -87,7 +91,10 @@
 //     dK and dV into chunks (3 of 64 at 192, 2 of 128 at 256), each
 //     block recomputing S^T and dP^T over the full width for its chunk,
 //     with 2 stages at 192 and 1 at 256.  Simple first: the widths of
-//     64 and 128 keep their bodies and times.
+//     64 and 128 keep their bodies and times.  The narrow bodies take
+//     the tiles of the next multiple of 64 and run the products at
+//     their width (flash_attention_wgmma.cuh); dk/dv at 160 splits dK
+//     and dV into 2 chunks of 96 (from columns 0 and 64), not 3 of 64.
 //     Causal grids launch heaviest first: the last query tiles (fwd,
 //     dq) and the first key tiles (dkv) get the lowest block indices.
 //     What is left between these kernels and the card: the forward's
@@ -101,729 +108,52 @@
 //   * fp32: the same three walks on the tensor cores, as a three-pass
 //     TF32 split, in flash_attention_f32.cu (a translation unit of its
 //     own; its header says what bounds those bodies and how they are
-//     built).  The pieces both share are in flash_attention.cuh.
+//     built), at the widths 64-256 alone.  The pieces all share are in
+//     flash_attention.cuh; the bf16 / fp16 bodies are templates in
+//     flash_attention_wgmma.cuh that this file instantiates at the
+//     widths 64-256 and flash_attention_narrow.cu at the narrow ones.
 //   * ragged edges: rows past sq and keys past sk are masked in the
 //     kernel (the TPU kernel needs a power-of-two block dividing s).
 #include <type_traits>
 
-#include "flash_attention.cuh"
+#include "flash_attention_wgmma.cuh"
 
 namespace {
 
-using namespace ptt::sm90;
-using namespace ptt::flash;
-
-// the body width of head dim d: the next multiple of 64
-constexpr int body_width(int d) { return (d + 63) / 64 * 64; }
-
-// ---------------------------------------------------------------------------
-// tensor-core kernels (bf16 / fp16)
-// ---------------------------------------------------------------------------
-constexpr int kThreads = 384;     // warpgroup 0 loads, 1 and 2 compute
-constexpr int kConsumers = 256;   // arrivals that free a ring stage
-
-// the first 1024-byte boundary at or after p (a swizzled tile's alignment)
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
-}
-
-// A operand of the kk-th k step from accumulators s in the wgmma layout
-template <typename T>
-__device__ __forceinline__ void to_a(const float* s, int kk, uint32_t* a) {
-  a[0] = ptt::pack2<T>(s[8 * kk], s[8 * kk + 1]);
-  a[1] = ptt::pack2<T>(s[8 * kk + 2], s[8 * kk + 3]);
-  a[2] = ptt::pack2<T>(s[8 * kk + 4], s[8 * kk + 5]);
-  a[3] = ptt::pack2<T>(s[8 * kk + 6], s[8 * kk + 7]);
-}
-
-// Store rows r0 and r0 + 8 of a warpgroup's [64, D] accumulators to a
-// [*, stride] matrix (rows at or past `limit` skipped, columns at or past
-// `cols` too; cols is a multiple of 8).
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(const float* acc, T* base,
-                                           long long stride, int r0,
-                                           int limit, int t, int cols) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r0 + 8 * half;
-    if (r >= limit) continue;
-    T* row = base + r * stride + 2 * t;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      if (8 * j < cols)
-        *reinterpret_cast<uint32_t*>(row + 8 * j) =
-            ptt::pack2<T>(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
-  }
-}
-
-template <int D, bool MASK>
-struct FwdCfg {
-  // 128-key tiles up to d 128; 64 above, so that two K and V stages and
-  // the 128-row Q tile fit in shared memory; MASK bodies stage each key
-  // tile's bias beside its K
-  static constexpr int BQ = 128, BK = D > 128 ? 64 : 128, NS = 2;
-  static constexpr int kQ = BQ * D * 2, kKV = BK * D * 2;
-  static constexpr int kB = MASK ? BK * 4 : 0;
-  static constexpr int kBars = kQ + 2 * NS * kKV + NS * kB;
-  static constexpr size_t kSmem = kBars + 8 * (1 + 4 * NS) + 1024;
-};
-
-// The bodies: MASK false takes no key bias and no row without a live
-// key (causal needs sq <= sk); MASK true reads the key bias (never null)
-// and handles such rows.  FIT (MASK false, d the body's width, causal
-// only with sq == sk) compiles the d and offset arithmetic away: the
-// widths 64 and 128 keep their earlier code, bits and times.
-template <typename T, int D, bool MASK, bool FIT>
-__global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma(
-    const __grid_constant__ CUtensorMap mq,
-    const __grid_constant__ CUtensorMap mk,
-    const __grid_constant__ CUtensorMap mv, T* __restrict__ out,
-    float* __restrict__ lse, const float* __restrict__ bias, int bstride,
-    int sq, int sk, int h, int hk, int d_arg, float scale, int causal) {
-  using C = FwdCfg<D, MASK>;
-  constexpr int BQ = C::BQ, BK = C::BK, NS = C::NS;
-  extern __shared__ __align__(1024) uint8_t fa_tiles[];
-  uint8_t* const sQ = align1024(fa_tiles);
-  uint8_t* const sK = sQ + C::kQ;           // NS stages
-  uint8_t* const sV = sK + NS * C::kKV;     // NS stages
-  float* const sB = reinterpret_cast<float*>(sV + NS * C::kKV);  // bias
-  uint64_t* const q_full = reinterpret_cast<uint64_t*>(sQ + C::kBars);
-  uint64_t* const k_full = q_full + 1;
-  uint64_t* const v_full = k_full + NS;
-  uint64_t* const k_empty = v_full + NS;
-  uint64_t* const v_empty = k_empty + NS;
-  const int hq = blockIdx.x, b = blockIdx.y;
-  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
-  const int q0 = qt * BQ;
-  const int kvh = hq / (h / hk);
-  // FIT: d the body's width, causal with sq == sk (the 64 / 128 bodies
-  // as they were)
-  const int off = FIT ? 0 : sk - sq;
-  const int d = FIT ? D : d_arg;
-  // MASK: any row may have no live key, and then needs every tile
-  const int n_kt = live_key_tiles(q0, BQ, sq, sk, BK, causal, off, MASK);
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int i = 0; i < NS; ++i) {
-      mbar_init(k_full + i, 1);
-      mbar_init(v_full + i, 1);
-      mbar_init(k_empty + i, kConsumers);
-      mbar_init(v_empty + i, kConsumers);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (threadIdx.x < 128) {
-    // -- producer: K and V stages freed on their own barriers --------------
-    reg_dealloc<24>();
-    if (threadIdx.x == 0) {
-      const float* brow = bias + static_cast<long long>(b) * bstride;
-      mbar_expect_tx(q_full, C::kQ);
-      for (int c = 0; c < D / 64; ++c)
-        tma_load_4d(sQ + c * BQ * 128, &mq, q_full, c * 64, hq, q0, b);
-      for (int kt = 0; kt < n_kt; ++kt) {
-        const int st = kt % NS;
-        const uint32_t free = ((kt / NS) & 1) ^ 1;
-        mbar_wait(k_empty + st, free);
-        mbar_expect_tx(k_full + st, C::kKV + C::kB);
-        for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(sK + st * C::kKV + c * BK * 128, &mk, k_full + st,
-                      c * 64, kvh, kt * BK, b);
-        if constexpr (MASK)
-          bulk_load(sB + st * BK, brow + kt * BK, C::kB, k_full + st);
-        mbar_wait(v_empty + st, free);
-        mbar_expect_tx(v_full + st, C::kKV);
-        for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(sV + st * C::kKV + c * BK * 128, &mv, v_full + st,
-                      c * 64, kvh, kt * BK, b);
-      }
-    }
-  } else {
-    // -- consumers: 64 query rows each.  Tile kt's QK^T and tile kt-1's PV
-    // are in flight together; the softmax of tile kt runs under the PV.
-    reg_alloc<240>();
-    const int cw = threadIdx.x / 128 - 1;
-    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
-    const int g = lane >> 2, t = lane & 3;
-    const int rw = q0 + cw * 64;                // this warpgroup's first row
-    const int r0 = rw + warp * 16 + g;
-    const int rl = r0 + off, rwl = rw + off;    // their last live keys
-    const float sc2 = scale * kLog2e;
-    const uint32_t aq = smem_u32(sQ) + cw * 64 * 128;
-    const uint32_t ak = smem_u32(sK), av = smem_u32(sV);
-    float o[D / 2], s[BK / 2];
-    uint32_t pf[BK / 16][4];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-    // the two warpgroups take turns to issue their products (warpgroup 0
-    // first), so one's softmax runs under the other's products
-    const int my_turn = 1 + cw, their_turn = 2 - cw;
-    if (cw == 1) named_arrive(1);
-    mbar_wait(q_full, 0);
-    // tile 0: scores and softmax alone
-    mbar_wait(k_full, 0);
-    named_sync(my_turn);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      Wgmma<T, BK>::ss(s, kdesc(aq, BQ, kk), kdesc(ak, BK, kk), kk);
-    wgmma_commit();
-    named_arrive(their_turn);
-    wgmma_wait<0>();
-    fence_regs<BK / 2>(s);
-    // a MASK body frees the K stage after its softmax has read the bias
-    if (!MASK) mbar_arrive(k_empty);
-    softmax_tile<BK, MASK>(s, m0, m1, l0, l1, 0, sk, rl, t,
-                           MASK ? scale : sc2,
-                           (causal && BK - 1 > rwl) || BK > sk, causal, sB);
-    if (MASK) mbar_arrive(k_empty);
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) to_a<T>(s, kk, pf[kk]);
-    // tile kt's scores and tile kt-1's P.V in flight together
-    for (int kt = 1; kt < n_kt; ++kt) {
-      const int st = kt % NS, sp = (kt - 1) % NS;
-      const int k0 = kt * BK;
-      mbar_wait(k_full + st, (kt / NS) & 1);
-      mbar_wait(v_full + sp, ((kt - 1) / NS) & 1);
-      named_sync(my_turn);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        Wgmma<T, BK>::ss(s, kdesc(aq, BQ, kk),
-                         kdesc(ak + st * C::kKV, BK, kk), kk);
-      wgmma_commit();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        Wgmma<T, D>::rs(o, pf[kk], mdesc(av + sp * C::kKV, BK, kk), 1);
-      wgmma_commit();
-      named_arrive(their_turn);
-      wgmma_wait<1>();
-      fence_regs<BK / 2>(s);
-      if (!MASK) mbar_arrive(k_empty + st);
-      const float2 a = softmax_tile<BK, MASK>(
-          s, m0, m1, l0, l1, k0, sk, rl, t, MASK ? scale : sc2,
-          (causal && k0 + BK - 1 > rwl) || k0 + BK > sk, causal,
-          sB + st * BK);
-      if (MASK) mbar_arrive(k_empty + st);
-      wgmma_wait<0>();
-      fence_regs<D / 2>(o);
-      mbar_arrive(v_empty + sp);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[4 * j] *= a.x;
-        o[4 * j + 1] *= a.x;
-        o[4 * j + 2] *= a.y;
-        o[4 * j + 3] *= a.y;
-      }
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) to_a<T>(s, kk, pf[kk]);
-    }
-    // the last tile's P.V
-    const int sl = (n_kt - 1) % NS;
-    mbar_wait(v_full + sl, ((n_kt - 1) / NS) & 1);
-    named_sync(my_turn);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      Wgmma<T, D>::rs(o, pf[kk], mdesc(av + sl * C::kKV, BK, kk), 1);
-    wgmma_commit();
-    if (cw == 0) named_arrive(their_turn);   // warpgroup 1 issues last
-    wgmma_wait<0>();
-    fence_regs<D / 2>(o);
-    mbar_arrive(v_empty + sl);
-    l0 = fmaxf(quad_sum(l0), 1e-30f);
-    l1 = fmaxf(quad_sum(l1), 1e-30f);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      o[4 * j] /= l0;
-      o[4 * j + 1] /= l0;
-      o[4 * j + 2] /= l1;
-      o[4 * j + 3] /= l1;
-    }
-    const long long qstr = static_cast<long long>(h) * d;
-    store_rows<T, D>(o, out + (static_cast<long long>(b) * sq * h + hq) * d,
-                     qstr, r0, sq, t, d);
-    const long long srow = (static_cast<long long>(b) * h + hq) * sq;
-    if (t == 0 && r0 < sq) save_stats<MASK>(lse, srow + r0, m0, l0);
-    if (t == 0 && r0 + 8 < sq) save_stats<MASK>(lse, srow + r0 + 8, m1, l1);
-  }
-}
-
-template <int D, bool MASK>
-struct DqCfg {
-  // one stage at 256: Q and dO (64 KB each) and a K and V stage fill it;
-  // MASK bodies stage each key tile's bias beside its K and V
-  static constexpr int BQ = 128, BK = 64, NS = D > 192 ? 1 : 2;
-  static constexpr int kQ = BQ * D * 2, kKV = BK * D * 2;
-  static constexpr int kB = MASK ? BK * 4 : 0;
-  static constexpr int kBars = 2 * kQ + 2 * NS * kKV + NS * kB;
-  static constexpr size_t kSmem = kBars + 8 * (1 + 2 * NS) + 1024;
-};
-
-template <typename T, int D, bool MASK, bool FIT>
-__global__ void __launch_bounds__(kThreads, 1) flash_dq_wgmma(
-    const __grid_constant__ CUtensorMap mq,
-    const __grid_constant__ CUtensorMap mdo,
-    const __grid_constant__ CUtensorMap mk,
-    const __grid_constant__ CUtensorMap mv, const T* __restrict__ out,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    float* __restrict__ delta, T* __restrict__ dq,
-    const float* __restrict__ bias, int bstride, int sq, int sk, int h,
-    int hk, int d_arg, float scale, int causal) {
-  using C = DqCfg<D, MASK>;
-  constexpr int BQ = C::BQ, BK = C::BK, NS = C::NS;
-  extern __shared__ __align__(1024) uint8_t fa_tiles[];
-  uint8_t* const sQ = align1024(fa_tiles);
-  uint8_t* const sO = sQ + C::kQ;           // dO
-  uint8_t* const sK = sO + C::kQ;           // NS stages of K, then of V
-  uint8_t* const sV = sK + NS * C::kKV;
-  float* const sB = reinterpret_cast<float*>(sV + NS * C::kKV);  // bias
-  uint64_t* const q_full = reinterpret_cast<uint64_t*>(sQ + C::kBars);
-  uint64_t* const full = q_full + 1;
-  uint64_t* const empty = full + NS;
-  const int hq = blockIdx.x, b = blockIdx.y;
-  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
-  const int q0 = qt * BQ;
-  const int kvh = hq / (h / hk);
-  // FIT: d the body's width, causal with sq == sk (the 64 / 128 bodies
-  // as they were)
-  const int off = FIT ? 0 : sk - sq;
-  const int d = FIT ? D : d_arg;
-  // a row with no live key gets dq = 0: no tile beyond the frontier
-  const int n_kt = live_key_tiles(q0, BQ, sq, sk, BK, causal, off, false);
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int i = 0; i < NS; ++i) {
-      mbar_init(full + i, 1);
-      mbar_init(empty + i, kConsumers);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (threadIdx.x < 128) {
-    reg_dealloc<24>();
-    if (threadIdx.x == 0) {
-      const float* brow = bias + static_cast<long long>(b) * bstride;
-      mbar_expect_tx(q_full, 2 * C::kQ);
-      for (int c = 0; c < D / 64; ++c) {
-        tma_load_4d(sQ + c * BQ * 128, &mq, q_full, c * 64, hq, q0, b);
-        tma_load_4d(sO + c * BQ * 128, &mdo, q_full, c * 64, hq, q0, b);
-      }
-      for (int kt = 0; kt < n_kt; ++kt) {
-        const int st = kt % NS;
-        mbar_wait(empty + st, ((kt / NS) & 1) ^ 1);
-        mbar_expect_tx(full + st, 2 * C::kKV + C::kB);
-        for (int c = 0; c < D / 64; ++c) {
-          tma_load_4d(sK + st * C::kKV + c * BK * 128, &mk, full + st, c * 64,
-                      kvh, kt * BK, b);
-          tma_load_4d(sV + st * C::kKV + c * BK * 128, &mv, full + st, c * 64,
-                      kvh, kt * BK, b);
-        }
-        if constexpr (MASK)
-          bulk_load(sB + st * BK, brow + kt * BK, C::kB, full + st);
-      }
-    }
-  } else {
-    reg_alloc<240>();
-    const int cw = threadIdx.x / 128 - 1;
-    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
-    const int g = lane >> 2, t = lane & 3;
-    const int rw = q0 + cw * 64;
-    const int r0 = rw + warp * 16 + g;
-    const int rl = r0 + off, rwl = rw + off;    // their last live keys
-    const float sc2 = scale * kLog2e;
-    const long long qstr = static_cast<long long>(h) * d;
-    const long long qoff = (static_cast<long long>(b) * sq * h + hq) * d;
-    const long long soff = (static_cast<long long>(b) * h + hq) * sq;
-    // delta = rowsum(dO . O) in fp32: the four threads of a quad split
-    // the row; lse in base-2 units (MASK: the row max mx, whose +inf
-    // marks a row with no live key: its p, and so its ds, are 0, and the
-    // log sum in base-2 units)
-    float dl[2], l2[2], mx[2];
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = r0 + 8 * half;
-      float acc = 0.f;
-      if (r < sq) {
-        const long long at = qoff + r * qstr + t * (D / 4);
-#pragma unroll
-        for (int u = 0; u < D / 4; u += ptt::Vec<T>::N) {
-          if (t * (D / 4) + u >= d) continue;
-          float x[ptt::Vec<T>::N], y[ptt::Vec<T>::N];
-          ptt::load_vec<T>(dout + at + u, x);
-          ptt::load_vec<T>(out + at + u, y);
-#pragma unroll
-          for (int i = 0; i < ptt::Vec<T>::N; ++i) acc = fmaf(x[i], y[i], acc);
-        }
-      }
-      dl[half] = quad_sum(acc);
-      if (t == 0 && r < sq) delta[soff + r] = dl[half];
-      if constexpr (MASK) {
-        const float2 st =
-            r < sq ? reinterpret_cast<const float2*>(lse)[soff + r]
-                   : make_float2(0.f, 0.f);
-        mx[half] = st.x;
-        l2[half] = st.y * kLog2e;
-      } else {
-        l2[half] = r < sq ? lse[soff + r] * kLog2e : 0.f;
-      }
-    }
-    const uint32_t aq = smem_u32(sQ) + cw * 64 * 128;
-    const uint32_t ao = smem_u32(sO) + cw * 64 * 128;
-    const uint32_t ak = smem_u32(sK), av = smem_u32(sV);
-    float acc[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    mbar_wait(q_full, 0);
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int st = kt % NS;
-      const int k0 = kt * BK;
-      float s[BK / 2], dp[BK / 2];
-      mbar_wait(full + st, (kt / NS) & 1);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        Wgmma<T, BK>::ss(s, kdesc(aq, BQ, kk),
-                         kdesc(ak + st * C::kKV, BK, kk), kk);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        Wgmma<T, BK>::ss(dp, kdesc(ao, BQ, kk),
-                         kdesc(av + st * C::kKV, BK, kk), kk);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs<BK / 2>(s);
-      fence_regs<BK / 2>(dp);
-      // s becomes ds = p * (dp - delta) * scale
-      const bool edge = (causal && k0 + BK - 1 > rwl) || k0 + BK > sk;
-      const float* sb = sB + st * BK;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int half = e >> 1;
-          float p;
-          if constexpr (MASK)
-            p = exp2_ftz(fmaf(fmaf(s[4 * j + e], scale,
-                                   sb[8 * j + 2 * t + (e & 1)]) - mx[half],
-                              kLog2e, -l2[half]));
-          else
-            p = exp2_ftz(s[4 * j + e] * sc2 - l2[half]);
-          if (edge) {
-            const int key = k0 + 8 * j + 2 * t + (e & 1);
-            if (key >= sk || (causal && key > rl + 8 * half)) p = 0.f;
-          }
-          s[4 * j + e] = p * (dp[4 * j + e] - dl[half]) * scale;
-        }
-      uint32_t df[BK / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) to_a<T>(s, kk, df[kk]);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        Wgmma<T, D>::rs(acc, df[kk], mdesc(ak + st * C::kKV, BK, kk), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs<D / 2>(acc);
-      mbar_arrive(empty + st);
-    }
-    store_rows<T, D>(acc, dq + qoff, qstr, r0, sq, t, d);
-  }
-}
-
-template <int D, bool MASK>
-struct DkvCfg {
-  // dK and dV columns a block: all of them up to 128; above, chunks of
-  // 64 (192) or 128 (256) columns, each a block of its own
-  static constexpr int DC = D <= 128 ? D : (D % 128 == 0 ? 128 : 64);
-  static constexpr int NCH = D / DC;
-  static constexpr int BKV = 128, BQ = 64;
-  static constexpr int NS = D <= 128 ? 3 : (D > 192 ? 1 : 2);
-  // lse and delta boxes: a TMA box starts 16-byte aligned, so a row's
-  // 64 values are read from the multiple of 4 at or below their start,
-  // 4 more (MASK: 64 pairs of statistics, 128 values and 4 more); each
-  // stage's slot is 128-byte aligned
-  static constexpr int kVecBox = BQ + 4;
-  static constexpr int kStatBox = MASK ? 2 * BQ + 4 : kVecBox;
-  static constexpr int kKV = BKV * D * 2, kQ = BQ * D * 2, kVec = 384;
-  static constexpr int kStat = MASK ? 640 : kVec;
-  static constexpr int kBars = 2 * kKV + 2 * NS * kQ + NS * (kStat + kVec);
-  static constexpr size_t kSmem = kBars + 8 * (1 + 2 * NS) + 1024;
-};
-
-template <typename T, int D, bool MASK, bool FIT>
-__global__ void __launch_bounds__(kThreads, 1) flash_dkv_wgmma(
-    const __grid_constant__ CUtensorMap mk,
-    const __grid_constant__ CUtensorMap mv,
-    const __grid_constant__ CUtensorMap mq,
-    const __grid_constant__ CUtensorMap mdo,
-    const __grid_constant__ CUtensorMap ml,
-    const __grid_constant__ CUtensorMap md, T* __restrict__ dk,
-    T* __restrict__ dv, const float* __restrict__ bias, int bstride, int sq,
-    int sk, int h, int hk, int d_arg, float scale, int causal) {
-  using C = DkvCfg<D, MASK>;
-  constexpr int BKV = C::BKV, BQ = C::BQ, NS = C::NS, DC = C::DC;
-  extern __shared__ __align__(1024) uint8_t fa_tiles[];
-  uint8_t* const sK = align1024(fa_tiles);
-  uint8_t* const sV = sK + C::kKV;
-  uint8_t* const sQ = sV + C::kKV;          // NS stages of Q, then of dO
-  uint8_t* const sO = sQ + NS * C::kQ;
-  float* const sL = reinterpret_cast<float*>(sO + NS * C::kQ);   // lse
-  float* const sD = sL + NS * C::kStat / 4;                      // delta
-  uint64_t* const kv_full = reinterpret_cast<uint64_t*>(sK + C::kBars);
-  uint64_t* const full = kv_full + 1;
-  uint64_t* const empty = full + NS;
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  // causal: the heaviest key tile first; then the column chunk
-  const int ch = blockIdx.z % C::NCH;
-  const int k0 = blockIdx.z / C::NCH * BKV;
-  const int group = h / hk;
-  // FIT: d the body's width, causal with sq == sk (the 64 / 128 bodies
-  // as they were)
-  const int off = FIT ? 0 : sk - sq;
-  const int d = FIT ? D : d_arg;
-  // MASK: a row with no live key still adds 1/sk of its dO to every dv,
-  // so every query tile is walked
-  const int qt0 = causal && !MASK ? max(k0 - off, 0) / BQ : 0;
-  const int n_qt = (sq + BQ - 1) / BQ;
-  if (threadIdx.x == 0) {
-    mbar_init(kv_full, 1);
-    for (int i = 0; i < NS; ++i) {
-      mbar_init(full + i, 1);
-      mbar_init(empty + i, kConsumers);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (threadIdx.x < 128) {
-    reg_dealloc<24>();
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(kv_full, 2 * C::kKV);
-      for (int c = 0; c < D / 64; ++c) {
-        tma_load_4d(sK + c * BKV * 128, &mk, kv_full, c * 64, kvh, k0, b);
-        tma_load_4d(sV + c * BKV * 128, &mv, kv_full, c * 64, kvh, k0, b);
-      }
-      int it = 0;
-      for (int gi = 0; gi < group; ++gi) {
-        const int hq = kvh * group + gi;
-        const int lrow = (b * h + hq) * sq;
-        for (int qt = qt0; qt < n_qt; ++qt, ++it) {
-          const int st = it % NS;
-          mbar_wait(empty + st, ((it / NS) & 1) ^ 1);
-          mbar_expect_tx(full + st,
-                         2 * C::kQ + (C::kStatBox + C::kVecBox) * 4);
-          for (int c = 0; c < D / 64; ++c) {
-            tma_load_4d(sQ + st * C::kQ + c * BQ * 128, &mq, full + st,
-                        c * 64, hq, qt * BQ, b);
-            tma_load_4d(sO + st * C::kQ + c * BQ * 128, &mdo, full + st,
-                        c * 64, hq, qt * BQ, b);
-          }
-          const int at = (lrow + qt * BQ) & ~3;
-          tma_load_1d(sL + st * C::kStat / 4, &ml, full + st,
-                      MASK ? (2 * (lrow + qt * BQ)) & ~3 : at);
-          tma_load_1d(sD + st * C::kVec / 4, &md, full + st, at);
-        }
-      }
-    }
-  } else {
-    reg_alloc<240>();
-    const int cw = threadIdx.x / 128 - 1;
-    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
-    const int g = lane >> 2, t = lane & 3;
-    const int kw = k0 + cw * 64;                // this warpgroup's first key
-    const int kr0 = kw + warp * 16 + g;
-    // the first row that sees key kr0 under causal (kr0 + 8: 8 more)
-    const int kf0 = kr0 - off, kwf = kw - off;
-    const float sc2 = scale * kLog2e;
-    // MASK: the bias of the thread's two keys
-    float kb[2] = {0.f, 0.f};
-    if constexpr (MASK) {
-      const float* brow = bias + static_cast<long long>(b) * bstride;
-      kb[0] = __ldg(brow + kr0);
-      kb[1] = __ldg(brow + kr0 + 8);
-    }
-    const uint32_t ak = smem_u32(sK) + cw * 64 * 128;
-    const uint32_t av = smem_u32(sV) + cw * 64 * 128;
-    // the chunk's first column block of the Q and dO stages
-    const uint32_t cq = ch * (DC / 64) * BQ * 128;
-    const uint32_t aq = smem_u32(sQ), ao = smem_u32(sO);
-    float dka[DC / 2], dva[DC / 2];
-#pragma unroll
-    for (int i = 0; i < DC / 2; ++i) dka[i] = dva[i] = 0.f;
-    mbar_wait(kv_full, 0);
-    int it = 0;
-    for (int gi = 0; gi < group; ++gi) {
-      const int lrow = (b * h + kvh * group + gi) * sq;
-      for (int qt = qt0; qt < n_qt; ++qt, ++it) {
-        const int st = it % NS;
-        const int q0 = qt * BQ;
-        mbar_wait(full + st, (it / NS) & 1);
-        // some row sees some key (MASK: a row may see none)
-        if (!causal || MASK || q0 + BQ - 1 >= kwf) {
-          float s[BQ / 2], dp[BQ / 2];        // S^T and dP^T: keys x rows
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk)
-            Wgmma<T, BQ>::ss(s, kdesc(ak, BKV, kk),
-                             kdesc(aq + st * C::kQ, BQ, kk), kk);
-#pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk)
-            Wgmma<T, BQ>::ss(dp, kdesc(av, BKV, kk),
-                             kdesc(ao + st * C::kQ, BQ, kk), kk);
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs<BQ / 2>(s);
-          fence_regs<BQ / 2>(dp);
-          // s becomes p (MASK: 1/sk across a row with no live key), dp
-          // becomes ds
-          const bool edge = (causal && q0 < kwf + 63) || q0 + BQ > sq;
-          const int vo = (lrow + q0) & 3;      // the box's aligned start
-          // MASK: the pair (max, log sum) of row q0 + i at 2 i
-          const float* L =
-              sL + st * C::kStat / 4 +
-              (MASK ? ((2 * (lrow + q0)) & 3) + 4 * t : vo + 2 * t);
-          const float* Dl = sD + st * C::kVec / 4 + vo + 2 * t;
-#pragma unroll
-          for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float lc =
-                  MASK ? L[16 * j + 2 * (e & 1)] : L[8 * j + (e & 1)];
-              const float dc = Dl[8 * j + (e & 1)];
-              float p;
-              if constexpr (MASK)
-                p = exp2_ftz(fmaf(fmaf(s[4 * j + e], scale, kb[e >> 1]) - lc,
-                                  kLog2e,
-                                  -L[16 * j + 2 * (e & 1) + 1] * kLog2e));
-              else
-                p = exp2_ftz(s[4 * j + e] * sc2 - lc * kLog2e);
-              if (edge) {
-                const int row = q0 + 8 * j + 2 * t + (e & 1);
-                const int first = kf0 + 8 * (e >> 1);
-                if (row >= sq || (causal && row < first)) p = 0.f;
-              }
-              float pv = p;
-              if constexpr (MASK) {
-                const int row = q0 + 8 * j + 2 * t + (e & 1);
-                if (lc == INFINITY && row < sq) pv = 1.f / sk;
-              }
-              s[4 * j + e] = pv;
-              dp[4 * j + e] = p * (dp[4 * j + e] - dc) * scale;
-            }
-          }
-          uint32_t pf[BQ / 16][4], df[BQ / 16][4];
-#pragma unroll
-          for (int kk = 0; kk < BQ / 16; ++kk) {
-            to_a<T>(s, kk, pf[kk]);
-            to_a<T>(dp, kk, df[kk]);
-          }
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < BQ / 16; ++kk)
-            Wgmma<T, DC>::rs(dva, pf[kk],
-                             mdesc(ao + st * C::kQ + cq, BQ, kk), 1);
-#pragma unroll
-          for (int kk = 0; kk < BQ / 16; ++kk)
-            Wgmma<T, DC>::rs(dka, df[kk],
-                             mdesc(aq + st * C::kQ + cq, BQ, kk), 1);
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs<DC / 2>(dka);
-          fence_regs<DC / 2>(dva);
-        }
-        mbar_arrive(empty + st);
-      }
-    }
-    const long long kstr = static_cast<long long>(hk) * d;
-    const long long koff =
-        (static_cast<long long>(b) * sk * hk + kvh) * d + ch * DC;
-    store_rows<T, DC>(dka, dk + koff, kstr, kr0, sk, t, d - ch * DC);
-    store_rows<T, DC>(dva, dv + koff, kstr, kr0, sk, t, d - ch * DC);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// launchers (Shape, blocks and opt_in in flash_attention.cuh)
-// ---------------------------------------------------------------------------
+// the launchers of the bodies of width 64-256: fp32 to
+// flash_attention_f32.cu, bf16 / fp16 to the tensor-core bodies
 template <typename T, int D, bool M, bool F>
 int fwd(const Shape& s, const void* q, const void* k, const void* v,
         void* out, void* lse, cudaStream_t st) {
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (std::is_same<T, float>::value)
     return fwd_f32(s, D, M, static_cast<const float*>(q),
                    static_cast<const float*>(k), static_cast<const float*>(v),
                    static_cast<float*>(out), static_cast<float*>(lse), st);
-  } else {
-    using C = FwdCfg<D, M>;
-    static int rc_opt = opt_in(flash_fwd_wgmma<T, D, M, F>, C::kSmem);
-    if (rc_opt) return rc_opt;
-    CUtensorMap mq, mk, mv;
-    if (!map_rows16(&mq, q, s.B, s.sq, s.h, s.d, C::BQ) ||
-        !map_rows16(&mk, k, s.B, s.sk, s.hk, s.d, C::BK) ||
-        !map_rows16(&mv, v, s.B, s.sk, s.hk, s.d, C::BK))
-      return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid(s.h, s.B, blocks(s.sq, C::BQ));
-    flash_fwd_wgmma<T, D, M, F><<<grid, kThreads, C::kSmem, st>>>(
-        mq, mk, mv, static_cast<T*>(out), static_cast<float*>(lse), s.bias,
-        s.bstride, s.sq, s.sk, s.h, s.hk, s.d, s.scale, s.causal);
-  }
-  return static_cast<int>(cudaGetLastError());
+  else
+    return fwd16<T, D, D, M, F>(s, q, k, v, out, lse, st);
 }
 
 template <typename T, int D, bool M, bool F>
 int bwd(const Shape& s, const void* q, const void* k, const void* v,
         const void* out, const void* dout, const void* lse, void* delta,
         void* dq, void* dk, void* dv, cudaStream_t st) {
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  const T* o_ = static_cast<const T*>(out);
-  const T* g_ = static_cast<const T*>(dout);
-  const float* l_ = static_cast<const float*>(lse);
-  float* d_ = static_cast<float*>(delta);
-  if constexpr (std::is_same<T, float>::value) {
-    return bwd_f32(s, D, M, q_, k_, v_, o_, g_, l_, d_, static_cast<T*>(dq),
-                   static_cast<T*>(dk), static_cast<T*>(dv), st);
-  } else {
-    using Q = DqCfg<D, M>;
-    using KV = DkvCfg<D, M>;
-    static int rc_q = opt_in(flash_dq_wgmma<T, D, M, F>, Q::kSmem);
-    static int rc_kv = opt_in(flash_dkv_wgmma<T, D, M, F>, KV::kSmem);
-    if (rc_q) return rc_q;
-    if (rc_kv) return rc_kv;
-    const long long n = static_cast<long long>(s.B) * s.h * s.sq;
-    CUtensorMap mq, mdo, mk, mv, mk2, mv2, mq2, mdo2, ml, md;
-    if (!map_rows16(&mq, q, s.B, s.sq, s.h, s.d, Q::BQ) ||
-        !map_rows16(&mdo, dout, s.B, s.sq, s.h, s.d, Q::BQ) ||
-        !map_rows16(&mk, k, s.B, s.sk, s.hk, s.d, Q::BK) ||
-        !map_rows16(&mv, v, s.B, s.sk, s.hk, s.d, Q::BK) ||
-        !map_rows16(&mk2, k, s.B, s.sk, s.hk, s.d, KV::BKV) ||
-        !map_rows16(&mv2, v, s.B, s.sk, s.hk, s.d, KV::BKV) ||
-        !map_rows16(&mq2, q, s.B, s.sq, s.h, s.d, KV::BQ) ||
-        !map_rows16(&mdo2, dout, s.B, s.sq, s.h, s.d, KV::BQ) ||
-        !map_vec32(&ml, lse, M ? 2 * n : n, KV::kStatBox) ||
-        !map_vec32(&md, delta, n, KV::kVecBox))
-      return static_cast<int>(cudaErrorInvalidValue);
-    flash_dq_wgmma<T, D, M, F><<<dim3(s.h, s.B, blocks(s.sq, Q::BQ)), kThreads,
-                              Q::kSmem, st>>>(
-        mq, mdo, mk, mv, o_, g_, l_, d_, static_cast<T*>(dq), s.bias,
-        s.bstride, s.sq, s.sk, s.h, s.hk, s.d, s.scale, s.causal);
-    const int rc = static_cast<int>(cudaGetLastError());
-    if (rc) return rc;
-    flash_dkv_wgmma<T, D, M, F><<<dim3(s.hk, s.B,
-                                    blocks(s.sk, KV::BKV) * KV::NCH),
-                               kThreads, KV::kSmem, st>>>(
-        mk2, mv2, mq2, mdo2, ml, md, static_cast<T*>(dk), static_cast<T*>(dv),
-        s.bias, s.bstride, s.sq, s.sk, s.h, s.hk, s.d, s.scale, s.causal);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<T, float>::value)
+    return bwd_f32(s, D, M, static_cast<const float*>(q),
+                   static_cast<const float*>(k), static_cast<const float*>(v),
+                   static_cast<const float*>(out),
+                   static_cast<const float*>(dout),
+                   static_cast<const float*>(lse), static_cast<float*>(delta),
+                   static_cast<float*>(dq), static_cast<float*>(dk),
+                   static_cast<float*>(dv), st);
+  else
+    return bwd16<T, D, D, M, F>(s, q, k, v, out, dout, lse, delta, dq, dk,
+                                dv, st);
 }
 
-// The body of head dim d (its width): with the key bias (MASK), or
-// without it; the widths 64 and 128 also FIT when d is the width and
-// causal has sq == sk.
+// The body of head dim d (its width, d rounded up to 64; bf16 / fp16 of
+// a narrow width go to flash_attention_narrow.cu first): with the key
+// bias (MASK), or without it; the widths 64 and 128 also FIT when d is
+// the width and causal has sq == sk.
 #define PTT_FLASH_BODY(s, CALL)                                          \
   switch (body_width((s).d)) {                                           \
     case 64:                                                             \
@@ -881,7 +211,11 @@ extern "C" int ptt_flash_fwd(int device, int dtype, const void* q,
                 bstride};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PTT_FWD(W, M, F) fwd<T, W, M, F>(s, q, k, v, out, lse, st)
-  PTT_DISPATCH(dtype, T, { PTT_FLASH_BODY(s, PTT_FWD) });
+  PTT_DISPATCH(dtype, T, {
+    if (!std::is_same<T, float>::value && narrow_width(d))
+      return fwd_narrow(s, dtype == ptt::kBF16, q, k, v, out, lse, st);
+    PTT_FLASH_BODY(s, PTT_FWD)
+  });
 #undef PTT_FWD
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -912,7 +246,54 @@ extern "C" int ptt_flash_bwd(int device, int dtype, const void* q,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PTT_BWD(W, M, F) \
   bwd<T, W, M, F>(s, q, k, v, out, dout, lse, delta, dq, dk, dv, st)
-  PTT_DISPATCH(dtype, T, { PTT_FLASH_BODY(s, PTT_BWD) });
+  PTT_DISPATCH(dtype, T, {
+    if (!std::is_same<T, float>::value && narrow_width(d))
+      return bwd_narrow(s, dtype == ptt::kBF16, q, k, v, out, dout, lse,
+                        delta, dq, dk, dv, st);
+    PTT_FLASH_BODY(s, PTT_BWD)
+  });
 #undef PTT_BWD
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// What a call of these sizes runs, into p[0..7] (the kernels' plan, for
+// reports; no launch): p[0] the width its products run over, p[1] the
+// width of its shared-memory tiles, p[2] and p[3] the forward's query and
+// key tiles, p[4] and p[5] dk/dv's column chunks and their width, p[6] 1
+// for a FIT body, p[7] 1 for a narrow body (flash_attention_narrow.cu).
+// `biased`: the call takes a key bias (a mask, or causal with sq > sk).
+// fp32 fills p[0] and p[1] (its tiles are flash_attention_f32.cu's).
+extern "C" int ptt_flash_plan(int dtype, int sq, int sk, int d, int biased,
+                              int causal, int* p) {
+  const float none = 0.f;
+  const float* bias = biased ? &none : nullptr;
+  if (dtype < ptt::kF32 || dtype > ptt::kF16 ||
+      bad_shape(1, sq, sk, 1, 1, d, 0, bias, causal))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Shape s{1, sq, sk, 1, 1, d, 1.f, causal, bias, 0};
+  const int narrow = dtype == ptt::kF32 ? 0 : narrow_width(d);
+  for (int i = 0; i < 8; ++i) p[i] = 0;
+  p[0] = narrow ? narrow : body_width(d);
+  p[1] = body_width(d);
+  if (dtype == ptt::kF32) return 0;
+  p[6] = !s.bias && !narrow && p[1] <= 128 && fits(s);
+  p[7] = narrow != 0;
+#define PTT_PLAN(D, W)                                                   \
+  case W:                                                                \
+    s.bias ? body_plan<D, W, true>(p)                                    \
+    : narrow && short_keys(s) ? body_plan<D, W, false, kShortKeys>(p)    \
+                              : body_plan<D, W, false>(p);               \
+    return 0;
+  switch (p[0]) {
+    PTT_PLAN(64, 16)
+    PTT_PLAN(64, 48)
+    PTT_PLAN(128, 80)
+    PTT_PLAN(192, 160)
+    PTT_PLAN(64, 64)
+    PTT_PLAN(128, 128)
+    PTT_PLAN(192, 192)
+    PTT_PLAN(256, 256)
+  }
+#undef PTT_PLAN
   return static_cast<int>(cudaErrorInvalidValue);
 }

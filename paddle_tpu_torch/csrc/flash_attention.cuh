@@ -57,8 +57,10 @@ __device__ __forceinline__ float quad_sum(float v) {
 // tile's key bias `sb`, in shared memory), p = exp2((x - m) log2 e); a
 // key that causal masks takes the logit -1e30, as a -1e30 bias gives: a
 // row with no other key weighs them alike, and any live key outweighs
-// them all.
-template <int BK, bool MASK>
+// them all.  EDGE 0 / 1: whether the tile is cut, known where the caller
+// branched on `edge` once (no test inside the element loop); 2: `edge`
+// tested in it.
+template <int BK, bool MASK, int EDGE = 2>
 __device__ __forceinline__ float2 softmax_tile(float* s, float& m0, float& m1,
                                                float& l0, float& l1, int k0,
                                                int sk, int rl, int t,
@@ -74,7 +76,7 @@ __device__ __forceinline__ float2 softmax_tile(float* s, float& m0, float& m1,
         x = fmaf(s[4 * j + e], sc, sb[8 * j + 2 * t + (e & 1)]);
       else
         x = s[4 * j + e] * sc;
-      if (edge) {     // masks only on the tiles they cut
+      if (EDGE == 1 || (EDGE == 2 && edge)) {   // only on the tiles they cut
         const int key = k0 + 8 * j + 2 * t + (e & 1);
         if constexpr (MASK) {
           if (key >= sk)
@@ -150,6 +152,37 @@ struct Shape {
 
 inline int blocks(int n, int rows) { return (n + rows - 1) / rows; }
 
+// the width of head dim d's shared-memory tiles: the next multiple of 64
+constexpr int body_width(int d) { return (d + 63) / 64 * 64; }
+
+// The width the bf16 / fp16 products of head dim d run over when it is
+// not a multiple of 64: d rounded up to 16 where that is 16, 48, 80 or
+// 160 (the bodies of flash_attention_narrow.cu), else 0 (the body of
+// width body_width(d) takes d)
+constexpr int narrow_width(int d) {
+  const int w = (d + 15) / 16 * 16;
+  return w == 16 || w == 48 || w == 80 || w == 160 ? w : 0;
+}
+
+// The narrow forward's key tile where one tile holds every key and the
+// call takes no key bias (sk <= 80: the SD UNet's 77-token context): no
+// tile of dead keys is scored, weighed or summed, and the bits are those
+// of the longer tile (its dead keys add exact zeros) where that too was
+// one tile
+constexpr int kShortKeys = 80;
+
+inline bool short_keys(const Shape& s) {
+  return !s.bias && s.sk <= kShortKeys;
+}
+
+// The narrow bf16 (`bf16`) or fp16 bodies, with the key bias or without:
+// the forward, and the backward's two launches; 0 or a CUDA error.
+int fwd_narrow(const Shape& s, bool bf16, const void* q, const void* k,
+               const void* v, void* out, void* lse, cudaStream_t st);
+int bwd_narrow(const Shape& s, bool bf16, const void* q, const void* k,
+               const void* v, const void* out, const void* dout,
+               const void* lse, void* delta, void* dq, void* dk, void* dv,
+               cudaStream_t st);
 
 
 // The fp32 bodies of width `width` (64, 128, 192 or 256), with the key

@@ -252,8 +252,12 @@ struct Wgmma {
 #define PTT_D8(i)                                                        \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define PTT_D24 PTT_D8(0), PTT_D8(8), PTT_D8(16)
 #define PTT_D32 PTT_D8(0), PTT_D8(8), PTT_D8(16), PTT_D8(24)
+#define PTT_D40 PTT_D32, PTT_D8(32)
+#define PTT_D48 PTT_D40, PTT_D8(40)
 #define PTT_D64 PTT_D32, PTT_D8(32), PTT_D8(40), PTT_D8(48), PTT_D8(56)
+#define PTT_D80 PTT_D64, PTT_D8(64), PTT_D8(72)
 #define PTT_D96 PTT_D64, PTT_D8(64), PTT_D8(72), PTT_D8(80), PTT_D8(88)
 #define PTT_D128                                                         \
   PTT_D64, PTT_D8(64), PTT_D8(72), PTT_D8(80), PTT_D8(88), PTT_D8(96),   \
@@ -261,12 +265,26 @@ struct Wgmma {
 #define PTT_R10(i)                                                       \
   "%" #i "0, %" #i "1, %" #i "2, %" #i "3, %" #i "4, %" #i "5, %" #i "6, " \
   "%" #i "7, %" #i "8, %" #i "9, "
+#define PTT_REGS8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define PTT_REGS24                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " PTT_R10(1)                 \
+  "%20, %21, %22, %23}"
 #define PTT_REGS32                                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " PTT_R10(1) PTT_R10(2)       \
   "%30, %31}"
+#define PTT_REGS40                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " PTT_R10(1) PTT_R10(2)       \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39}"
+#define PTT_REGS48                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " PTT_R10(1) PTT_R10(2)       \
+  PTT_R10(3) "%40, %41, %42, %43, %44, %45, %46, %47}"
 #define PTT_REGS64                                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " PTT_R10(1) PTT_R10(2)       \
   PTT_R10(3) PTT_R10(4) PTT_R10(5) "%60, %61, %62, %63}"
+#define PTT_REGS80                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " PTT_R10(1) PTT_R10(2)       \
+  PTT_R10(3) PTT_R10(4) PTT_R10(5) PTT_R10(6)                            \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79}"
 #define PTT_REGS96                                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, " PTT_R10(1) PTT_R10(2)       \
   PTT_R10(3) PTT_R10(4) PTT_R10(5) PTT_R10(6) PTT_R10(7) PTT_R10(8)       \
@@ -325,17 +343,43 @@ PTT_WGMMA(__nv_bfloat16, "bf16", 256, PTT_REGS128, PTT_D128, 128, 129, 130,
           131, 132, 133)
 PTT_WGMMA(__half, "f16", 256, PTT_REGS128, PTT_D128, 128, 129, 130, 131, 132,
           133)
+// the narrow flash bodies' head-dim widths (16, 48, 80, 160) and the
+// dk/dv column chunk of width 160 (96)
+PTT_WGMMA(__nv_bfloat16, "bf16", 16, PTT_REGS8, PTT_D8(0), 8, 9, 10, 11, 12,
+          13)
+PTT_WGMMA(__half, "f16", 16, PTT_REGS8, PTT_D8(0), 8, 9, 10, 11, 12, 13)
+PTT_WGMMA(__nv_bfloat16, "bf16", 48, PTT_REGS24, PTT_D24, 24, 25, 26, 27, 28,
+          29)
+PTT_WGMMA(__half, "f16", 48, PTT_REGS24, PTT_D24, 24, 25, 26, 27, 28, 29)
+PTT_WGMMA(__nv_bfloat16, "bf16", 80, PTT_REGS40, PTT_D40, 40, 41, 42, 43, 44,
+          45)
+PTT_WGMMA(__half, "f16", 80, PTT_REGS40, PTT_D40, 40, 41, 42, 43, 44, 45)
+PTT_WGMMA(__nv_bfloat16, "bf16", 96, PTT_REGS48, PTT_D48, 48, 49, 50, 51, 52,
+          53)
+PTT_WGMMA(__half, "f16", 96, PTT_REGS48, PTT_D48, 48, 49, 50, 51, 52, 53)
+PTT_WGMMA(__nv_bfloat16, "bf16", 160, PTT_REGS80, PTT_D80, 80, 81, 82, 83, 84,
+          85)
+PTT_WGMMA(__half, "f16", 160, PTT_REGS80, PTT_D80, 80, 81, 82, 83, 84, 85)
 
 #undef PTT_WGMMA
 #undef PTT_REGS128
 #undef PTT_REGS96
+#undef PTT_REGS80
 #undef PTT_REGS64
+#undef PTT_REGS48
+#undef PTT_REGS40
 #undef PTT_REGS32
+#undef PTT_REGS24
+#undef PTT_REGS8
 #undef PTT_R10
 #undef PTT_D128
 #undef PTT_D96
+#undef PTT_D80
 #undef PTT_D64
+#undef PTT_D48
+#undef PTT_D40
 #undef PTT_D32
+#undef PTT_D24
 #undef PTT_D8
 
 // -- host: tensor maps -------------------------------------------------------

@@ -65,6 +65,7 @@ _SIGNATURES = {
                       _I, _I, _F, _I, _P),
     "ptt_flash_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "ptt_flash_plan": (_I, _I, _I, _I, _I, _I, _P),
     "ptt_fused_adamw": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _LL, _F, _F,
                         _F, _F, _F, _F, _F, _F, _F, _I, _P),
     "ptt_ce_rows": (_I, _I, _P, _P, _P, _P, _P, _LL, _I, _P),
@@ -76,9 +77,11 @@ _SIGNATURES = {
 }
 
 _lib = None
-# what the last build in this process did: seconds spent and nvcc's
-# output (ptxas register / shared-memory / spill report per kernel)
-build_info = {"seconds": 0.0, "built": False, "log": "", "path": ""}
+# what the last build in this process did: seconds spent (in all, and
+# each source's nvcc from the common start) and nvcc's output (ptxas
+# register / shared-memory / spill report per kernel)
+build_info = {"seconds": 0.0, "built": False, "log": "", "path": "",
+              "source_seconds": {}}
 
 
 def _nvcc() -> str:
@@ -128,7 +131,12 @@ def build() -> Path:
                 [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o",
                  str(obj)], stdout=fh, stderr=subprocess.STDOUT)
         jobs.append((src, obj, log, proc))
-    logs, failed = [], []
+    logs, failed, done = [], [], {}
+    while len(done) < len(jobs):
+        for src, _, _, proc in jobs:
+            if src.name not in done and proc.poll() is not None:
+                done[src.name] = round(time.perf_counter() - t0, 1)
+        time.sleep(0.1)
     for src, obj, log, proc in jobs:
         rc = proc.wait()
         text = log.read_text()
@@ -147,7 +155,7 @@ def build() -> Path:
     os.replace(tmp, out)
     shutil.rmtree(work, ignore_errors=True)
     build_info.update(seconds=time.perf_counter() - t0, built=True,
-                      log="\n".join(logs))
+                      log="\n".join(logs), source_seconds=done)
     return out
 
 

@@ -1,6 +1,7 @@
 """Attention for training: the Hopper flash-attention kernels
-(csrc/flash_attention.cu; fp32: csrc/flash_attention_f32.cu), forward
-and backward, and their plain PyTorch versions.
+(csrc/flash_attention.cu; head dims off a multiple of 64:
+csrc/flash_attention_narrow.cu; fp32: csrc/flash_attention_f32.cu),
+forward and backward, and their plain PyTorch versions.
 
 Replaces the TPU kernel
 `paddle_tpu/ops/pallas/flash_attention.py::flash_attention` (:816):
@@ -64,13 +65,15 @@ Dropout is not ported (dropout_p > 0 raises NotImplementedError).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
 from .attention import NEG_INF, gqa_scores, gqa_weighted_v
 
 __all__ = ["attention", "plain_attention",
-           "plain_flash_fwd", "plain_flash_bwd", "launches"]
+           "plain_flash_fwd", "plain_flash_bwd", "kernel_plan", "launches"]
 
 # kernel launches per entry point since the last reset (chip_smoke.py
 # zeroes and reads them)
@@ -278,6 +281,28 @@ def _key_bias(mask, q, k, causal):
         else:
             torch.clamp_min(m.float(), NEG_INF, out=bias[:, :sk])
     return bias, bias.data_ptr(), skp if mb > 1 else 0
+
+
+# ptt_flash_plan's fields (csrc/flash_attention.cu)
+PLAN_FIELDS = ("width", "tile_width", "query_tile", "key_tile",
+               "dkv_chunks", "dkv_chunk_width", "fit", "narrow")
+
+
+def kernel_plan(q, k, causal=False, mask=None):
+    """The body the kernels run for these operands, from the library
+    (`ptt_flash_plan`, no launch): the width their products run over and
+    that of their shared-memory tiles, the forward's query and key tiles,
+    dk/dv's column chunks and their width, and whether it is a FIT body
+    or a narrow one (csrc/flash_attention_narrow.cu).  fp32 reports the
+    two widths alone (its tiles are csrc/flash_attention_f32.cu's)."""
+    plan = (ctypes.c_int * len(PLAN_FIELDS))()
+    rc = _build.library().ptt_flash_plan(
+        _build.dtype_code(q.dtype), q.shape[1], k.shape[1], q.shape[3],
+        int(_biased(mask, q, k, causal)), int(causal), ctypes.addressof(plan))
+    _build.check(rc, "flash_attention plan")
+    got = dict(zip(PLAN_FIELDS, plan))
+    got["fit"], got["narrow"] = bool(got["fit"]), bool(got["narrow"])
+    return got
 
 
 def _launch_fwd(q, k, v, causal, scale, mask=None):

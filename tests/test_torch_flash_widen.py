@@ -28,7 +28,13 @@ Tolerances, with their reasons:
   * bf16 gradients of the kernels' math against the twin's autodiff in
     fp32 on the same bf16 inputs: 2^-5 of the largest entry -- the
     kernels round p and ds to bf16 before their products (each term
-    carries a 2^-8 relative rounding), the twin's fp32 autodiff does not.
+    carries a 2^-8 relative rounding), the twin's fp32 autodiff does not;
+  * fp16, the same two with fp16's three more bits: 2^-10 and 2^-8.
+
+The head dims cover every width the kernels' bodies take: the narrow
+bodies' (d rounded up to 16: 16, 48, 80, 160; d 8, 40, 72 and 152 below
+their width) and those of a multiple of 64, each as self-attention and
+as cross-attention over the UNet's 77 context keys.
 """
 import ctypes
 import functools
@@ -49,7 +55,11 @@ fa = tops.kernel_module("flash_attention")
 
 F32_OUT, F32_GRAD = 1e-5, 2e-5
 DT = {"float32": (torch.float32, jnp.float32),
-      "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+      "bfloat16": (torch.bfloat16, jnp.bfloat16),
+      "float16": (torch.float16, jnp.float16)}
+# the forward's and the gradients' tolerances in 16 bits, as shares of
+# the largest entry (see above)
+TOL16 = {"bfloat16": (2.0 ** -7, 2.0 ** -5), "float16": (2.0 ** -10, 2.0 ** -8)}
 
 # (id, b, sq, sk, h, hk, d, causal, mask kind, kept lengths)
 CASES = [
@@ -85,6 +95,15 @@ CASES = [
     ("causal_sq_lt_sk_d256", 1, 8, 33, 2, 2, 256, True, None, None),
     ("causal_sq_gt_sk_bool_mask", 3, 20, 12, 2, 2, 64, True, "bool",
      [12, 0, 4]),
+    # the narrow bodies' widths against the UNet's 77 context keys, and
+    # head dims below their width
+    ("d16_cross77", 2, 20, 77, 2, 2, 16, False, None, None),
+    ("d40_gqa_cross77", 1, 20, 77, 4, 2, 40, False, None, None),
+    ("d80_cross77", 2, 16, 77, 2, 2, 80, False, None, None),
+    ("d160_cross77", 1, 16, 77, 2, 2, 160, False, None, None),
+    ("d8_gqa", 2, 20, 20, 4, 2, 8, False, None, None),
+    ("d72_causal", 1, 24, 24, 2, 2, 72, True, None, None),
+    ("d152_bool_mask_cross", 2, 16, 40, 2, 1, 152, False, "bool", [40, 13]),
 ]
 IDS = [c[0] for c in CASES]
 
@@ -205,34 +224,58 @@ def test_plain_flash_matches_the_twin_fp32(case):
                                    rtol=F32_GRAD, err_msg="d" + name)
 
 
-@pytest.mark.parametrize("case", [c for c in CASES if c[0] in (
-    "d80", "d160_gqa_cross", "d256_gqa_causal", "bool_mask",
-    "additive_mask", "causal_sq_gt_sk", "causal_sq_lt_sk_d256",
-    "padding_1e9")],
-    ids=lambda c: c[0])
-def test_plain_flash_matches_the_twin_bf16(case):
-    """In bf16: the forward against the twin at one bf16 ulp of the
-    largest entry, the kernels' backward math against the twin's fp32
-    autodiff on the same bf16 inputs at 2^-5 of the largest entry."""
-    q, k, v, do, mask = _inputs(case, 11)
+# the narrow bodies' widths (16, 48, 80, 160), self and cross
+NARROW_IDS = ("d16", "d40", "d40_gqa_causal", "d80", "d160", "d16_cross77",
+              "d40_gqa_cross77", "d80_cross77", "d160_cross77",
+              "d80_gqa_cross", "d8_gqa", "d72_causal", "d152_bool_mask_cross")
+
+
+def _twin_16bit(case, dt, seed):
+    """plain_flash_fwd / plain_flash_bwd in the 16-bit dtype `dt` against
+    the twin: the forward at TOL16's first share of the largest entry,
+    the kernels' backward math against the twin's fp32 autodiff on the
+    same rounded inputs at its second."""
+    q, k, v, do, mask = _inputs(case, seed)
     causal = case[7]
-    jq, jk, jv = (_j(a, "bfloat16") for a in (q, k, v))
+    f_tol, g_tol = TOL16[dt]
+    jq, jk, jv = (_j(a, dt) for a in (q, k, v))
     jm = None if mask is None else jnp.asarray(mask)
     jout = jops.xla_attention(jq, jk, jv, mask=jm, causal=causal)
-    _, jgrads = _ref(case, q, k, v, do, mask, "bfloat16")
-    tq, tk, tv, tdo = (_t(a, "bfloat16") for a in (q, k, v, do))
+    _, jgrads = _ref(case, q, k, v, do, mask, dt)
+    tq, tk, tv, tdo = (_t(a, dt) for a in (q, k, v, do))
     tm = _t(mask)
     out, lse = tops.plain_flash_fwd(tq, tk, tv, causal, None, tm)
     ref = _np(jout)
     np.testing.assert_allclose(_np(out), ref, rtol=0,
-                               atol=2.0 ** -7 * np.abs(ref).max())
+                               atol=f_tol * np.abs(ref).max())
     grads = tops.plain_flash_bwd(tq, tk, tv, out, lse, tdo, causal, None,
                                  tm)
     for name, got, want in zip("qkv", grads, jgrads):
         w = _np(want)
         np.testing.assert_allclose(_np(got), w, rtol=0,
-                                   atol=2.0 ** -5 * np.abs(w).max(),
+                                   atol=g_tol * np.abs(w).max(),
                                    err_msg="d" + name)
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c[0] in (
+    "d80", "d160_gqa_cross", "d256_gqa_causal", "bool_mask",
+    "additive_mask", "causal_sq_gt_sk", "causal_sq_lt_sk_d256",
+    "padding_1e9") + NARROW_IDS],
+    ids=lambda c: c[0])
+def test_plain_flash_matches_the_twin_bf16(case):
+    """In bf16: the forward against the twin at one bf16 ulp of the
+    largest entry, the kernels' backward math against the twin's fp32
+    autodiff on the same bf16 inputs at 2^-5 of the largest entry."""
+    _twin_16bit(case, "bfloat16", 11)
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c[0] in NARROW_IDS],
+                         ids=lambda c: c[0])
+def test_plain_flash_matches_the_twin_fp16(case):
+    """In fp16, at the narrow bodies' widths: the forward against the
+    twin at one fp16 ulp of the largest entry, the backward math against
+    the twin's fp32 autodiff on the same fp16 inputs at 2^-8 of it."""
+    _twin_16bit(case, "float16", 13)
 
 
 def test_causal_logit_is_masked_whatever_its_bias():
@@ -255,7 +298,9 @@ def test_causal_logit_is_masked_whatever_its_bias():
 @pytest.mark.parametrize("case", [c for c in CASES if c[0] in (
     "d40_gqa_causal", "d192_gqa", "bool_mask", "additive_mask",
     "causal_sq_gt_sk", "causal_sq_gt_sk_bool_mask", "padding_1e9",
-    "padding_1e9_gqa_causal_d80")], ids=lambda c: c[0])
+    "padding_1e9_gqa_causal_d80", "d16_cross77", "d40_gqa_cross77",
+    "d80_cross77", "d160_cross77", "d152_bool_mask_cross")],
+    ids=lambda c: c[0])
 def test_flash_function_with_plain_launches(monkeypatch, case):
     """`_FlashAttention` with `_launch_fwd` / `_launch_bwd` replaced by
     the plain functions: its gradients equal native autograd of the
@@ -455,3 +500,40 @@ def test_attention_refuses_other_mask_shapes(shape):
         tops.attention(_meta(2, 4, 2, 64), _meta(2, 6, 2, 64),
                        _meta(2, 6, 2, 64), mask=_meta(*shape))
     assert tops.launch_counts() == before
+
+
+@pytest.mark.parametrize("dtype,sq,sk,d,mask,causal,biased", [
+    (torch.bfloat16, 1024, 77, 80, None, False, 0),
+    (torch.float16, 30, 12, 40, None, True, 1),
+    (torch.bfloat16, 24, 24, 160, "bool", False, 1),
+    (torch.float32, 197, 197, 64, None, True, 0)],
+    ids=["bf16_cross_d80", "fp16_causal_sq_gt_sk", "bf16_masked_d160",
+         "fp32"])
+def test_kernel_plan_asks_the_library(monkeypatch, dtype, sq, sk, d, mask,
+                                      causal, biased):
+    """`kernel_plan` hands the library's plan query the dtype code, sq,
+    sk, d, whether the call takes a key bias (a mask, or causal with
+    sq > sk) and causal, with the argument types `_build._SIGNATURES`
+    gives, and reads back its eight fields by name."""
+    seen = []
+
+    class Lib:
+        def ptt_flash_plan(self, *args):
+            sig = _build._SIGNATURES["ptt_flash_plan"]
+            assert len(args) == len(sig)
+            assert all(type(a) is int for a in args)
+            seen.append(args[:-1])
+            (ctypes.c_int * 8).from_address(args[-1])[:] = [
+                80, 128, 128, 128, 1, 80, 0, 1]
+            return 0
+
+    monkeypatch.setattr(_build, "library", lambda: Lib())
+    q = torch.zeros((2, sq, 4, d), dtype=dtype)
+    k = torch.zeros((2, sk, 2, d), dtype=dtype)
+    m = None if mask is None else torch.ones((2, 1, 1, sk), dtype=torch.bool)
+    got = fa.kernel_plan(q, k, causal, m)
+    assert seen == [(_build.DTYPE_CODES[dtype], sq, sk, d, biased,
+                     int(causal))]
+    assert got == dict(width=80, tile_width=128, query_tile=128,
+                       key_tile=128, dkv_chunks=1, dkv_chunk_width=80,
+                       fit=False, narrow=True)

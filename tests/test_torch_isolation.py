@@ -379,6 +379,7 @@ def test_build_key_follows_the_sources():
                                       "paged_attention.cu",
                                       "flash_attention.cu",
                                       "flash_attention_f32.cu",
+                                      "flash_attention_narrow.cu",
                                       "fused_adamw.cu", "cross_entropy.cu",
                                       "quant_matmul.cu"}
     assert _build._digest(srcs + headers) == _build._digest(srcs + headers)

@@ -2,21 +2,26 @@
 """Hold this tree's flash kernels to an earlier tree's: the 16-bit bodies
 bit for bit, the fp32 bodies to the plain versions, and both in time.
 
-    python3 tools/flash_parent_ab.py OLD_CSRC
+    python3 tools/flash_parent_ab.py OLD_CSRC [--changed CASE ...]
 
-OLD_CSRC holds the earlier tree's `flash_attention.cu`, `hopper.cuh` and
-`common.cuh` with this tree's C entry points (`ptt_flash_fwd` /
-`ptt_flash_bwd` as `_build._SIGNATURES` has them, key bias included: commit
-4a6fc6d on), for example unpacked with `git show
-4a6fc6d:paddle_tpu_torch/csrc/<file>` into a directory under build/.
-From the repo root, on one CUDA card: builds this tree's library
-(`_build.library()`) and the old source alone into OLD_CSRC/libold.so,
-then launches both trees' forward and backward on the same inputs:
+OLD_CSRC holds the earlier tree's flash sources (`flash_attention*.cu`,
+`flash_attention*.cuh`, `hopper.cuh` and `common.cuh`) with this tree's C
+entry points (`ptt_flash_fwd` / `ptt_flash_bwd` as `_build._SIGNATURES` has
+them, key bias included: commit 4a6fc6d on), for example unpacked with
+`git archive b7e3c2e paddle_tpu_torch/csrc | tar -x --strip-components=2
+-C build/old`.  From the repo root, on one CUDA card: builds this tree's
+library (`_build.library()`) and the old flash sources alone (one nvcc a
+source, in parallel) into OLD_CSRC/libold.so, then launches both trees'
+forward and backward on the same inputs:
 
-  * 16-bit shapes (`SHAPES`, and every bf16 / fp16 case of
-    `chip_smoke.FLASH_WIDE_CASES`): out, lse, dq, dk and dv must have
-    identical bits; the shapes marked timed also get each tree's forward
-    and backward time (`chip_smoke.time_ms`), old, new, new, old;
+  * 16-bit shapes (`SHAPES`, `NARROW_SHAPES`, and every bf16 / fp16 case
+    of `chip_smoke.FLASH_WIDE_CASES`): out, lse, dq, dk and dv must have
+    identical bits (or, where `--changed` names the case, stay within
+    `chip_smoke._flash_tolerances`, each output's share of it printed);
+    the shapes marked timed and the 17a cases also get each tree's
+    forward and backward time (`chip_smoke.time_ms`), old, new, new,
+    old, the 17a cases beside SDPA's and the bound at the bf16 rate,
+    with this tree's body (`kernel_plan`);
   * fp32 shapes (`F32_SHAPES`, and the fp32 cases of `FLASH_WIDE_CASES`):
     each tree's outputs against the plain versions, as a share of
     `chip_smoke._flash_tolerances` (and of 1e-5 (1 + |lse|) for lse);
@@ -51,6 +56,24 @@ SHAPES = [(2, 1000, 1000, 8, 2, 128, True, "bfloat16", False),
           (2, 300, 1000, 16, 2, 128, False, "bfloat16", False),
           (4, 2048, 2048, 20, 4, 128, True, "bfloat16", True),
           (64, 512, 512, 12, 12, 64, False, "bfloat16", True)]
+# the narrow bodies (d off a multiple of 64: products at d rounded up to
+# 16) at their edges: d below the width (8, 72, 152, 40), ragged and
+# one-row lengths, causal sq < sk and sq > sk, every kind of key-padding
+# mask, GQA, fp16
+NARROW_SHAPES = [
+    dict(case="d8 ragged", b=2, sq=100, sk=77, h=4, hk=2, d=8, causal=False),
+    dict(case="d72 causal gqa", b=2, sq=300, sk=300, h=4, hk=2, d=72),
+    dict(case="d80 causal sq < sk, additive", b=3, sq=130, sk=200, h=4,
+         hk=4, d=80, mask="additive", lengths=[200, 0, 77]),
+    dict(case="d152 bool, fp16", b=2, sq=100, sk=300, h=4, hk=1, d=152,
+         causal=False, dtype="float16", mask="bool", lengths=[300, 150]),
+    dict(case="d160 causal sq > sk", b=2, sq=300, sk=77, h=8, hk=2, d=160),
+    dict(case="d40 causal sq < sk", b=2, sq=77, sk=1000, h=4, hk=4, d=40),
+    dict(case="d48 -1e9 padding, fp16", b=3, sq=64, sk=64, h=2, hk=1, d=48,
+         causal=False, dtype="float16", mask="additive_1e9",
+         lengths=[64, 0, 5]),
+    dict(case="d16 one row", b=1, sq=1, sk=5, h=2, hk=2, d=16, causal=False),
+]
 # fp32 beyond 17a's: causal GQA, ragged lengths, the head dims of every
 # body width (8, 136 and 200 split dK / dV's columns), a key padding
 F32_SHAPES = [
@@ -77,7 +100,7 @@ class _Mixed:
                        else self.new, name)
 
 
-def main(old_dir):
+def main(old_dir, changed=()):
     import torch
     if not torch.cuda.is_available():
         print("flash_parent_ab: no CUDA device is available", file=sys.stderr)
@@ -93,15 +116,31 @@ def main(old_dir):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
     old_so = os.path.join(old_dir, "libold.so")
-    build = subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", old_dir, "-shared", "-o",
-         old_so, os.path.join(old_dir, "flash_attention.cu")],
+    srcs = sorted(f for f in os.listdir(old_dir)
+                  if f.startswith("flash_attention") and f.endswith(".cu"))
+    builds = [subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", old_dir, "-c", "-o",
+         os.path.join(old_dir, f + ".o"), os.path.join(old_dir, f)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for f in srcs]
+    t0 = time.perf_counter()
     new = _build.library()
-    log = build.communicate()[0]
-    if build.returncode:
-        print(log[-5000:], file=sys.stderr)
+    print(json.dumps(dict(new_build_s=_build.build_info["seconds"],
+                          built=_build.build_info["built"])), flush=True)
+    for proc in builds:
+        log = proc.communicate()[0]
+        if proc.returncode:
+            print(log[-5000:], file=sys.stderr)
+            return 1
+    link = subprocess.run(
+        [_build._nvcc(), "-shared", "-o", old_so,
+         *[os.path.join(old_dir, f + ".o") for f in srcs]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode:
+        print(link.stdout[-5000:], file=sys.stderr)
         return 1
+    print(json.dumps(dict(old_sources=srcs, both_built_s=time.perf_counter()
+                          - t0)), flush=True)
     old = ctypes.CDLL(old_so)
     for name in ("ptt_flash_fwd", "ptt_flash_bwd"):
         getattr(old, name).argtypes = list(_build._SIGNATURES[name])
@@ -130,7 +169,7 @@ def main(old_dir):
     ok = True
 
     def run_16bit(case, b, sq, sk, h, hk, d, causal=True, dtype="bfloat16",
-                  mask=None, lengths=None, timed=False):
+                  mask=None, lengths=None, timed=False, wide=False):
         nonlocal ok
         dt = getattr(torch, dtype)
         q, do = randn(b, sq, h, d, dtype=dt), randn(b, sq, h, d, dtype=dt)
@@ -147,14 +186,34 @@ def main(old_dir):
         grads = {t: bw[t]() for t in bw}
         same = [torch.equal(x, y) for x, y in zip(
             (*outs["new"], *grads["new"]), (*outs["old"], *grads["old"]))]
-        ok &= all(same)
         rec = dict(case=case, shape=[b, sq, sk, h, hk, d], causal=causal,
-                   dtype=dtype, mask=mask, same=same)
-        if timed:
+                   dtype=dtype, mask=mask, same=same,
+                   body=on(new, lambda: fa.kernel_plan(q, k, causal, m))())
+        if case in changed:
+            # a body whose walk changed: each tree's outputs against the
+            # plain versions, as a share of _flash_tolerances
+            p_out, _ = ops.plain_flash_fwd(q, k, v, causal, sc, m)
+            for t in ("old", "new"):
+                out, lse = outs[t]
+                refs = ops.plain_flash_bwd(q, k, v, out, lse, do, causal, sc,
+                                           m)
+                tols = [tl for tl, _ in cs._flash_tolerances(
+                    torch, ops, fa, q, k, v, out, lse, do, [p_out, *refs],
+                    sc, causal, m)]
+                shares = [r["share"] for r in cs._compare(
+                    (out, *grads[t]), (p_out, *refs), tols)]
+                rec[t + "_tol_shares_out_dq_dk_dv"] = shares
+                ok &= t == "old" or all(x <= 1.0 for x in shares)
+        else:
+            ok &= all(same)
+        if timed or wide:
             for name, fn in (("fwd", f), ("bwd", bw)):
                 rec[name + "_ms_old_new_new_old"] = [
                     cs.time_ms(torch, fn[t]) for t in ("old", "new", "new",
                                                        "old")]
+        if wide:
+            rec.update(_library_and_bound(torch, cs, q, k, v, do, m, causal,
+                                          lengths, cs.BF16_FLOP_PER_S))
         print(json.dumps(rec), flush=True)
 
     def run_fp32(case, b, sq, sk, h, hk, d, causal=True, dtype="float32",
@@ -199,36 +258,17 @@ def main(old_dir):
                 rec[name + "_ms_old_new_new_old"] = [
                     cs.time_ms(torch, fn[t]) for t in ("old", "new", "new",
                                                        "old")]
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            if m is not None:
-                lib = dict(attn_mask=m if m.dtype == torch.bool
-                           else m.clamp_min(-1e30))
-            elif causal and sq != sk:
-                lib = dict(attn_mask=torch.ones(sq, sk, dtype=torch.bool,
-                                                device=dev).tril(sk - sq))
-            else:
-                lib = dict(is_causal=causal)
-            rec["sdpa_fwd_ms"] = cs.time_ms(
-                torch, lambda: sdpa(qt, kt, vt, enable_gqa=True, **lib))
-            qr, kr, vr = (x.clone().requires_grad_(True) for x in (qt, kt, vt))
-            lo = sdpa(qr, kr, vr, enable_gqa=True, **lib)
-            rec["sdpa_bwd_ms"] = cs.time_ms(torch, cs._grad_timer(
-                torch, lo, (qr, kr, vr), do.transpose(1, 2).contiguous()))
-            flops = 4 * h * cs._flash_pairs(b, sq, sk, causal, lengths) * d
-            fwd_bytes = (2 * q.numel() + 2 * k.numel()) * 4 + p_lse.numel() * 4
-            rec["bound_fwd_ms"] = cs.bound(fwd_bytes, flops,
-                                           cs.TF32X3_FLOP_PER_S)
-            rec["bound_bwd_ms"] = cs.bound(
-                (4 * q.numel() + 4 * k.numel()) * 4 + 2 * p_lse.numel() * 4,
-                5 * flops // 2, cs.TF32X3_FLOP_PER_S)
+            rec.update(_library_and_bound(torch, cs, q, k, v, do, m, causal,
+                                          lengths, cs.TF32X3_FLOP_PER_S))
         print(json.dumps(rec), flush=True)
 
     for b, sq, sk, h, hk, d, causal, dtype, timed in SHAPES:
         run_16bit("ab", b, sq, sk, h, hk, d, causal, dtype, timed=timed)
+    for c in NARROW_SHAPES:
+        run_16bit(**c)
     for c in cs.FLASH_WIDE_CASES:
         if c.get("dtype", "bfloat16") != "float32":
-            run_16bit(**c)
+            run_16bit(wide=True, **c)
         torch.cuda.empty_cache()
     for c in F32_SHAPES:
         run_fp32(**c)
@@ -240,6 +280,40 @@ def main(old_dir):
         torch, cs, dev, {"old": mixed, "new": new}, on))), flush=True)
     print(json.dumps({"ok": bool(ok)}))
     return 0 if ok else 1
+
+
+def _library_and_bound(torch, cs, q, k, v, do, m, causal, lengths, rate):
+    """SDPA's forward and backward times on the same inputs (an explicit
+    mask for a key-padding mask and for causal with sq != sk) and the
+    bound of the work at d: bytes at the memory rate or operations at
+    `rate`, whichever is longer."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if m is not None:
+        lib = dict(attn_mask=m if m.dtype == torch.bool
+                   else m.clamp_min(-1e30).to(q.dtype))
+    elif causal and sq != sk:
+        lib = dict(attn_mask=torch.ones(sq, sk, dtype=torch.bool,
+                                        device=q.device).tril(sk - sq))
+    else:
+        lib = dict(is_causal=causal)
+    rec = dict(sdpa_fwd_ms=cs.time_ms(
+        torch, lambda: sdpa(qt, kt, vt, enable_gqa=True, **lib)))
+    qr, kr, vr = (x.clone().requires_grad_(True) for x in (qt, kt, vt))
+    lo = sdpa(qr, kr, vr, enable_gqa=True, **lib)
+    rec["sdpa_bwd_ms"] = cs.time_ms(torch, cs._grad_timer(
+        torch, lo, (qr, kr, vr), do.transpose(1, 2).contiguous()))
+    flops = 4 * h * cs._flash_pairs(b, sq, sk, causal, lengths) * d
+    stats = b * h * sq * (2 if m is not None or causal and sq > sk else 1)
+    es = q.element_size()
+    rec["bound_fwd_ms"] = cs.bound(
+        (2 * q.numel() + 2 * k.numel()) * es + stats * 4, flops, rate)
+    rec["bound_bwd_ms"] = cs.bound(
+        (4 * q.numel() + 4 * k.numel()) * es + 2 * stats * 4,
+        5 * flops // 2, rate)
+    return rec
 
 
 def _vit_walls(torch, cs, dev, libs, on):
@@ -269,6 +343,6 @@ def _vit_walls(torch, cs, dev, libs, on):
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 2:
+    if len(sys.argv) < 2 or len(sys.argv) > 2 and sys.argv[2] != "--changed":
         sys.exit(__doc__)
-    sys.exit(main(sys.argv[1]))
+    sys.exit(main(sys.argv[1], tuple(sys.argv[3:])))
