@@ -263,7 +263,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              and d 40 in fp16, BERT's width with a -1e9 padding bias
              (the saved (max, log sum) pairs), and fp32 on the three-pass
              TF32 bodies: ViT-B/16's [32, 197, 12, 64], d 160 with -1e9
-             padding, d 80 causal sq > sk with a bool mask), each
+             padding, d 80 causal sq > sk with a bool mask; and the MASK
+             bodies' walk of the live key tiles: a mask keeping every
+             key, leading padding, one live key in the last tile, a dead
+             tile between live ones, causal sq < sk with leading padding,
+             each logged with its walked share of key tiles computed
+             from the mask; BERT's bool mask in fp16, on the persistent
+             forward; the bodies without a key bias at d below the width,
+             d 112 causal sq < sk and d 32 in fp16), each
              forward and backward per element
              against the plain versions and launched twice with
              identical bits, beside SDPA, each with the body the library
@@ -289,8 +296,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
              BertForMaskedLM(bert_base_config(dtype="bfloat16")) at
              64 x 512 with a keep-mask (17a's lengths) for 2 TrainStep
              steps and ERNIE-MLM for 1 (12 + 12 flash launches a step,
-             finite losses), then 15c's card-against-CPU gradients with a
-             mask.  17e: vit_b_16(num_classes=10) at batch 32 of 224x224
+             finite losses), the flash kernels' device ms in one more
+             profiled BERT step, then 15c's card-against-CPU gradients
+             with a mask.  17e: vit_b_16(num_classes=10) at batch 32 of 224x224
              for 2 AdamW steps in fp32 (12 + 12 flash launches a step),
              and a narrow ViT card against CPU (loss, every gradient).
              17c-17e's launches count toward the kernels line.
@@ -1788,15 +1796,25 @@ FLASH_EDGE_CASES = [
 ]
 
 
+def _flash_keep(lengths, sk):
+    """[len(lengths), sk] bool (numpy): sequence i keeps its first
+    lengths[i] keys, or, where lengths[i] is a list of spans (start,
+    stop), the keys in them."""
+    keep = np.zeros((len(lengths), sk), bool)
+    for i, n in enumerate(lengths):
+        for a, z in ([(0, n)] if np.isscalar(n) else n):
+            keep[i, a:z] = True
+    return keep
+
+
 def _flash_mask(torch, randn, kind, lengths, sk, dev):
-    """A key-padding mask [b, 1, 1, sk] keeping the first lengths[i] keys
-    of sequence i: bool (True = attend), or additive: N(0, 0.25) on the
+    """A key-padding mask [b, 1, 1, sk] keeping the keys `_flash_keep`
+    gives sequence i: bool (True = attend), or additive: N(0, 0.25) on the
     kept keys (a soft bias) and float32's minimum on the padding, which
     the kernels clamp to -1e30 (masked); "additive_1e9": -1e9 on the
     padding, a large finite bias that the kernels add (a fully padded
     sequence then weighs its keys alike with the twin's gradients)."""
-    keep = torch.arange(sk, device=dev)[None] \
-        < torch.tensor(lengths, device=dev)[:, None]
+    keep = torch.from_numpy(_flash_keep(lengths, sk)).to(dev)
     if kind == "bool":
         return keep[:, None, None, :]
     soft = 0.5 * randn(len(lengths), sk, dtype=torch.float32)
@@ -1808,11 +1826,77 @@ def _flash_pairs(b, sq, sk, causal, lengths=None):
     """The (row, key) pairs the function needs, batch summed: under
     causal (bottom-right) key j for row i iff j <= i + sk - sq, under a
     key-padding mask the kept keys (a row with none needs none)."""
-    lens = [sk] * b if lengths is None else lengths
+    keep = np.ones((b, sk), bool) if lengths is None \
+        else _flash_keep(lengths, sk)
     if not causal:
-        return sq * sum(lens)
-    return sum(lens.count(n) * sum(min(n, max(0, i + sk - sq + 1))
-                                   for i in range(sq)) for n in set(lens))
+        return sq * int(keep.sum())
+    # below[:, j]: the kept keys before key j
+    below = np.concatenate([np.zeros((b, 1), np.int64), keep.cumsum(1)], 1)
+    return int(below[:, np.clip(np.arange(sq) + sk - sq + 1, 0, sk)].sum())
+
+
+def _flash_kv_rows(b, sq, sk, causal, lengths=None):
+    """The K / V rows the function reads, batch summed: a sequence's live
+    keys, or all sk where a row of it has none (a fully padded sequence;
+    under causal, rows whose frontier falls before the first live key),
+    since such a row weighs every key alike."""
+    if lengths is None:
+        return b * sk
+    rows = 0
+    for kept in _flash_keep(lengths, sk):
+        at = np.nonzero(kept)[0]
+        none = len(at) == 0 or (causal and sk - sq < at[0])
+        rows += sk if none else len(at)
+    return rows
+
+
+def _flash_live(mask, lengths):
+    """The spans of live keys of a case's mask (`_flash_keep`'s
+    `lengths`): a -1e9 padding is live (only a bias at -1e30 is dead)."""
+    return None if mask == "additive_1e9" else lengths
+
+
+def _flash_walk(b, sq, sk, causal, lengths, key_tile):
+    """The share of key tiles that the bf16 / fp16 MASK bodies of width
+    64-256 walk, from the mask by the kernels' rules (csrc/
+    flash_attention_wgmma.cuh, kWideWalk): the forward's (query tiles of
+    128, key tiles of `key_tile`) and dq's (128, 64) against the whole
+    walk (fwd: every key tile; dq: the tiles up to the causal frontier),
+    and of dk/dv's key blocks of 128, against every block.  A bias row's
+    live keys span [first, end); the forward walks only their tiles
+    where every row of the query tile has one, dq always, and a dk/dv
+    block with none stores zeros where every row of the sequence has
+    one."""
+    keep = np.ones((b, sk), bool) if lengths is None \
+        else _flash_keep(lengths, sk)
+    off = sk - sq
+
+    def tiles(q0, bk):          # up to the causal frontier
+        n = -(-sk // bk)
+        last = min(q0 + 128, sq) - 1 + off
+        return n if not causal else 0 if last < 0 else min(n, last // bk + 1)
+
+    fwd = [0, 0]
+    dq = [0, 0]
+    dkv = [0, 0]
+    for kept in keep:
+        at = np.nonzero(kept)[0]
+        first, end = (int(at[0]), int(at[-1]) + 1) if len(at) else (sk, 0)
+        for q0 in range(0, sq, 128):
+            n = -(-sk // key_tile)
+            fwd[1] += n
+            if first < end and (not causal or q0 + off >= first):
+                n = min(tiles(q0, key_tile), -(-end // key_tile)) \
+                    - first // key_tile
+            fwd[0] += n
+            dq[1] += tiles(q0, 64)
+            dq[0] += max(0, min(tiles(q0, 64), -(-end // 64)) - first // 64)
+        live_rows = first < end and (not causal or off >= first)
+        for k0 in range(0, sk, 128):
+            dkv[1] += 1
+            dkv[0] += not (live_rows and (k0 >= end or k0 + 128 <= first))
+    return {name: w / max(a, 1) for name, (w, a) in
+            (("fwd", fwd), ("dq", dq), ("dkv_blocks", dkv))}
 
 
 def _flash_case(torch, ops, fa, randn, add, case, b, sq, sk, h, hk, d,
@@ -1830,12 +1914,15 @@ def _flash_case(torch, ops, fa, randn, add, case, b, sq, sk, h, hk, d,
     m = None if mask is None else _flash_mask(torch, randn, mask, lengths, sk,
                                               q.device)
     sc = d ** -0.5
-    out, lse = fa._launch_fwd(q, k, v, causal, sc, m)
+    # the key bias and its live range, built once as a call builds them
+    # (outside the kernels' timed windows)
+    keys = fa._key_bias(m, q, k, causal)
+    out, lse = fa._launch_fwd(q, k, v, causal, sc, keys)
     p_out, p_lse = ops.plain_flash_fwd(q, k, v, causal, sc, m)
-    grads = fa._launch_bwd(q, k, v, out, lse, do, causal, sc, m)
+    grads = fa._launch_bwd(q, k, v, out, lse, do, causal, sc, keys)
     if twice:
-        again = (*fa._launch_fwd(q, k, v, causal, sc, m),
-                 *fa._launch_bwd(q, k, v, out, lse, do, causal, sc, m))
+        again = (*fa._launch_fwd(q, k, v, causal, sc, keys),
+                 *fa._launch_bwd(q, k, v, out, lse, do, causal, sc, keys))
         check(all(torch.equal(x, y) for x, y in zip((out, lse, *grads),
                                                     again)),
               f"flash attention ({case}): two launches on the same inputs "
@@ -1873,10 +1960,15 @@ def _flash_case(torch, ops, fa, randn, add, case, b, sq, sk, h, hk, d,
         lib = dict(is_causal=causal)
     lib_name = "scaled_dot_product_attention(" + (
         "attn_mask" if "attn_mask" in lib else "is_causal") + ", enable_gqa)"
+    body = fa.kernel_plan(q, k, causal, m)
+    kept = _flash_live(mask, lengths)
     extra = dict(case=case, kv_heads=hk, sk=sk, causal=causal, dtype=dtype,
-                 body=fa.kernel_plan(q, k, causal, m),
-                 **({"mask": mask} if mask else {}),
+                 body=body, **({"mask": mask} if mask else {}),
                  **({"bit_identical": True} if twice else {}))
+    # bytes: q, out (and dO, dq) whole; the K / V rows the function reads
+    # (`_flash_kv_rows`: a sequence's live keys, or all of them); dk and
+    # dv written whole
+    kv = _flash_kv_rows(b, sq, sk, causal, kept) * hk * d
     # fp32 runs fp32-accurate products on the tensor cores (three TF32
     # passes each), the 16-bit dtypes at the bf16 / fp16 rate
     rate = TF32X3_FLOP_PER_S if dtype == "float32" else BF16_FLOP_PER_S
@@ -1890,13 +1982,14 @@ def _flash_case(torch, ops, fa, randn, add, case, b, sq, sk, h, hk, d,
               [out, torch.where(live, lse, 0.0)],
               [p_out, torch.where(live, p_lse, 0.0)],
               [tols[0], 1e-5 * (1.0 + p_lse.abs().where(live, 0.0))],
-              time_ms(torch, lambda: fa._launch_fwd(q, k, v, causal, sc, m)),
+              time_ms(torch, lambda: fa._launch_fwd(q, k, v, causal, sc,
+                                                    keys)),
               time_ms(torch, lambda: ops.plain_flash_fwd(q, k, v, causal, sc,
                                                          m),
                       reps=5),
               time_ms(torch, lambda: sdpa(qt, kt, vt, enable_gqa=True,
                                           **lib)),
-              lib_name, (2 * q.numel() + 2 * k.numel()) * q.element_size()
+              lib_name, (2 * q.numel() + 2 * kv) * q.element_size()
               + lse.numel() * 4, fwd_flops, rate, msq_share=msq[:1], **extra)
     del p_out, p_lse
     qr, kr, vr = (t.clone().requires_grad_(True) for t in (qt, kt, vt))
@@ -1905,12 +1998,12 @@ def _flash_case(torch, ops, fa, randn, add, case, b, sq, sk, h, hk, d,
     bwd = add("flash_attention_bwd", [b, sq, h, d], list(grads), list(refs),
               tols[1:],
               time_ms(torch, lambda: fa._launch_bwd(q, k, v, out, lse, do,
-                                                    causal, sc, m)),
+                                                    causal, sc, keys)),
               time_ms(torch, lambda: ops.plain_flash_bwd(
                   q, k, v, out, lse, do, causal, sc, m), reps=5),
               time_ms(torch, _grad_timer(torch, lib_out, (qr, kr, vr), dot)),
               lib_name.replace("(", " backward ("),
-              (4 * q.numel() + 4 * k.numel()) * q.element_size()
+              (4 * q.numel() + 2 * kv + 2 * k.numel()) * q.element_size()
               + 2 * lse.numel() * 4, 5 * fwd_flops // 2, rate,
               msq_share=msq[1:], **extra)
     log(f"[train-kernels] flash {case}: kernel / SDPA forward "
@@ -4006,7 +4099,10 @@ def _flash_plain_on_cpu(ops):
     rounding points on the CPU, a key-padding mask included."""
     fa = ops.kernel_module("flash_attention")
     saved = ops.attention, fa._launch_fwd, fa._launch_bwd
-    fa._launch_fwd, fa._launch_bwd = ops.plain_flash_fwd, ops.plain_flash_bwd
+    # the launches take the call's keys (`_key_bias`), the plain versions
+    # its mask
+    fa._launch_fwd = lambda *a: ops.plain_flash_fwd(*a[:-1], a[-1].mask)
+    fa._launch_bwd = lambda *a: ops.plain_flash_bwd(*a[:-1], a[-1].mask)
 
     def attention(q, k, v, mask=None, causal=False, scale=None):
         return fa._FlashAttention.apply(q, k, v, bool(causal),
@@ -4665,6 +4761,38 @@ FLASH_WIDE_CASES = [
     dict(case="bert, -1e9 key padding", b=16, sq=512, sk=512, h=12, hk=12,
          d=64, causal=False, mask="additive_1e9",
          lengths=_BERT_LENGTHS[:16]),
+    # the MASK bodies' walk of the live key tiles (`_flash_walk`): a mask
+    # that keeps every key (the whole walk, which the skipping is read
+    # against), leading padding, one live key in the last tile, a dead
+    # tile between live ones (walked), and causal sq < sk with leading
+    # padding, so that the first rows of some sequences have no live key
+    # (a span list per sequence: `_flash_keep`)
+    dict(case="bert, bool mask keeping every key", b=64, sq=512, sk=512,
+         h=12, hk=12, d=64, causal=False, mask="bool", lengths=[512] * 64),
+    dict(case="bert, leading padding", b=16, sq=512, sk=512, h=12, hk=12,
+         d=64, causal=False, mask="bool",
+         lengths=[[(512 - n, 512)] for n in _BERT_LENGTHS[:16]]),
+    dict(case="one live key in the last tile", b=8, sq=512, sk=512, h=12,
+         hk=12, d=64, causal=False, mask="bool",
+         lengths=[[(400 + 13 * i, 401 + 13 * i)] for i in range(8)]),
+    dict(case="a dead tile between live ones", b=8, sq=512, sk=512, h=12,
+         hk=12, d=64, causal=False, mask="additive",
+         lengths=[[(0, 100), (300, 512)], [(0, 128), (256, 512)]] * 4),
+    dict(case="causal sq < sk, leading padding", b=4, sq=512, sk=1024,
+         h=16, hk=4, d=128, mask="bool",
+         lengths=[[(600, 1024)], 1024, [(900, 1000)], 0]),
+    # the fp16 persistent forward (csrc/flash_attention_wgmma.cuh,
+    # flash_fwd_wgmma's PERSIST: a key bias and six work tiles an SM or
+    # more) at BERT's bool padding
+    dict(case="bert, bool key-padding mask, fp16", b=64, sq=512, sk=512,
+         h=12, hk=12, d=64, causal=False, dtype="float16", mask="bool",
+         lengths=_BERT_LENGTHS),
+    # the grid bodies without a key bias at d below the width (kWideWalk):
+    # causal sq < sk in bf16, and fp16
+    dict(case="d112 causal sq < sk", b=8, sq=1024, sk=2048, h=16, hk=4,
+         d=112),
+    dict(case="d32, fp16", b=16, sq=1024, sk=1024, h=12, hk=12, d=32,
+         causal=False, dtype="float16"),
     # fp32 (the three-pass TF32 bodies): ViT-B/16's attention as 17e
     # trains it, and a masked width of the widened domain
     dict(case="vit-b/16 fp32", b=32, sq=197, sk=197, h=12, hk=12, d=64,
@@ -4694,6 +4822,13 @@ FLASH_WIDE_BODIES = {
     "causal sq < sk": (128, 128, 1), "causal sq > sk": (128, 128, 1),
     "d16": (16, 128, 1), "d40 causal, fp16": (48, 128, 1),
     "bert, -1e9 key padding": (64, 128, 1),
+    "bert, bool mask keeping every key": (64, 128, 1),
+    "bert, leading padding": (64, 128, 1),
+    "one live key in the last tile": (64, 128, 1),
+    "a dead tile between live ones": (64, 128, 1),
+    "causal sq < sk, leading padding": (128, 128, 1),
+    "bert, bool key-padding mask, fp16": (64, 128, 1),
+    "d112 causal sq < sk": (128, 128, 1), "d32, fp16": (64, 128, 1),
     "vit-b/16 fp32": (64, 0, 0), "d160 fp32, -1e9 key padding": (192, 0, 0),
     "d80 fp32 causal sq > sk, bool mask": (128, 0, 0),
 }
@@ -4724,7 +4859,18 @@ def phase_wide_kernels(torch, ops, dev):
         fwd, _ = _flash_case(torch, ops, fa, randn, add, twice=True, **case)
         body = fwd["body"]
         want = FLASH_WIDE_BODIES[case["case"]]
-        log(f"[wide-kernels] flash {case['case']}: body {body}")
+        # the MASK bodies of width 64-256: the share of key tiles their
+        # live-key walk takes, computed from the mask (not measured)
+        causal = case.get("causal", True)
+        biased = case.get("mask") or (causal and case["sq"] > case["sk"])
+        walk = ""
+        if biased and case.get("dtype") != "float32" and not body["narrow"]:
+            walk = ", walked share of key tiles computed from the mask " + \
+                json.dumps(_flash_walk(
+                    case["b"], case["sq"], case["sk"], causal,
+                    _flash_live(case.get("mask"), case.get("lengths")),
+                    body["key_tile"]))
+        log(f"[wide-kernels] flash {case['case']}: body {body}{walk}")
         check((body["width"], body["key_tile"], body["dkv_chunks"]) == want
               and body["narrow"] == (want[0] % 64 != 0),
               f"flash attention ({case['case']}) runs the body {body}, not "
@@ -4968,6 +5114,17 @@ def _masked_bert(torch, ops, dev):
         recs[name] = dict(layers=cfg.num_hidden_layers, batch=b, seq=sq,
                           kept_tokens=int(keep.sum()), losses=losses,
                           steps=steps, wall_s=wall, launches=counts)
+        if name == "bert":
+            # one more step under the profiler (after the counted ones):
+            # the flash kernels' device ms in it, beside the step's
+            trace = train_trace(
+                torch, lambda *_: step(ids, types, keep, labels), None,
+                1e3 * wall / steps)
+            recs[name].update(
+                flash_device_ms=trace["by_kind_ms"]["flash_attention"],
+                flash_kernels=trace["events"]["flash_attention"],
+                step_device_ms=trace["device_ms"],
+                busy_share=trace["busy_share"])
         total = counts if total is None else {k: total[k] + counts[k]
                                               for k in total}
         del step, model

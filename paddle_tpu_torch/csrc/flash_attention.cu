@@ -97,6 +97,33 @@
 //     and dV into 2 chunks of 96 (from columns 0 and 64), not 3 of 64.
 //     Causal grids launch heaviest first: the last query tiles (fwd,
 //     dq) and the first key tiles (dkv) get the lowest block indices.
+//     The bodies of width 64-256 outside FIT (`kWideWalk`: every MASK
+//     body, and those without a bias at d below the width, under
+//     bottom-right causal or at 192 / 256) walk less and keep more in L2:
+//       - the wrapper hands them each bias row's live keys [first, end)
+//         (a dead key's bias is -1e30: a bool mask's padding, an
+//         additive one's at or below it).  fwd walks only the key tiles
+//         between them where every row of the block has a live key (a
+//         block with a row that has none still walks every tile for its
+//         uniform weights); dq only those, always (such a row's p is 0);
+//         a dk/dv block with no live key stores zeros where every row
+//         has a live key, and under causal skips the rows before its
+//         frontier then.  A tile of dead keys adds p = 0 and rescales
+//         by 1, so the bits are those of the whole walk;
+//       - they test a cut tile once a tile (two copies of the loop over
+//         scores), not once a score;
+//       - without causal their grids launch the query tiles (dkv: the
+//         key tiles) of one (batch, head) next to each other: at
+//         BERT-base's [64, 512, 12, 64] the 768 heads' K and V (96 MB)
+//         outgrow the 50 MB L2, and head-minor order read each head's K
+//         and V from device memory once a query tile.  Under causal they
+//         keep the heaviest tiles of every head first (head-major order
+//         cost d192 / d256 causal 17-21%);
+//       - the MASK bodies of width 64 and 128, where a call has six work
+//         tiles an SM or more, launch their forward persistent
+//         (flash_fwd_wgmma's PERSIST): one block an SM walks the tiles in
+//         that order and loads the next tile's Q and first K / V stage
+//         under the current one's epilogue.
 //     What is left between these kernels and the card: the forward's
 //     exp and softmax instructions per product (it reaches ~1/3 of the
 //     tensor peak where the backward, with more products per exp,
@@ -186,6 +213,13 @@ bool bad_shape(int B, int sq, int sk, int h, int hk, int d, int bstride,
          (causal && sq > sk && bias == nullptr);
 }
 
+// a key bias comes with its live range (8-byte aligned int pairs), and
+// no range without one
+bool bad_range(const void* bias, const void* range) {
+  return (bias == nullptr) != (range == nullptr) ||
+         reinterpret_cast<uintptr_t>(range) % 8;
+}
+
 }  // namespace
 
 // q [B, sq, h, d], k/v [B, sk, hk, d], out like q, lse [B, h, sq] fp32
@@ -194,20 +228,28 @@ bool bad_shape(int B, int sq, int sk, int h, int hk, int d, int bstride,
 // to 256.  bias: nullptr, or the fp32 key bias, row b at bias + b *
 // bstride (bstride 0: one row for every batch; a multiple of 128),
 // 16-byte aligned and readable up to sk rounded up to 128; causal with
-// sq > sk needs one.
+// sq > sk needs one.  range: with a bias, its rows' live keys as int32
+// pairs (sk - first, end), (0, 0) for a row with none, row b at range +
+// 2 b (2 b when bstride > 0, else one pair): ops/flash_attention.py::
+// _key_range; nullptr without a bias.
 extern "C" int ptt_flash_fwd(int device, int dtype, const void* q,
                              const void* k, const void* v, const void* bias,
-                             void* out, void* lse, int B, int sq, int sk,
-                             int h, int hk, int d, int bstride, float scale,
-                             int causal, void* stream) {
+                             const void* range, void* out, void* lse, int B,
+                             int sq, int sk, int h, int hk, int d,
+                             int bstride, float scale, int causal,
+                             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (bad_shape(B, sq, sk, h, hk, d, bstride, bias, causal) || !ptt::aligned16(q) ||
-      !ptt::aligned16(k) || !ptt::aligned16(v) || !ptt::aligned16(out))
+  if (bad_shape(B, sq, sk, h, hk, d, bstride, bias, causal) ||
+      bad_range(bias, range) || !ptt::aligned16(q) || !ptt::aligned16(k) ||
+      !ptt::aligned16(v) || !ptt::aligned16(out))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Shape s{B,     sq,     sk,
-                h,     hk,     d,
-                scale, causal, static_cast<const float*>(bias),
+  const Shape s{B,      sq,
+                sk,     h,
+                hk,     d,
+                scale,  causal,
+                static_cast<const float*>(bias),
+                static_cast<const int*>(range),
                 bstride};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PTT_FWD(W, M, F) fwd<T, W, M, F>(s, q, k, v, out, lse, st)
@@ -226,22 +268,26 @@ extern "C" int ptt_flash_fwd(int device, int dtype, const void* q,
 // dq (with delta), then dk/dv (fp32: in clusters of `dkv_splits`).
 extern "C" int ptt_flash_bwd(int device, int dtype, const void* q,
                              const void* k, const void* v, const void* bias,
-                             const void* out, const void* dout,
-                             const void* lse, void* delta, void* dq,
-                             void* dk, void* dv, int B, int sq, int sk, int h,
-                             int hk, int d, int bstride, float scale,
-                             int causal, void* stream) {
+                             const void* range, const void* out,
+                             const void* dout, const void* lse, void* delta,
+                             void* dq, void* dk, void* dv, int B, int sq,
+                             int sk, int h, int hk, int d, int bstride,
+                             float scale, int causal, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (bad_shape(B, sq, sk, h, hk, d, bstride, bias, causal) || !ptt::aligned16(q) ||
+  if (bad_shape(B, sq, sk, h, hk, d, bstride, bias, causal) ||
+      bad_range(bias, range) || !ptt::aligned16(q) ||
       !ptt::aligned16(k) || !ptt::aligned16(v) || !ptt::aligned16(out) ||
       !ptt::aligned16(dout) || !ptt::aligned16(lse) ||
       !ptt::aligned16(delta) || !ptt::aligned16(dq) || !ptt::aligned16(dk) ||
       !ptt::aligned16(dv))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Shape s{B,     sq,     sk,
-                h,     hk,     d,
-                scale, causal, static_cast<const float*>(bias),
+  const Shape s{B,      sq,
+                sk,     h,
+                hk,     d,
+                scale,  causal,
+                static_cast<const float*>(bias),
+                static_cast<const int*>(range),
                 bstride};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PTT_BWD(W, M, F) \
@@ -270,7 +316,7 @@ extern "C" int ptt_flash_plan(int dtype, int sq, int sk, int d, int biased,
   if (dtype < ptt::kF32 || dtype > ptt::kF16 ||
       bad_shape(1, sq, sk, 1, 1, d, 0, bias, causal))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Shape s{1, sq, sk, 1, 1, d, 1.f, causal, bias, 0};
+  const Shape s{1, sq, sk, 1, 1, d, 1.f, causal, bias, nullptr, 0};
   const int narrow = dtype == ptt::kF32 ? 0 : narrow_width(d);
   for (int i = 0; i < 8; ++i) p[i] = 0;
   p[0] = narrow ? narrow : body_width(d);

@@ -36,6 +36,32 @@ __device__ __forceinline__ int live_key_tiles(int q0, int rows, int sq,
   return last < 0 ? 0 : min(all, last / bk + 1);
 }
 
+// The live keys of a key-bias row (ops/flash_attention.py::_key_range):
+// [first, end) spans every key whose bias is above -1e30 (a dead key's
+// is -1e30: a bool mask's padding, an additive one's at or below it; a
+// finite bias such as -1e9 is live), first >= end for a row with none.
+// `range` holds each row's (sk - first, end), (0, 0) for none, row b at
+// 2 b (bstride 0: one row for every batch).
+struct KeyRange {
+  int first, end;
+  // whether every row whose causal frontier (its last live key) is at or
+  // past `frontier` has a live key (without causal: every row)
+  __device__ __forceinline__ bool all_live(int causal, int frontier) const {
+    return first < end && (!causal || frontier >= first);
+  }
+  // the key tiles of bk keys [tile0, tile_end) that hold the live keys
+  __device__ __forceinline__ int tile0(int bk) const { return first / bk; }
+  __device__ __forceinline__ int tile_end(int bk) const {
+    return (end + bk - 1) / bk;
+  }
+};
+
+__device__ __forceinline__ KeyRange key_range(const int* range, int b,
+                                              int bstride, int sk) {
+  const int2 r = reinterpret_cast<const int2*>(range)[bstride ? b : 0];
+  return {sk - r.x, r.y};
+}
+
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -147,6 +173,7 @@ struct Shape {
   float scale;
   int causal;
   const float* bias;   // [B or 1, bstride] fp32 key bias, or nullptr
+  const int* range;    // [B or 1, 2] its live keys (key_range), or nullptr
   int bstride;
 };
 

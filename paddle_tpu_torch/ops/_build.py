@@ -61,10 +61,10 @@ _SIGNATURES = {
                             _F, _I, _P),
     "ptt_paged_attention_body": (_I, _I, _I, _P, _P, _P),
     "ptt_paged_attention_plan": (_I, _I, _I, _I, _I, _I, _P),
-    "ptt_flash_fwd": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _I, _I, _F, _I, _P),
+    "ptt_flash_fwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _I, _I, _I, _F, _I, _P),
     "ptt_flash_bwd": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+                      _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "ptt_flash_plan": (_I, _I, _I, _I, _I, _I, _P),
     "ptt_fused_adamw": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _LL, _F, _F,
                         _F, _F, _F, _F, _F, _F, _F, _I, _P),

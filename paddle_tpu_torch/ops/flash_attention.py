@@ -61,11 +61,19 @@ whose every logit is masked, by causal and by an additive bias below
 about -4e22 (where -1e30 plus the bias is no longer -1e30 in fp32), is
 weighed by its bias in the twin and uniformly in the kernels.
 
+A call with a key bias builds it once (`_key_bias`: `_FlashAttention`
+hands the forward's to the backward), with each bias row's live keys
+[first, end) (`_key_range`, on the device, no host sync): the bf16 /
+fp16 bodies of width 64-256 walk only the key tiles between them where
+every row of a tile has a live key, with the bits of the whole walk.
+
 Dropout is not ported (dropout_p > 0 raises NotImplementedError).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -210,18 +218,22 @@ def attention(q, k, v, mask=None, causal=False, scale=None, dropout_p=0.0):
 
 
 class _FlashAttention(torch.autograd.Function):
+    """The kernels under autograd: the key bias and its live range are
+    built once a call (`_key_bias`) and handed to both launches."""
+
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, mask=None):
-        out, lse = _launch_fwd(q, k, v, causal, scale, mask)
+        keys = _key_bias(mask, q, k, causal)
+        out, lse = _launch_fwd(q, k, v, causal, scale, keys)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale, ctx.mask = causal, scale, mask
+        ctx.causal, ctx.scale, ctx.keys = causal, scale, keys
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _launch_bwd(q, k, v, out, lse, dout.contiguous(),
-                                 ctx.causal, ctx.scale, ctx.mask)
+                                 ctx.causal, ctx.scale, ctx.keys)
         return (dq, dk, dv) + (None,) * (len(ctx.needs_input_grad) - 3)
 
 
@@ -259,17 +271,28 @@ def _check(q, k, v, *more):
             _build.dtype_code(q.dtype))
 
 
+class _Keys(NamedTuple):
+    """The keys of a call (`_key_bias`): its mask, and what the kernels
+    take for it."""
+    mask: Optional[torch.Tensor]    # the call's mask, or None
+    bias: Optional[torch.Tensor]    # fp32 [b or 1, skp], or None
+    live: Optional[torch.Tensor]    # int32 [b or 1, 2] (`_key_range`)
+    stride: int                     # the bias's row stride, 0: one row
+
+
 def _key_bias(mask, q, k, causal):
-    """(tensor, pointer, row stride) of the kernels' key bias for
-    `mask`: fp32 [b or 1, skp], skp = sk rounded up to 128 (the kernels
-    read whole key tiles), a bool mask as 0 / NEG_INF, an additive one
+    """The kernels' key bias for `mask` and its live range (`_Keys`):
+    fp32 [b or 1, skp], skp = sk rounded up to 128 (the kernels read
+    whole key tiles), a bool mask as 0 / NEG_INF, an additive one
     clamped at NEG_INF; the row stride 0 for one row shared by the
-    batch.  Without a mask none, (None, None, 0), except under causal
-    with sq > sk, whose first rows have no live key: only the kernels'
-    bias bodies handle those, so they get a zero bias."""
+    batch.  Without a mask none, except under causal with sq > sk,
+    whose first rows have no live key: only the kernels' bias bodies
+    handle those, so they get a zero bias.  Built on the device without
+    a host sync, once a call (`_FlashAttention`), and handed to both
+    launches."""
     sk = k.shape[1]
     if not _biased(mask, q, k, causal):
-        return None, None, 0
+        return _Keys(mask, None, None, 0)
     mb = 1 if mask is None else mask.shape[0]
     skp = -(-sk // 128) * 128
     bias = torch.zeros((mb, skp), dtype=torch.float32, device=q.device)
@@ -280,7 +303,26 @@ def _key_bias(mask, q, k, causal):
             bias[:, :sk].masked_fill_(~m, NEG_INF)
         else:
             torch.clamp_min(m.float(), NEG_INF, out=bias[:, :sk])
-    return bias, bias.data_ptr(), skp if mb > 1 else 0
+    return _Keys(mask, bias, _key_range(bias, sk), skp if mb > 1 else 0)
+
+
+@functools.lru_cache(maxsize=32)
+def _key_weights(sk, device):
+    """int32 [2, sk]: sk - j and j + 1 for key j (`_key_range`)."""
+    j = torch.arange(sk, dtype=torch.int32, device=device)
+    return torch.stack((sk - j, j + 1))
+
+
+def _key_range(bias, sk):
+    """int32 [rows, 2] of a key bias [rows, >= sk]: each row's
+    (sk - first, end), where [first, end) spans its live keys (a bias
+    above NEG_INF; a bool mask's padding and an additive one's at or
+    below NEG_INF are dead, a finite bias such as -1e9 is live), and
+    (0, 0) for a row with none.  The kernels walk only the key tiles in
+    that span (csrc/flash_attention.cuh::key_range).  Three launches:
+    the live keys, their weights, the weights' max a row."""
+    live = bias[:, :sk] > NEG_INF
+    return (live[:, None, :] * _key_weights(sk, bias.device)).amax(-1)
 
 
 # ptt_flash_plan's fields (csrc/flash_attention.cu)
@@ -305,31 +347,38 @@ def kernel_plan(q, k, causal=False, mask=None):
     return got
 
 
-def _launch_fwd(q, k, v, causal, scale, mask=None):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_fwd(q, k, v, causal, scale, keys):
+    """(out, lse) from the forward kernel; `keys`: the call's
+    `_key_bias`."""
     dev, code = _check(q, k, v)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
-    bias, bptr, bstride = _key_bias(mask, q, k, causal)
     out = torch.empty_like(q)
     # with a key bias: each row's max and log sum (`_stats`)
-    lse = torch.empty((b, h, sq) + ((2,) if bias is not None else ()),
+    lse = torch.empty((b, h, sq) + ((2,) if keys.bias is not None else ()),
                       dtype=torch.float32, device=q.device)
     rc = _build.library().ptt_flash_fwd(
-        dev, code, q.data_ptr(), k.data_ptr(), v.data_ptr(), bptr,
-        out.data_ptr(), lse.data_ptr(), b, sq, sk, h, hk, d, bstride, scale,
-        int(causal), _build.stream_of(q.device))
+        dev, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _ptr(keys.bias), _ptr(keys.live), out.data_ptr(), lse.data_ptr(), b,
+        sq, sk, h, hk, d, keys.stride, scale, int(causal),
+        _build.stream_of(q.device))
     _build.check(rc, "flash_attention")
     launches["flash_attention"] += 1
     return out, lse
 
 
-def _launch_bwd(q, k, v, out, lse, dout, causal, scale, mask=None):
+def _launch_bwd(q, k, v, out, lse, dout, causal, scale, keys):
+    """(dq, dk, dv) from the backward kernels; `keys`: the forward's
+    `_key_bias`."""
     dev, code = _check(q, k, v, out, dout)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
-    bias, bptr, bstride = _key_bias(mask, q, k, causal)
     _build.require(
-        lse.shape == (b, h, sq) + ((2,) if bias is not None else ())
+        lse.shape == (b, h, sq) + ((2,) if keys.bias is not None else ())
         and lse.dtype == torch.float32 and lse.is_contiguous(),
         "flash_attention kernel: lse must be the forward's fp32 [b, h, sq] "
         "([b, h, sq, 2] with a mask or causal sq > sk)", lse)
@@ -338,10 +387,11 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, scale, mask=None):
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     rc = _build.library().ptt_flash_bwd(
-        dev, code, q.data_ptr(), k.data_ptr(), v.data_ptr(), bptr,
-        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, hk, d,
-        bstride, scale, int(causal), _build.stream_of(q.device))
+        dev, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _ptr(keys.bias), _ptr(keys.live), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, sq, sk, h, hk, d, keys.stride, scale, int(causal),
+        _build.stream_of(q.device))
     _build.check(rc, "flash_attention_bwd")
     launches["flash_attention_bwd"] += 1
     return dq, dk, dv

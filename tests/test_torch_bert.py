@@ -255,8 +255,12 @@ def test_masked_mlm_loss_and_grads_match_reference(monkeypatch, route):
     import paddle_tpu_torch.ops as tops
     if route == "flash_function":
         fa = tops.kernel_module("flash_attention")
-        monkeypatch.setattr(fa, "_launch_fwd", tops.plain_flash_fwd)
-        monkeypatch.setattr(fa, "_launch_bwd", tops.plain_flash_bwd)
+        # the launches take the call's keys (`_key_bias`), the plain
+        # versions its mask
+        monkeypatch.setattr(fa, "_launch_fwd", lambda *a:
+                            tops.plain_flash_fwd(*a[:-1], a[-1].mask))
+        monkeypatch.setattr(fa, "_launch_bwd", lambda *a:
+                            tops.plain_flash_bwd(*a[:-1], a[-1].mask))
         monkeypatch.setattr(
             tops, "attention",
             lambda q, k, v, mask=None, causal=False, scale=None:
@@ -476,9 +480,9 @@ def test_attention_mask_off_the_cpu_raises(monkeypatch):
     fa = tops.kernel_module("flash_attention")
     seen, launch = [], fa._launch_fwd
 
-    def spy(q, k, v, causal, scale, mask=None):
-        seen.append(mask)
-        return launch(q, k, v, causal, scale, mask)
+    def spy(q, k, v, causal, scale, keys):
+        seen.append(keys.mask)
+        return launch(q, k, v, causal, scale, keys)
 
     def never(*a, **k):
         raise AssertionError("the plain attention ran off the CPU")

@@ -104,16 +104,37 @@ CASES = [
     ("d8_gqa", 2, 20, 20, 4, 2, 8, False, None, None),
     ("d72_causal", 1, 24, 24, 2, 2, 72, True, None, None),
     ("d152_bool_mask_cross", 2, 16, 40, 2, 1, 152, False, "bool", [40, 13]),
+    # the kept keys as spans (start, stop): leading padding, one live key
+    # last, a hole of dead keys between live ones, and under causal sq <
+    # sk leading padding that leaves the first rows no live key
+    ("bool_mask_leading", 3, 20, 24, 2, 2, 64, False, "bool",
+     [[(7, 24)], [(23, 24)], 0]),
+    ("bool_mask_hole", 2, 16, 24, 2, 1, 64, False, "bool",
+     [[(0, 5), (19, 24)], [(3, 4), (20, 22)]]),
+    ("bool_mask_causal_leading", 2, 16, 24, 2, 2, 64, True, "bool",
+     [[(14, 24)], 24]),
+    ("padding_1e9_leading", 2, 16, 20, 2, 2, 64, False, "additive_1e9",
+     [[(6, 20)], 0]),
 ]
 IDS = [c[0] for c in CASES]
 
 
+def _keep(lengths, sk):
+    """[len(lengths), sk] bool: entry i keeps the first lengths[i] keys,
+    or, a list of spans (start, stop), the keys in them."""
+    keep = np.zeros((len(lengths), sk), bool)
+    for i, n in enumerate(lengths):
+        for a, z in ([(0, n)] if np.isscalar(n) else n):
+            keep[i, a:z] = True
+    return keep
+
+
 def _inputs(case, seed):
     """q, k, v, dO and the mask (numpy, None without one): the bool mask
-    keeps the first lengths[i] keys of sequence i (0: a fully padded
+    keeps the keys `_keep` gives sequence i (none: a fully padded
     sequence); the additive one adds N(0, 0.25) on the kept keys and
     -1e4 on the padding (a sequence keeps some key), "additive_1e9"
-    -1e9 on the padding (0: a fully padded sequence)."""
+    -1e9 on the padding (none kept: a fully padded sequence)."""
     _, b, sq, sk, h, hk, d, _, kind, lengths = case
     rng = np.random.RandomState(seed)
     q = rng.randn(b, sq, h, d).astype(np.float32)
@@ -122,7 +143,7 @@ def _inputs(case, seed):
     do = rng.randn(b, sq, h, d).astype(np.float32)
     mask = None
     if kind is not None:
-        keep = np.arange(sk)[None] < np.asarray(lengths)[:, None]
+        keep = _keep(lengths, sk)
         if kind == "bool":
             mask = keep[:, None, None, :]
         else:
@@ -260,7 +281,7 @@ def _twin_16bit(case, dt, seed):
 @pytest.mark.parametrize("case", [c for c in CASES if c[0] in (
     "d80", "d160_gqa_cross", "d256_gqa_causal", "bool_mask",
     "additive_mask", "causal_sq_gt_sk", "causal_sq_lt_sk_d256",
-    "padding_1e9") + NARROW_IDS],
+    "padding_1e9", "bool_mask_causal_leading") + NARROW_IDS],
     ids=lambda c: c[0])
 def test_plain_flash_matches_the_twin_bf16(case):
     """In bf16: the forward against the twin at one bf16 ulp of the
@@ -299,23 +320,27 @@ def test_causal_logit_is_masked_whatever_its_bias():
     "d40_gqa_causal", "d192_gqa", "bool_mask", "additive_mask",
     "causal_sq_gt_sk", "causal_sq_gt_sk_bool_mask", "padding_1e9",
     "padding_1e9_gqa_causal_d80", "d16_cross77", "d40_gqa_cross77",
-    "d80_cross77", "d160_cross77", "d152_bool_mask_cross")],
+    "d80_cross77", "d160_cross77", "d152_bool_mask_cross",
+    "bool_mask_hole")],
     ids=lambda c: c[0])
 def test_flash_function_with_plain_launches(monkeypatch, case):
     """`_FlashAttention` with `_launch_fwd` / `_launch_bwd` replaced by
     the plain functions: its gradients equal native autograd of the
-    plain attention, masks and offsets included, and the mask reaches
+    plain attention, masks and offsets included, and the mask and the
+    key bias built once (`_key_bias`, the same `_Keys` object) reach
     both launches."""
-    seen = []
+    seen, keys_seen = [], []
 
-    def fwd(q, k, v, causal, scale, mask=None):
-        seen.append(mask)
-        return tops.plain_flash_fwd(q, k, v, causal, scale, mask)
+    def fwd(q, k, v, causal, scale, keys):
+        seen.append(keys.mask)
+        keys_seen.append(keys)
+        return tops.plain_flash_fwd(q, k, v, causal, scale, keys.mask)
 
-    def bwd(q, k, v, out, lse, dout, causal, scale, mask=None):
-        seen.append(mask)
+    def bwd(q, k, v, out, lse, dout, causal, scale, keys):
+        seen.append(keys.mask)
+        keys_seen.append(keys)
         return tops.plain_flash_bwd(q, k, v, out, lse, dout, causal, scale,
-                                    mask)
+                                    keys.mask)
 
     monkeypatch.setattr(fa, "_launch_fwd", fwd)
     monkeypatch.setattr(fa, "_launch_bwd", bwd)
@@ -334,6 +359,9 @@ def test_flash_function_with_plain_launches(monkeypatch, case):
     want = grads(lambda a, b, c: tops.plain_attention(a, b, c, mask=tm,
                                                       causal=causal))
     assert len(seen) == 2 and all(m is tm for m in seen)
+    assert keys_seen[0] is keys_seen[1]
+    assert (keys_seen[0].bias is None) == (
+        tm is None and not (causal and case[2] > case[3]))
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=F32_GRAD, rtol=F32_GRAD)
 
@@ -347,13 +375,15 @@ def _view(ptr, shape, dtype):
 class _BiasLib:
     """Stands in for the kernel library's flash entry points: checks
     each call's arguments against `_build._SIGNATURES`, reads the key
-    bias it was handed, and writes the plain math's results."""
+    bias and its live range it was handed, and writes the plain math's
+    results."""
 
     CTYPE = {ctypes.c_void_p: int, ctypes.c_int: int, ctypes.c_float: float}
     DTYPE = {code: dt for dt, code in _build.DTYPE_CODES.items()}
 
     def __init__(self):
         self.bias = []
+        self.ptrs = []          # (bias, range) pointers a call
 
     def _record(self, name, args):
         sig = _build._SIGNATURES[name]
@@ -362,22 +392,25 @@ class _BiasLib:
             assert type(a) is self.CTYPE[c] or (
                 a is None and c is ctypes.c_void_p), (name, a, c)
 
-    def _read_bias(self, ptr, b, sk, bstride):
+    def _read_bias(self, ptr, rng, b, sk, bstride):
+        self.ptrs.append((ptr, rng))
+        assert (ptr is None) == (rng is None)
         if ptr is None:
             self.bias.append(None)
             return None
         rows = b if bstride else 1
         skp = bstride or -(-sk // 128) * 128
         full = _view(ptr, (rows, skp), torch.float32).clone()
-        self.bias.append((full, bstride))
+        live = _view(rng, (rows, 2), torch.int32).clone()
+        self.bias.append((full, bstride, live))
         return full
 
     def ptt_flash_fwd(self, *args):
         self._record("ptt_flash_fwd", args)
-        dev, code, q, k, v, bias, out, lse, b, sq, sk, h, hk, d, bstride, \
-            scale, causal, stream = args
+        dev, code, q, k, v, bias, rng, out, lse, b, sq, sk, h, hk, d, \
+            bstride, scale, causal, stream = args
         dt = self.DTYPE[code]
-        full = self._read_bias(bias, b, sk, bstride)
+        full = self._read_bias(bias, rng, b, sk, bstride)
         m = None if full is None else full[:, None, None, :sk]
         o, l = tops.plain_flash_fwd(
             _view(q, (b, sq, h, d), dt), _view(k, (b, sk, hk, d), dt),
@@ -388,10 +421,10 @@ class _BiasLib:
 
     def ptt_flash_bwd(self, *args):
         self._record("ptt_flash_bwd", args)
-        dev, code, q, k, v, bias, out, dout, lse, delta, dq, dk, dv, b, sq, \
-            sk, h, hk, d, bstride, scale, causal, stream = args
+        dev, code, q, k, v, bias, rng, out, dout, lse, delta, dq, dk, dv, b, \
+            sq, sk, h, hk, d, bstride, scale, causal, stream = args
         dt = self.DTYPE[code]
-        full = self._read_bias(bias, b, sk, bstride)
+        full = self._read_bias(bias, rng, b, sk, bstride)
         m = None if full is None else full[:, None, None, :sk]
         qs, ks = (b, sq, h, d), (b, sk, hk, d)
         o, g = _view(out, qs, dt), _view(dout, qs, dt)
@@ -413,7 +446,8 @@ def test_launch_hands_the_kernels_the_key_bias(monkeypatch, kind, mb):
     key bias fp32 [b or 1, skp] (skp = sk rounded up to 128, 0 past sk),
     0 / -1e30 for a bool mask, the additive values clamped at -1e30, the
     row stride skp (0 for a mask shared by the batch, and no pointer
-    without a mask); the results equal the plain versions'."""
+    without a mask), and its live range int32 [b or 1, 2] (`_live_spans`);
+    the results equal the plain versions'."""
     lib = _BiasLib()
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "cuda_device_index", lambda *t: 0)
@@ -436,18 +470,20 @@ def test_launch_hands_the_kernels_the_key_bias(monkeypatch, kind, mb):
         vals[0, 5] = -3e38
         mask = vals[:, None, None, :]
         want = vals.clamp_min(-1e30)
-    out, lse = fa._launch_fwd(q, k, v, False, 0.2, mask)
-    grads = fa._launch_bwd(q, k, v, out, lse, do, False, 0.2, mask)
+    keys = fa._key_bias(mask, q, k, False)
+    out, lse = fa._launch_fwd(q, k, v, False, 0.2, keys)
+    grads = fa._launch_bwd(q, k, v, out, lse, do, False, 0.2, keys)
     assert len(lib.bias) == 2
     for got in lib.bias:
         if kind is None:
             assert got is None
             continue
-        full, bstride = got
+        full, bstride, live = got
         assert full.shape == (mb, 256)
         assert bstride == (256 if mb > 1 else 0)
         assert torch.equal(full[:, :sk], want)
         assert (full[:, sk:] == 0).all()
+        assert live.tolist() == _live_spans(want.numpy() > -1e30)
     p_out, p_lse = tops.plain_flash_fwd(q, k, v, False, 0.2, mask)
     assert torch.equal(out, p_out) and torch.equal(lse, p_lse)
     for g, w in zip(grads, tops.plain_flash_bwd(q, k, v, out, lse, do,
@@ -467,12 +503,121 @@ def test_causal_with_more_rows_than_keys_gets_a_zero_bias(monkeypatch):
     for sq, sk in ((9, 5), (5, 9)):
         q = torch.from_numpy(rng.randn(2, sq, 2, 16).astype(np.float32))
         k = torch.from_numpy(rng.randn(2, sk, 2, 16).astype(np.float32))
-        out, lse = fa._launch_fwd(q, k, k, True, 0.25)
+        out, lse = fa._launch_fwd(q, k, k, True, 0.25,
+                                  fa._key_bias(None, q, k, True))
         p_out, p_lse = tops.plain_flash_fwd(q, k, k, True, 0.25)
         assert torch.equal(out, p_out) and torch.equal(lse, p_lse)
-    (full, bstride), none = lib.bias
+    (full, bstride, live), none = lib.bias
     assert none is None and bstride == 0
     assert full.shape == (1, 128) and (full == 0).all()
+    assert live.tolist() == [[5, 5]]           # every key live
+
+
+def _live_spans(live):
+    """The kernels' live range of each row of a [rows, sk] bool array of
+    live keys, by its definition: (sk - first, end) for the live keys'
+    span [first, end), (0, 0) for a row with none."""
+    sk = live.shape[1]
+    out = []
+    for row in live:
+        at = np.nonzero(row)[0]
+        out.append([sk - int(at[0]), int(at[-1]) + 1] if len(at) else [0, 0])
+    return out
+
+
+@pytest.mark.parametrize("kind", ["bool", "additive_inf", "additive_min",
+                                  "additive_1e9"])
+def test_key_range_matches_its_definition(kind):
+    """`_key_bias`'s live range against `_live_spans` on random masks:
+    runs of live and dead keys, rows with none, one key, a key first or
+    last.  A bool mask's padding is dead, so is an additive one's at
+    -inf or float32's minimum (clamped to -1e30); -1e9 is live."""
+    rng = np.random.RandomState(23)
+    b, sk = 12, 300
+    keep = rng.rand(b, sk) < rng.rand(b, 1)
+    keep &= rng.rand(b, sk) < 0.9 ** rng.randint(0, 40, (b, 1))
+    keep[0] = False
+    keep[1] = False
+    keep[1, 150] = True
+    keep[2] = False
+    keep[2, [0, sk - 1]] = True
+    keep[3] = True
+    if kind == "bool":
+        mask = torch.from_numpy(keep)
+    else:
+        pad = {"additive_inf": -np.inf, "additive_1e9": -1e9,
+               "additive_min": np.finfo(np.float32).min}[kind]
+        mask = torch.from_numpy(np.where(
+            keep, rng.randn(b, sk), pad).astype(np.float32))
+    q, k = torch.zeros(b, 4, 1, 8), torch.zeros(b, sk, 1, 8)
+    keys = fa._key_bias(mask[:, None, None, :], q, k, False)
+    assert keys.live.dtype == torch.int32 and keys.live.shape == (b, 2)
+    want = keep if kind != "additive_1e9" else np.ones_like(keep)
+    assert keys.live.tolist() == _live_spans(want)
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("sq,sk,causal", [(24, 40, False), (24, 40, True),
+                                          (40, 24, True)])
+def test_chip_smoke_counts_the_work_by_the_mask(sq, sk, causal):
+    """chip_smoke's bound of a masked case counts the (row, key) pairs
+    the function needs (`_flash_pairs`) and the K / V rows it reads
+    (`_flash_kv_rows`) by their definitions, on random spans of kept
+    keys (none kept, leading padding, holes): a pair is a kept key at or
+    before the row's bottom-right causal frontier; a sequence reads its
+    kept keys, or all sk where a row of it has none."""
+    cs = _chip_smoke()
+    rng = np.random.RandomState(sq + sk + causal)
+    lengths = [0, sk, [(sk - 3, sk)], [(0, 2), (sk - 5, sk - 1)]]
+    for _ in range(4):
+        a, z = sorted(rng.randint(0, sk + 1, 2))
+        lengths.append([(int(a), int(z))])
+    keep = _keep(lengths, sk)
+    b = len(lengths)
+    sees = np.arange(sq)[:, None] + sk - sq >= np.arange(sk)[None] \
+        if causal else np.ones((sq, sk), bool)
+    seen = keep[:, None, :] & sees[None]
+    assert cs._flash_pairs(b, sq, sk, causal, lengths) == int(seen.sum())
+    rows = sum(sk if not seen[i].any(-1).all() else int(keep[i].sum())
+               for i in range(b))
+    assert cs._flash_kv_rows(b, sq, sk, causal, lengths) == rows
+    assert cs._flash_pairs(b, sq, sk, causal) == int(sees.sum()) * b
+    assert cs._flash_kv_rows(b, sq, sk, causal) == b * sk
+
+
+def test_backward_takes_the_forwards_key_bias(monkeypatch):
+    """Under autograd the key bias and its live range are built once a
+    call: `_launch_bwd` hands the library the very tensors (pointers)
+    that `_launch_fwd` handed it, and `_key_bias` runs once."""
+    lib, made = _BiasLib(), []
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "cuda_device_index", lambda *t: 0)
+    monkeypatch.setattr(_build, "stream_of", lambda d: 0)
+    key_bias = fa._key_bias
+
+    def counted(*a):
+        made.append(key_bias(*a))
+        return made[-1]
+
+    monkeypatch.setattr(fa, "_key_bias", counted)
+    case = next(c for c in CASES if c[0] == "bool_mask_hole")
+    q, k, v, do, mask = _inputs(case, 9)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = fa._FlashAttention.apply(*leaves, False, 0.125, _t(mask))
+    (out * torch.from_numpy(do)).sum().backward()
+    assert len(made) == 1 and len(lib.ptrs) == 2
+    assert lib.ptrs[0] == lib.ptrs[1] == (made[0].bias.data_ptr(),
+                                          made[0].live.data_ptr())
+    assert lib.bias[0][2].tolist() == _live_spans(_keep(case[9], case[3]))
 
 
 def _meta(*shape, dtype=torch.float32):

@@ -324,9 +324,9 @@ class _FlashLib:
 
     def ptt_flash_fwd(self, *args):
         self._record("ptt_flash_fwd", args)
-        dev, code, q, k, v, bias, out, lse, b, sq, sk, h, hk, d, bstride, \
-            scale, causal, stream = args
-        assert bias is None and bstride == 0     # no mask
+        dev, code, q, k, v, bias, rng, out, lse, b, sq, sk, h, hk, d, \
+            bstride, scale, causal, stream = args
+        assert bias is None and rng is None and bstride == 0     # no mask
         dt = self.DTYPE[code]
         o, l = tops.plain_flash_fwd(
             _view(q, (b, sq, h, d), dt), _view(k, (b, sk, hk, d), dt),
@@ -337,9 +337,9 @@ class _FlashLib:
 
     def ptt_flash_bwd(self, *args):
         self._record("ptt_flash_bwd", args)
-        dev, code, q, k, v, bias, out, dout, lse, delta, dq, dk, dv, b, sq, \
-            sk, h, hk, d, bstride, scale, causal, stream = args
-        assert bias is None and bstride == 0     # no mask
+        dev, code, q, k, v, bias, rng, out, dout, lse, delta, dq, dk, dv, b, \
+            sq, sk, h, hk, d, bstride, scale, causal, stream = args
+        assert bias is None and rng is None and bstride == 0     # no mask
         dt = self.DTYPE[code]
         qs, ks = (b, sq, h, d), (b, sk, hk, d)
         o, g = _view(out, qs, dt), _view(dout, qs, dt)
@@ -379,17 +379,18 @@ def test_flash_launch_marshalling(monkeypatch, dt, causal):
     q, do = _t(_rand(rng, b, s, h, d), dt), _t(_rand(rng, b, s, h, d), dt)
     k, v = _t(_rand(rng, b, s, hk, d), dt), _t(_rand(rng, b, s, hk, d), dt)
     before = tops.launch_counts()
-    out, lse = fa._launch_fwd(q, k, v, causal, 0.125)
-    dq, dk, dv = fa._launch_bwd(q, k, v, out, lse, do, causal, 0.125)
+    keys = fa._key_bias(None, q, k, causal)
+    out, lse = fa._launch_fwd(q, k, v, causal, 0.125, keys)
+    dq, dk, dv = fa._launch_bwd(q, k, v, out, lse, do, causal, 0.125, keys)
     (fwd, af), (bwd, ab) = lib.calls
     code = _build.DTYPE_CODES[DT[dt][0]]
     assert (fwd, bwd) == ("ptt_flash_fwd", "ptt_flash_bwd")
     assert af == (0, code, q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
-                  out.data_ptr(), lse.data_ptr(), b, s, s, h, hk, d, 0,
+                  None, out.data_ptr(), lse.data_ptr(), b, s, s, h, hk, d, 0,
                   0.125, int(causal), 0)
-    delta, = [t for t in made if t.data_ptr() == ab[9]]
+    delta, = [t for t in made if t.data_ptr() == ab[10]]
     assert ab == (0, code, q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
-                  out.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                  None, out.data_ptr(), do.data_ptr(), lse.data_ptr(),
                   delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                   dv.data_ptr(), b, s, s, h, hk, d, 0, 0.125, int(causal), 0)
     assert delta.shape == (b, h, s) and delta.dtype == torch.float32
@@ -646,8 +647,12 @@ def test_rope_function_wiring(monkeypatch, per_slot):
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_attention_function_wiring(monkeypatch, causal):
     fa = tops.kernel_module("flash_attention")
-    monkeypatch.setattr(fa, "_launch_fwd", tops.plain_flash_fwd)
-    monkeypatch.setattr(fa, "_launch_bwd", tops.plain_flash_bwd)
+    # the launches take the call's keys (`_key_bias`), the plain
+    # versions its mask
+    monkeypatch.setattr(fa, "_launch_fwd", lambda *a:
+                        tops.plain_flash_fwd(*a[:-1], a[-1].mask))
+    monkeypatch.setattr(fa, "_launch_bwd", lambda *a:
+                        tops.plain_flash_bwd(*a[:-1], a[-1].mask))
     rng = np.random.RandomState(2)
     q, k, v = _rand(rng, 2, 24, 4, 64), _rand(rng, 2, 24, 2, 64), \
         _rand(rng, 2, 24, 2, 64)

@@ -7,8 +7,10 @@ bit for bit, the fp32 bodies to the plain versions, and both in time.
 OLD_CSRC holds the earlier tree's flash sources (`flash_attention*.cu`,
 `flash_attention*.cuh`, `hopper.cuh` and `common.cuh`) with this tree's C
 entry points (`ptt_flash_fwd` / `ptt_flash_bwd` as `_build._SIGNATURES` has
-them, key bias included: commit 4a6fc6d on), for example unpacked with
-`git archive b7e3c2e paddle_tpu_torch/csrc | tar -x --strip-components=2
+them, key bias included: commit 4a6fc6d on), or those without the key
+bias's live range (before it: found in the old flash_attention.cu and
+dropped from the calls), for example unpacked with
+`git archive ad85551 paddle_tpu_torch/csrc | tar -x --strip-components=2
 -C build/old`.  From the repo root, on one CUDA card: builds this tree's
 library (`_build.library()`) and the old flash sources alone (one nvcc a
 source, in parallel) into OLD_CSRC/libold.so, then launches both trees'
@@ -18,10 +20,12 @@ forward and backward on the same inputs:
     of `chip_smoke.FLASH_WIDE_CASES`): out, lse, dq, dk and dv must have
     identical bits (or, where `--changed` names the case, stay within
     `chip_smoke._flash_tolerances`, each output's share of it printed);
-    the shapes marked timed and the 17a cases also get each tree's
-    forward and backward time (`chip_smoke.time_ms`), old, new, new,
-    old, the 17a cases beside SDPA's and the bound at the bf16 rate,
-    with this tree's body (`kernel_plan`);
+    the shapes marked timed (the FIT bodies) and the 17a cases also get
+    each tree's forward and backward time (`chip_smoke.time_ms`), old,
+    new, new, old, the 17a cases (and `_walk_shapes`: the MASK bodies
+    at more batch sizes and widths) beside SDPA's and the bound at the
+    bf16 rate (bytes by the K / V rows of live keys, `chip_smoke.
+    _flash_kv_rows`), with this tree's body (`kernel_plan`);
   * fp32 shapes (`F32_SHAPES`, and the fp32 cases of `FLASH_WIDE_CASES`):
     each tree's outputs against the plain versions, as a share of
     `chip_smoke._flash_tolerances` (and of 1e-5 (1 + |lse|) for lse);
@@ -32,6 +36,9 @@ forward and backward on the same inputs:
     batch 32 of 224x224, AdamW in `TrainStep`): after a warm-up step,
     the wall of two steps with the old flash kernels and with the new
     (the rest of the library this tree's), old, new, new, old.
+  * phase 17d's masked BERT-base step (64 x 512, one sequence fully
+    padded): the flash kernels' device ms in one profiled step with the
+    old kernels and with the new, old, new, new, old.
 
 Prints the card's name and power limit, one JSON line a shape and a last
 line `{"ok": ...}`; exits 1 if a 16-bit output differs or an fp32 one
@@ -100,6 +107,25 @@ class _Mixed:
                        else self.new, name)
 
 
+# where the key bias's live range sits among the entry points' arguments
+# (after the bias pointer)
+RANGE_ARG = 6
+
+
+class _NoRange:
+    """An earlier library whose flash entry points take no live range:
+    each call's range pointer is dropped."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if name not in ("ptt_flash_fwd", "ptt_flash_bwd"):
+            return fn
+        return lambda *a: fn(*a[:RANGE_ARG], *a[RANGE_ARG + 1:])
+
+
 def main(old_dir, changed=()):
     import torch
     if not torch.cuda.is_available():
@@ -125,8 +151,15 @@ def main(old_dir, changed=()):
         for f in srcs]
     t0 = time.perf_counter()
     new = _build.library()
+    # the flash kernels whose registers spilled (ptxas -v), if any
+    lines = _build.build_info["log"].splitlines()
+    spills = [prev.strip().split()[-1] + ": " + x.strip()
+              for prev, x in zip([""] + lines, lines)
+              if "spill" in x and " 0 bytes spill stores" not in x
+              and "flash" in prev]
     print(json.dumps(dict(new_build_s=_build.build_info["seconds"],
-                          built=_build.build_info["built"])), flush=True)
+                          built=_build.build_info["built"], spills=spills)),
+          flush=True)
     for proc in builds:
         log = proc.communicate()[0]
         if proc.returncode:
@@ -142,10 +175,14 @@ def main(old_dir, changed=()):
     print(json.dumps(dict(old_sources=srcs, both_built_s=time.perf_counter()
                           - t0)), flush=True)
     old = ctypes.CDLL(old_so)
+    with open(os.path.join(old_dir, "flash_attention.cu")) as f:
+        ranged = "const void* range" in f.read()
     for name in ("ptt_flash_fwd", "ptt_flash_bwd"):
-        getattr(old, name).argtypes = list(_build._SIGNATURES[name])
+        sig = list(_build._SIGNATURES[name])
+        getattr(old, name).argtypes = sig if ranged else \
+            sig[:RANGE_ARG] + sig[RANGE_ARG + 1:]
         getattr(old, name).restype = ctypes.c_int
-    mixed = _Mixed(old, new)
+    mixed = _Mixed(old if ranged else _NoRange(old), new)
     fa = ops.kernel_module("flash_attention")
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev)
@@ -177,11 +214,14 @@ def main(old_dir, changed=()):
         m = None if mask is None else cs._flash_mask(torch, randn, mask,
                                                      lengths, sk, dev)
         sc = d ** -0.5
-        f = {t: on(lib, lambda: fa._launch_fwd(q, k, v, causal, sc, m))
+        # the call's key bias and live range, built once outside the timed
+        # launches (an old tree without the range drops it: `_NoRange`)
+        keys = fa._key_bias(m, q, k, causal)
+        f = {t: on(lib, lambda: fa._launch_fwd(q, k, v, causal, sc, keys))
              for t, lib in (("old", mixed), ("new", new))}
         outs = {t: f[t]() for t in f}
         bw = {t: on(lib, lambda t=t: fa._launch_bwd(q, k, v, *outs[t], do,
-                                                    causal, sc, m))
+                                                    causal, sc, keys))
               for t, lib in (("old", mixed), ("new", new))}
         grads = {t: bw[t]() for t in bw}
         same = [torch.equal(x, y) for x, y in zip(
@@ -213,7 +253,8 @@ def main(old_dir, changed=()):
                                                        "old")]
         if wide:
             rec.update(_library_and_bound(torch, cs, q, k, v, do, m, causal,
-                                          lengths, cs.BF16_FLOP_PER_S))
+                                          lengths, cs.BF16_FLOP_PER_S,
+                                          mask))
         print(json.dumps(rec), flush=True)
 
     def run_fp32(case, b, sq, sk, h, hk, d, causal=True, dtype="float32",
@@ -229,11 +270,12 @@ def main(old_dir, changed=()):
         rec = dict(case=case, shape=[b, sq, sk, h, hk, d], causal=causal,
                    dtype=dtype, mask=mask)
         f, bw = {}, {}
+        keys = fa._key_bias(m, q, k, causal)
         for t, lib in (("old", mixed), ("new", new)):
-            f[t] = on(lib, lambda: fa._launch_fwd(q, k, v, causal, sc, m))
+            f[t] = on(lib, lambda: fa._launch_fwd(q, k, v, causal, sc, keys))
             out, lse = f[t]()
             bw[t] = on(lib, lambda out=out, lse=lse: fa._launch_bwd(
-                q, k, v, out, lse, do, causal, sc, m))
+                q, k, v, out, lse, do, causal, sc, keys))
             grads = bw[t]()
             refs = ops.plain_flash_bwd(q, k, v, out, lse, do, causal, sc, m)
             tols = [tl for tl, _ in cs._flash_tolerances(
@@ -259,7 +301,8 @@ def main(old_dir, changed=()):
                     cs.time_ms(torch, fn[t]) for t in ("old", "new", "new",
                                                        "old")]
             rec.update(_library_and_bound(torch, cs, q, k, v, do, m, causal,
-                                          lengths, cs.TF32X3_FLOP_PER_S))
+                                          lengths, cs.TF32X3_FLOP_PER_S,
+                                          mask))
         print(json.dumps(rec), flush=True)
 
     for b, sq, sk, h, hk, d, causal, dtype, timed in SHAPES:
@@ -270,6 +313,9 @@ def main(old_dir, changed=()):
         if c.get("dtype", "bfloat16") != "float32":
             run_16bit(wide=True, **c)
         torch.cuda.empty_cache()
+    for c in _walk_shapes(cs):
+        run_16bit(wide=True, **c)
+        torch.cuda.empty_cache()
     for c in F32_SHAPES:
         run_fp32(**c)
     for c in cs.FLASH_WIDE_CASES:
@@ -278,15 +324,34 @@ def main(old_dir, changed=()):
         torch.cuda.empty_cache()
     print(json.dumps(dict(vit_b_16_two_steps_s_old_new_new_old=_vit_walls(
         torch, cs, dev, {"old": mixed, "new": new}, on))), flush=True)
+    torch.cuda.empty_cache()
+    print(json.dumps(dict(bert_flash_device_ms_old_new_new_old=_bert_flash(
+        torch, cs, dev, {"old": mixed, "new": new}, on))), flush=True)
     print(json.dumps({"ok": bool(ok)}))
     return 0 if ok else 1
 
 
-def _library_and_bound(torch, cs, q, k, v, do, m, causal, lengths, rate):
+def _walk_shapes(cs):
+    """The MASK bodies beyond 17a, timed like its cases: BERT's padding
+    (`chip_smoke._BERT_LENGTHS`) over fewer sequences, so fewer query
+    tiles an SM, and random lengths at the widths 128 and 192."""
+    rs = np.random.RandomState(20)
+    bert = [dict(case=f"bert bool, {b} sequences", b=b, sq=512, sk=512,
+                 h=12, hk=12, d=64, causal=False, mask="bool",
+                 lengths=cs._BERT_LENGTHS[:b]) for b in (8, 16, 32)]
+    return bert + [dict(case=f"d{d} bool", b=8, sq=1024, sk=1024, h=h, hk=h,
+                        d=d, causal=False, mask="bool",
+                        lengths=[int(n) for n in rs.randint(1, 1025, 8)])
+                   for d, h in ((128, 16), (192, 8))]
+
+
+def _library_and_bound(torch, cs, q, k, v, do, m, causal, lengths, rate,
+                       kind=None):
     """SDPA's forward and backward times on the same inputs (an explicit
     mask for a key-padding mask and for causal with sq != sk) and the
-    bound of the work at d: bytes at the memory rate or operations at
-    `rate`, whichever is longer."""
+    bound of the work at d: bytes at the memory rate (the K / V rows of
+    live keys read, as `chip_smoke._flash_case` counts them) or
+    operations at `rate`, whichever is longer."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -308,10 +373,12 @@ def _library_and_bound(torch, cs, q, k, v, do, m, causal, lengths, rate):
     flops = 4 * h * cs._flash_pairs(b, sq, sk, causal, lengths) * d
     stats = b * h * sq * (2 if m is not None or causal and sq > sk else 1)
     es = q.element_size()
+    kv = cs._flash_kv_rows(b, sq, sk, causal, cs._flash_live(kind, lengths)) \
+        * k.shape[2] * d
     rec["bound_fwd_ms"] = cs.bound(
-        (2 * q.numel() + 2 * k.numel()) * es + stats * 4, flops, rate)
+        (2 * q.numel() + 2 * kv) * es + stats * 4, flops, rate)
     rec["bound_bwd_ms"] = cs.bound(
-        (4 * q.numel() + 4 * k.numel()) * es + 2 * stats * 4,
+        (4 * q.numel() + 2 * kv + 2 * k.numel()) * es + 2 * stats * 4,
         5 * flops // 2, rate)
     return rec
 
@@ -340,6 +407,36 @@ def _vit_walls(torch, cs, dev, libs, on):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     return walls
+
+
+def _bert_flash(torch, cs, dev, libs, on):
+    """Phase 17d's masked BERT-base step (`bench_bert`'s 64 x 512, a
+    keep-mask of `chip_smoke._BERT_LENGTHS`, AdamW in `TrainStep`): after
+    a warm-up step, one profiled step with each library in turns old,
+    new, new, old, and the flash kernels' device ms in it
+    (`chip_smoke.train_trace`)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import BertForMaskedLM, bert_base_config
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = bert_base_config(dtype="bfloat16")
+    model = BertForMaskedLM(cfg, device=dev, seed=17)
+    b, sq = cs.BERT_BATCH, cs.BERT_SEQ
+    rng = np.random.RandomState(17)
+    keep = (np.arange(sq)[None] < np.array(cs._BERT_LENGTHS)[:, None]
+            ).astype(np.int32)
+    ids = rng.randint(0, cfg.vocab_size, (b, sq)).astype(np.int32)
+    labels = np.where(keep > 0, ids, -100).astype(np.int32)
+    types = np.zeros((b, sq), np.int32)
+    step = TrainStep(model, model.compute_loss,
+                     AdamW(cs.BERT_LR, parameters=model.parameters(),
+                           weight_decay=cs.BERT_WD))
+    step(ids, types, keep, labels).item()
+    ms = []
+    for t in ("old", "new", "new", "old"):
+        trace = on(libs[t], lambda: cs.train_trace(
+            torch, lambda *_: step(ids, types, keep, labels), None, 1.0))()
+        ms.append(trace["by_kind_ms"]["flash_attention"])
+    return ms
 
 
 if __name__ == "__main__":

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """What the 16-bit flash kernels' loops are made of, from their SASS.
 
-    python3 tools/flash_sass.py [NAME_PART ...]
+    python3 tools/flash_sass.py [--lib SO] [NAME_PART ...]
 
 On a machine with the CUDA toolkit: builds the kernel library
-(`_build.library()`), disassembles it with `cuobjdump -sass`, and for each
+(`_build.library()`), or takes the shared library SO (another tree's
+flash kernels, such as the `libold.so` that tools/flash_parent_ab.py
+builds), disassembles it with `cuobjdump -sass`, and for each
 bf16 flash kernel (`flash_fwd_wgmma`, `flash_dq_wgmma`, `flash_dkv_wgmma`)
 whose mangled name holds every NAME_PART (default: the UNet's narrow d80
 body, `Li128ELi80E`, and the width-128 FIT body, `Li128ELi128ELb0ELb1E`)
@@ -56,7 +58,10 @@ def main_loop(ins):
 def main(parts):
     sys.path.insert(0, os.getcwd())
     from paddle_tpu_torch.ops import _build
-    lib = str(_build.build())
+    if parts[:1] == ["--lib"]:
+        lib, parts = parts[1], parts[2:]
+    else:
+        lib = str(_build.build())
     cuobj = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobj, "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
@@ -69,7 +74,8 @@ def main(parts):
             continue
         ins = _instructions(body)
         loop = main_loop(ins)
-        rec = dict(kernel=name, instructions=len(ins))
+        rec = dict(lib=os.path.basename(lib), kernel=name,
+                   instructions=len(ins))
         if loop:
             inside = [op for a, op, _ in ins if loop[0] <= a <= loop[1]]
             rec.update(loop_instructions=len(inside),
